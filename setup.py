@@ -10,8 +10,14 @@ setup(
         "TPU-native point-cloud vision framework for robotic RL "
         "(JAX/XLA/Pallas)"
     ),
-    packages=find_packages(include=["pointcloud_tpu", "pointcloud_tpu.*"]),
-    package_data={"pointcloud_tpu.rl": ["tqc.yml"]},
+    packages=find_packages(include=[
+        "pointcloud_tpu", "pointcloud_tpu.*",
+        "pointcloud_tpu_torch", "pointcloud_tpu_torch.*",
+    ]),
+    package_data={
+        "pointcloud_tpu.rl": ["tqc.yml"],
+        "pointcloud_tpu_torch": ["csrc/*.cu"],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",
