@@ -18,6 +18,8 @@ torch.backends.cudnn.allow_tf32 = False
 # on the card. 'fp32' forces full precision everywhere.
 precision = "bf16-mixed"
 
+vision_lr = 1e-3  # Adam's learning rate (pointcloud_tpu/cfg.py:49)
+
 
 def compute_dtype(device) -> torch.dtype | None:
     """Model activation dtype implied by `precision` on `device`.

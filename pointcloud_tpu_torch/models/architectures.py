@@ -86,7 +86,7 @@ class PCEncoder(nn.Module):
                          output_activation, dtype=dtype)
 
     def forward(self, x, train: bool = False, mask=None):
-        return self.MLP_0(self.backbone(x, train=train, mask=mask))
+        return self.MLP_0(self.backbone(x, train=train, mask=mask), train=train)
 
 
 class PCEncoderDecoder(nn.Module):

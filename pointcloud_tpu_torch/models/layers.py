@@ -1,5 +1,5 @@
-"""The flax layers the port's models are built from: Dense and BatchNorm
-(eval mode), with flax's parameter names, dtype rules and initialisers.
+"""The flax layers the port's models are built from: Dense and BatchNorm,
+with flax's parameter names, dtype rules and initialisers.
 
 Parameter names follow flax, except that a Dense kernel is stored as
 `weight (out, in)`, PyTorch's layout, where flax keeps `kernel (in, out)`;
@@ -15,12 +15,6 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-TRAIN_SLICE = (
-    "train=True is not ported yet: BatchNorm batch statistics and the "
-    "training kernels come with the port's training slice"
-)
-
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
     """flax's lecun_normal for a (out, in) weight: truncated normal at two
@@ -62,10 +56,34 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
+def batch_stats(x):
+    """flax's train-mode BatchNorm statistics (use_fast_variance): fp32
+    mean and biased variance over all axes but the last, the variance
+    E[x^2] - E[x]^2 clamped at 0."""
+    xf = x.float()
+    red = tuple(range(x.dim() - 1))
+    mean = xf.mean(dim=red)
+    var = torch.clamp(torch.mean(xf * xf, dim=red) - mean * mean, min=0.0)
+    return mean, var
+
+
+MOMENTUM = 0.9  # every BatchNorm of the JAX package
+
+
+def update_running_stats(module: nn.Module, mean, var):
+    """flax's running-average update, in place and outside autograd:
+    MOMENTUM weights the OLD value and the biased batch variance is kept
+    (torch.nn.BatchNorm weights the new one and keeps an unbiased one)."""
+    with torch.no_grad():
+        module.mean.copy_(MOMENTUM * module.mean + (1.0 - MOMENTUM) * mean)
+        module.var.copy_(MOMENTUM * module.var + (1.0 - MOMENTUM) * var)
+
+
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm(use_running_average=True, epsilon=1e-5) over the last
-    axis: fp32 normalisation with the running statistics, result cast to
-    `dtype` (or to the promoted dtype of input and parameters)."""
+    """flax nn.BatchNorm(use_running_average=not train, momentum=0.9,
+    epsilon=1e-5) over the last axis: fp32 normalisation, result cast to
+    `dtype` (or to the promoted dtype of input and parameters). In train mode
+    it normalises with the batch statistics and updates the running ones."""
 
     def __init__(self, features: int, dtype=None, epsilon: float = 1e-5):
         super().__init__()
@@ -85,10 +103,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         if train:
-            raise NotImplementedError(TRAIN_SLICE)
+            mean, var = batch_stats(x)
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.mean, self.var
         # flax _normalize's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        y = x - self.mean
-        y = y * (torch.rsqrt(self.var + self.epsilon) * self.scale) + self.bias
+        y = x - mean
+        y = y * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
         return y.to(self.dtype or _promoted(x, self.scale, self.bias))
 
 

@@ -1,4 +1,4 @@
-"""PointNet encoder, eval mode (port of pointcloud_tpu/models/pointnet.py).
+"""PointNet encoder (port of pointcloud_tpu/models/pointnet.py).
 
 A spatial transformer (STN) predicts a 3x3 transform for the xyz coords
 (the other feature dims pass through), a 64-d feature STN transforms
@@ -10,9 +10,12 @@ Child modules carry the flax names (`Dense_0`, `BatchNorm_1`,
 `PointwiseMLP_0`, ...), so a state_dict key is the flax path of the same
 variable (interop.py).
 
-Only eval mode is ported: `train=True` raises. In eval the JAX package's
-DenseBNMaxPool takes its plain matmul + pool branch, so no TPU kernel runs in
-this module.
+In eval, DenseBNMaxPool takes the plain matmul + pool, as the JAX package
+does. In train mode it always goes through `dense_pool_stats` (the CUDA
+kernels on the card, the plain version on the CPU): the JAX package's 2e8
+element threshold (pointnet.py:189-197) was measured on a TPU and does not
+carry over. BatchNorm statistics in train mode include masked points, as in
+the JAX package (check_train_mask_contract).
 """
 
 from __future__ import annotations
@@ -21,11 +24,13 @@ import torch
 from torch import nn
 
 from pointcloud_tpu_torch.models.layers import (
-    TRAIN_SLICE,
     BatchNorm,
     Dense,
+    batch_stats,
     lecun_normal_,
+    update_running_stats,
 )
+from pointcloud_tpu_torch.ops.dense_bn_pool import dense_pool_stats
 
 # Large negative value for the masked max-pool (valid activations are far
 # smaller in magnitude).
@@ -72,9 +77,11 @@ def _normalize_pooled(sel, mean, var, scale, offset, eps, dt, final_relu, mask):
 class BNMaxPool(BatchNorm):
     """BatchNorm + (optional ReLU) + max-pool over axis -2, pooled first.
 
-    Exactly `max(where(mask, relu?(BatchNorm(x)), -1e9), axis=-2)` with the
-    running statistics. Rows whose mask is all False return -1e9. Its
-    variables are BatchNorm's.
+    Exactly `max(where(mask, relu?(BatchNorm(x)), -1e9), axis=-2)`: with the
+    running statistics in eval, with the batch statistics (all points,
+    masked ones included) in train mode, which also updates the running
+    ones. Rows whose mask is all False return -1e9. Its variables are
+    BatchNorm's.
     """
 
     def __init__(self, features: int, final_relu: bool = False,
@@ -84,12 +91,14 @@ class BNMaxPool(BatchNorm):
 
     def forward(self, x, train: bool = False, mask=None):
         if train:
-            raise NotImplementedError(TRAIN_SLICE)
+            mean, var = batch_stats(x)
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.mean, self.var
         sel = _pool_select(x, mask, self.scale)
         dt = self.dtype or sel.dtype
-        return _normalize_pooled(sel, self.mean, self.var, self.scale,
-                                 self.bias, self.epsilon, dt, self.final_relu,
-                                 mask)
+        return _normalize_pooled(sel, mean, var, self.scale, self.bias,
+                                 self.epsilon, dt, self.final_relu, mask)
 
 
 class DenseBNMaxPool(nn.Module):
@@ -98,7 +107,9 @@ class DenseBNMaxPool(nn.Module):
     Input (..., R, Cin): 3-D pools the whole R axis -> (..., C); 4-D
     (B, S, K, Cin) pools K per group -> (B, S, C). mask matches the input
     minus the channel dim. The BN parameters are `scale` and `offset`, the
-    Dense bias is `bias`, as in flax.
+    Dense bias is `bias`, as in flax. In train mode the product, the batch
+    statistics (over all rows, masked ones included) and the pool come from
+    `dense_pool_stats`, so the (..., R, C) pre-pool tensor is never stored.
     """
 
     def __init__(self, in_features: int, features: int,
@@ -123,16 +134,38 @@ class DenseBNMaxPool(nn.Module):
         nn.init.ones_(self.var)
 
     def forward(self, x, train: bool = False, mask=None):
-        if train:
-            raise NotImplementedError(TRAIN_SLICE)
         dt = self.dtype or x.dtype
-        z = torch.nn.functional.linear(
-            x.to(dt), self.weight.to(dt), self.bias.to(dt)
-        )
-        sel = _pool_select(z, mask, self.scale)  # (*lead, C)
-        return _normalize_pooled(sel, self.mean, self.var, self.scale,
-                                 self.offset, self.epsilon, dt,
-                                 self.final_relu, mask)
+        if not train:
+            z = torch.nn.functional.linear(
+                x.to(dt), self.weight.to(dt), self.bias.to(dt)
+            )
+            sel = _pool_select(z, mask, self.scale)  # (*lead, C)
+            return _normalize_pooled(sel, self.mean, self.var, self.scale,
+                                     self.offset, self.epsilon, dt,
+                                     self.final_relu, mask)
+
+        C = self.weight.shape[0]
+        lead = x.shape[:-2]
+        pool = x.shape[-2]
+        n_rows = x.numel() // x.shape[-1]  # all rows, masked ones included
+        # (B, S, K, Cin): K-blocks within each batch row; (B, R, Cin): one
+        # block spanning all R rows
+        xr = x.reshape(x.shape[0], -1, x.shape[-1]) if x.dim() == 4 else x
+        B2, R = xr.shape[:2]
+        pen = (None if mask is None else torch.where(
+            mask.reshape(B2, R), 0.0, 1e9).float())
+        # the kernel pools sign*z once; un-signing is exact and equals
+        # where(scale >= 0, max z, min z)
+        sgn = torch.where(self.scale >= 0, 1.0, -1.0).float().detach()
+        psel, _, ssum, ssq = dense_pool_stats(
+            xr.to(dt).contiguous(), self.weight.t().to(dt).contiguous(),
+            self.bias.to(dt), sgn, pen, pool)
+        sel = (sgn.to(dt) * psel).reshape(*lead, C)
+        mean = ssum / float(n_rows)
+        var = torch.clamp(ssq / float(n_rows) - mean * mean, min=0.0)
+        update_running_stats(self, mean, var)
+        return _normalize_pooled(sel, mean, var, self.scale, self.offset,
+                                 self.epsilon, dt, self.final_relu, mask)
 
 
 class PointwiseMLP(nn.Module):
@@ -229,16 +262,12 @@ class PointNetEncoder(nn.Module):
         return x
 
     def forward(self, x, train: bool = False, mask=None):
-        if train:
-            raise NotImplementedError(TRAIN_SLICE)
         x = self._point_features(x, train, mask)
         x = self.mlp1(x, train=train)
         return self.dbnpool2(x, train=train, mask=mask)  # (B, 1024)
 
     def forward_all_features(self, x, train: bool = False, mask=None):
         """Per-point (64-d) + tiled global features, (B, N, 64 + 1024)."""
-        if train:
-            raise NotImplementedError(TRAIN_SLICE)
         pointfeat = self._point_features(x, train, mask)
         x = self.mlp1(pointfeat, train=train)
         # relu commutes with the max-pool; re-assert the all-masked sentinel

@@ -1,13 +1,14 @@
 """Build the port's CUDA sources and load them with ctypes.
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
-into its own shared library under `build/` at the root of the checkout:
+into its own shared library under `build/` at the root of the checkout (the
+`csrc/*.cuh` headers are included, not built on their own):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is reused. `build()` starts one `nvcc` per
+The file name carries a hash of the source, the headers and the flags, so an
+edited source is rebuilt and an unchanged one is reused. `build()` starts one `nvcc` per
 missing library, all at once, and waits for them together. Nothing here runs
 at import: the CPU tests import every module, and this machine may have no
 CUDA toolkit at all.
@@ -54,8 +55,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the shared headers (csrc/*.cuh) are part of every source's hash
+    parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
+                            + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

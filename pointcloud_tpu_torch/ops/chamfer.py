@@ -10,16 +10,27 @@ compete as targets nor count in the point means.
 
 The 'matmul' method goes through `nn_sweep` (the CUDA kernel on the card, its
 plain version on the CPU), so the (B, N, M) cost matrix is never stored on
-the card. The JAX package's ring routing of giant clouds across chips
-(chamfer.py:249-257) is not ported: this function always runs on one device.
+the card; its backward goes through `chamfer_bwd` or, for large clouds, the
+`scatter_rows` segment-sum. The JAX package's ring routing of giant clouds
+across chips (chamfer.py:249-257) is not ported: this function always runs
+on one device.
 """
 
 from __future__ import annotations
 
 import torch
 
+from pointcloud_tpu_torch.ops.chamfer_bwd import chamfer_bwd, nn_terms
 from pointcloud_tpu_torch.ops.geometry import _BIG, pairwise_sqdist
 from pointcloud_tpu_torch.ops.nn_sweep import MAX_DIMS, nn_sweep
+from pointcloud_tpu_torch.ops.scatter_rows import scatter_rows
+
+# Cost elements of one cloud pair (N * M) up to which the backward takes the
+# fused `chamfer_bwd`; above it, gathers + two `scatter_rows` segment-sums.
+# The JAX package's switch (chamfer.py:110), kept so that both packages take
+# the same route at the same size; its reason there (the TPU kernel's VMEM)
+# does not hold on the card, and chip_smoke.py times both routes.
+FUSED_BWD_MAX_ELEMENTS = 6 << 20
 
 
 def _masked_mean(values, mask, dim: int):
@@ -31,21 +42,49 @@ def _masked_mean(values, mask, dim: int):
     return total / count
 
 
+def nn_grads_segment_sum(x, y, gx, gy, amin_x, amin_y):
+    """The backward's route above the switch: gathers and elementwise terms,
+    then dx = scatter_rows(-ty, amin_y, N, init=tx) and dy symmetrically
+    (the JAX package's composition, chamfer.py:133-138, :185-186)."""
+    tx, ty = nn_terms(x, y, gx, gy, amin_x, amin_y)
+    dx = scatter_rows(-ty, amin_y, x.shape[1], init=tx)
+    dy = scatter_rows(-tx, amin_x, y.shape[1], init=ty)
+    return dx, dy
+
+
+class _NearestNeighborDists(torch.autograd.Function):
+    """nn_sweep forward; the backward routes each cotangent through the
+    matched pair (pointcloud_tpu/ops/chamfer.py:84-138, :194)."""
+
+    @staticmethod
+    def forward(ctx, x, y, x_mask, y_mask):
+        min_x, amin_x, min_y, amin_y = nn_sweep(x, y, x_mask, y_mask)
+        ctx.save_for_backward(x, y, amin_x, amin_y, x_mask, y_mask)
+        return min_x, min_y
+
+    @staticmethod
+    def backward(ctx, gx, gy):
+        x, y, amin_x, amin_y, x_mask, y_mask = ctx.saved_tensors
+        # masked rows carry 1e10 distances; their cotangents are zero in the
+        # Chamfer means, and are zeroed here as in the JAX package
+        if x_mask is not None:
+            gx = gx * x_mask
+        if y_mask is not None:
+            gy = gy * y_mask
+        args = (x, y, gx.float().contiguous(), gy.float().contiguous(),
+                amin_x, amin_y)
+        if x.shape[1] * y.shape[1] <= FUSED_BWD_MAX_ELEMENTS:
+            dx, dy = chamfer_bwd(*args)
+        else:
+            dx, dy = nn_grads_segment_sum(*args)
+        return dx.to(x.dtype), dy.to(y.dtype), None, None
+
+
 def nearest_neighbor_dists(x, y, x_mask=None, y_mask=None):
     """(min_x (B, N), min_y (B, M)) squared nearest-neighbour distances of
-    x (B, N, C) and y (B, M, C), C <= 8, under bool validity masks.
-
-    Forward only: the backward kernel (pointcloud_tpu's
-    chamfer_nn_bwd_pallas) comes with the training slice of the port.
-    """
-    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
-        raise NotImplementedError(
-            "nearest_neighbor_dists has no backward yet: its autograd.Function "
-            "and backward kernel come with the port's training slice; call it "
-            "under torch.no_grad() or torch.inference_mode()"
-        )
-    min_x, _, min_y, _ = nn_sweep(x, y, x_mask, y_mask)
-    return min_x, min_y
+    x (B, N, C) and y (B, M, C), C <= 8, under bool validity masks, with
+    gradients to x and y (none to the masks)."""
+    return _NearestNeighborDists.apply(x, y, x_mask, y_mask)
 
 
 def masked_chamfer(x, y, x_mask=None, y_mask=None, method: str = "matmul"):

@@ -1,11 +1,12 @@
-"""Model wiring and the eval step (port of pointcloud_tpu/train/harness.py
-:57-126 and :371-386).
+"""Model wiring, the train step and the eval step (port of
+pointcloud_tpu/train/harness.py:57-126 and :336-386).
 
 `create_model` builds the model + loss + transforms of one configuration on
-one device; `make_eval_step` returns the eval forward + loss. Only the
-Autoencoder / PointNet / Chamfer configuration is ported so far; the other
-model types, the EMD loss, datasets, checkpoints and the train step come in
-later slices and raise here.
+one device; `make_optimizer` and `make_train_step` give the training step
+(forward in train mode, loss, backward, Adam); `make_eval_step` returns the
+eval forward + loss. Only the Autoencoder / PointNet / Chamfer configuration
+is ported so far; the other model types, the EMD loss, datasets, the train()
+loop and checkpoints come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from pointcloud_tpu_torch.transforms import Normalize
 class TrainSpec:
     """Everything a step needs for one model configuration."""
 
-    model: nn.Module  # on its device, in eval mode
+    model: nn.Module  # on its device; steps pass train= explicitly
     loss: Any  # loss object (callable, with .log hook)
     in_transform: Any  # (pc, mask) -> (pc, mask) for input clouds
     out_transform: Any  # the same for target clouds
@@ -90,6 +91,50 @@ def create_model(
         scene_name=scene,
         scene=sc,
     )
+
+
+def make_optimizer(spec: TrainSpec) -> torch.optim.Optimizer:
+    """Adam over the model's parameters, as optax.adam(cfg.vision_lr): betas
+    (0.9, 0.999), eps 1e-8 added outside the square root, bias-corrected."""
+    return torch.optim.Adam(spec.model.parameters(), lr=cfg.vision_lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_train_step(spec: TrainSpec, optimizer: torch.optim.Optimizer):
+    """step(x_raw, y_raw) -> (loss, logs): the transforms, the forward in
+    train mode (BatchNorm batch statistics; the running statistics are
+    updated), the loss with its `.log` hook, the backward and the optimizer
+    step. Parameters, running statistics and optimizer state are updated in
+    place, PyTorch's counterpart of the JAX step's donated buffers."""
+
+    def step(x_raw, y_raw):
+        x, _ = spec.in_transform(x_raw)
+        y, _ = spec.out_transform(y_raw)
+        logs = {}
+        spec.loss.log = lambda k, v: logs.__setitem__(k, v)
+        out = spec.model(x, train=True)
+        loss = spec.loss(out, y)
+        spec.loss.log = _noop_log
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), logs
+
+    return step
+
+
+def zero_gradient_bias(name: str) -> bool:
+    """True for the state_dict name of a Dense bias that feeds a train-mode
+    BatchNorm (the PointwiseMLP and STN Dense_0/Dense_1 biases, every
+    DenseBNMaxPool bias): the batch mean removes it, so its true gradient is
+    exactly 0 and a computed one is round-off. Checks of gradients and of
+    Adam's steps treat these apart."""
+    return name.endswith("bias") and (
+        ("PointwiseMLP" in name or name.startswith("encoder.backbone.mlp"))
+        and ".Dense_" in name
+        or ("DenseBNMaxPool" in name or "dbnpool" in name)
+        or (".stn." in name or ".fstn." in name)
+        and name.split(".")[-2] in ("Dense_0", "Dense_1"))
 
 
 def make_eval_step(spec: TrainSpec):

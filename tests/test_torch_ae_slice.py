@@ -178,7 +178,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pointcloud_tpu_torch, pointcloud_tpu_torch.ops, "
         "pointcloud_tpu_torch.models, pointcloud_tpu_torch.train, "
-        "pointcloud_tpu_torch.interop, pointcloud_tpu_torch.losses\n"
+        "pointcloud_tpu_torch.interop, pointcloud_tpu_torch.losses, "
+        "pointcloud_tpu_torch.ops.scatter_rows, "
+        "pointcloud_tpu_torch.ops.chamfer_bwd, "
+        "pointcloud_tpu_torch.ops.dense_bn_pool\n"
+        "from pointcloud_tpu_torch.train import make_train_step\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "
         "'pointcloud_tpu.'))]\n"

@@ -77,15 +77,21 @@ def test_matches_exact_oracle():
     assert abs(got - want) <= TOL
 
 
-def test_requires_grad_raises_until_training_slice():
+def test_requires_grad_gives_gradients():
+    """nearest_neighbor_dists and chamfer_distance are differentiable: the
+    gradient of each point is twice its offset to its nearest neighbour,
+    scaled by the means (the JAX gradients are held in
+    tests/test_torch_chamfer_bwd.py)."""
     x = torch.rand(1, 16, 3, requires_grad=True)
     y = torch.rand(1, 16, 3)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        chamfer_distance(x, y)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        nearest_neighbor_dists(y, x)
-    with torch.no_grad():  # no backward needed: the forward runs
-        assert torch.isfinite(chamfer_distance(x, y))
+    mx, _ = nearest_neighbor_dists(x, y)
+    mx.sum().backward()
+    d = ((x.detach()[:, :, None] - y[:, None]) ** 2).sum(-1)
+    near = y[0, d[0].argmin(dim=1)]
+    torch.testing.assert_close(x.grad[0], 2 * (x.detach()[0] - near))
+    x.grad = None
+    chamfer_distance(x, y).backward()
+    assert x.grad.shape == x.shape and torch.isfinite(x.grad).all()
 
 
 def test_unknown_options_raise():

@@ -128,9 +128,22 @@ def test_masked_max_and_all_masked_sentinel():
     assert (out[0] == -1e9).all() and (out[1] != -1e9).all()
 
 
-def test_train_mode_raises_until_training_slice():
+def test_train_mode_updates_running_stats_and_eval_does_not():
+    """train=True normalises with the batch statistics and moves the running
+    ones (flax's 0.9 / 0.1 update); eval leaves them alone (the JAX train-mode
+    parity is in tests/test_torch_pointnet_train.py)."""
     encoder = tpn.PointNetEncoder()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        encoder(torch.rand(1, 8, 6), train=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tpn.DenseBNMaxPool(6, 8)(torch.rand(1, 8, 6), train=True)
+    init_flax_(encoder, torch.Generator().manual_seed(0))
+    x = torch.rand(2, 8, 6)
+    before = {k: b.clone() for k, b in encoder.named_buffers()}
+    encoder(x)
+    assert all(torch.equal(b, before[k]) for k, b in encoder.named_buffers())
+    out = encoder(x, train=True)
+    assert out.shape == (2, 1024) and torch.isfinite(out).all()
+    moved = [k for k, b in encoder.named_buffers() if not torch.equal(b, before[k])]
+    assert sorted(moved) == sorted(before)
+    pool = tpn.DenseBNMaxPool(6, 8)
+    init_flax_(pool, torch.Generator().manual_seed(1))
+    pool(x, train=True)
+    z = x.reshape(-1, 6) @ pool.weight.t() + pool.bias
+    torch.testing.assert_close(pool.mean, 0.1 * z.mean(0).detach())

@@ -40,3 +40,51 @@ def random_variables(variables, rng):
 
 def to_np(t):
     return np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t)
+
+
+def train_mode_pair(jmod, tmod, variables, x, seed, jtrain=None, **kw):
+    """Train-mode forward of the flax module `jmod` and the port's `tmod` on
+    the same variables (already loaded into `tmod`) and input `x`, with the
+    loss sum(out * r) for a fixed random r. `jtrain` is the flax module's
+    train-mode argument (default train=True).
+
+    Returns {"jax": (out, grads, batch_stats, dx), "port": (...)}, each as
+    numpy arrays; grads and batch_stats are state_dict-keyed dicts (flax
+    names mapped through interop)."""
+    import jax
+    import jax.numpy as jnp
+
+    from pointcloud_tpu_torch.interop import flax_to_state_dict
+
+    jx = jnp.asarray(x)
+    jtrain = {"train": True} if jtrain is None else jtrain
+    out_shape = jax.eval_shape(
+        lambda p: jmod.apply({**variables, "params": p}, jx, **jtrain,
+                             mutable=["batch_stats"], **kw)[0],
+        variables["params"]).shape
+    r = np.random.default_rng(seed).standard_normal(out_shape).astype(np.float32)
+    jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+
+    def loss(params, xin):
+        out, mutated = jmod.apply({**variables, "params": params}, xin,
+                                  **jtrain, mutable=["batch_stats"], **jkw)
+        return jnp.sum(out.astype(jnp.float32) * r), (out, mutated)
+
+    (_, (jout, mutated)), (jgrads, jdx) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(variables["params"], jx)
+    jstats = {k: to_np(v) for k, v in flax_to_state_dict(
+        {"batch_stats": jax.tree_util.tree_map(np.asarray, mutated["batch_stats"])}
+    ).items()}
+    jgr = {k: to_np(v) for k, v in flax_to_state_dict(
+        {"params": jax.tree_util.tree_map(np.asarray, jgrads)}).items()}
+
+    tx = torch.from_numpy(np.array(x)).requires_grad_()
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+           for k, v in kw.items()}
+    tout = tmod(tx, train=True, **tkw)
+    (tout.float() * torch.from_numpy(r)).sum().backward()
+    tgr = {k: to_np(p.grad) for k, p in tmod.named_parameters()}
+    tstats = {k: to_np(b) for k, b in tmod.named_buffers()}
+    return {"jax": (np.asarray(jout), jgr, jstats, np.asarray(jdx)),
+            "port": (to_np(tout), tgr, tstats, to_np(tx.grad))}
