@@ -8,8 +8,10 @@ lines:
   1. build every kernel in pointcloud_tpu_torch/csrc/ (one nvcc each, in
      parallel) into build/, or reuse the build;
   2. hold each kernel against its plain PyTorch version on the card (masks,
-     fully masked rows, exact ties, bf16 and fp32) and run each new kernel
-     twice on the same inputs: the results must be bit-equal;
+     fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
+     equal indices, empty balls, k not a multiple of 8, the shared-memory
+     and global paths) and run each kernel twice on the same inputs: the
+     results must be bit-equal;
   3. the eval path at full width: create_model("Autoencoder", "PointNet",
      "Cube", loss_override="chamfer") and its eval step at B=512 x 2048
      points x 6 dims (bf16 activations), plus `encode` on one cloud;
@@ -18,16 +20,21 @@ lines:
      10 chained steps;
   5. the segment-sum route of the Chamfer backward: chamfer_distance(x, y)
      .backward() at B=4, N=M=4096, C=6 (above the 6<<20 switch);
-  6. check the outputs: finite values of the right shapes, the kernel-path
-     loss vs the plain version's, and the fp32 model's eval step and train
-     step, and the STN heads in train mode on distinct clouds, on the card
-     vs on the CPU;
-  7. hold each kernel against its plain version again at its path's shapes
-     and inputs, then time it there beside its plain version, a library
-     yardstick and its bound; both Chamfer backward routes at the train
-     step's shapes; the eval step's and the train step's parts.
-For each path (3, 4, 5) every kernel's launch count is set to 0 just before
-and read just after. The last three lines of standard output are
+  6. the PointNet2 path at full width: create_model("Autoencoder",
+     "PointNet2", "Cube", loss_override="chamfer") and its eval step at
+     B=256 x 2048 x 6 (bf16), `encode` on one cloud, and the sensor's
+     FilterBBox -> SampleFurthestPoints(2048) on one cloud of 3 cameras x
+     256 x 256 points (its FPS indices card vs CPU equal);
+  7. check the outputs: finite values of the right shapes, the kernel-path
+     loss vs the plain version's, and the fp32 models' eval steps (PointNet
+     and PointNet2) and PointNet train step, and the STN heads in train mode
+     on distinct clouds, on the card vs on the CPU.
+Within phases 3-6 each kernel is held against its plain version again at
+its path's shapes and inputs, then timed there beside its plain version, a
+library yardstick and its bound, with both Chamfer backward routes at the
+train step's shapes and the parts of each step. For each path (3, 4, 5, 6,
+encode, the sensor chain) every kernel's launch count is set to 0 just
+before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
 JSON object. Imports nothing of JAX or of the JAX package.
 """
@@ -54,6 +61,7 @@ ITERS = 20  # chained eval steps after the first
 B_TRAIN = 256  # bench.py's train batch
 TRAIN_ITERS = 10  # chained train steps after the warm-up step
 B_ROUTE, P_ROUTE = 4, 4096  # 16.8M cost elements per cloud: the segment-sum route
+B_PN2 = 256  # bench.py's PointNet2 batch
 
 
 def log(*a):
@@ -85,15 +93,18 @@ def bound(ops, nbytes, peak_ops):
 
 def counters():
     from pointcloud_tpu_torch.ops import (
+        ball_group,
         chamfer_bwd,
         dense_pool_stats,
         dense_pool_stats_bwd,
+        farthest_point_sample,
         nn_sweep,
         scatter_rows,
     )
     return {"nn_sweep": nn_sweep, "scatter_rows": scatter_rows,
             "chamfer_bwd": chamfer_bwd, "dense_pool_stats": dense_pool_stats,
-            "dense_pool_stats_bwd": dense_pool_stats_bwd}
+            "dense_pool_stats_bwd": dense_pool_stats_bwd,
+            "fps": farthest_point_sample, "ball_group": ball_group}
 
 
 def zero_counts():
@@ -105,7 +116,10 @@ def read_counts():
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def expect_counts(path, got, want):
+def expect_counts(path, got, **want):
+    """Fail unless each kernel launched as often as `want` says (0 for the
+    kernels it leaves out)."""
+    want = {name: want.get(name, 0) for name in counters()}
     if got != want:
         raise AssertionError(f"{path}: kernel launches {got}, expected {want}")
 
@@ -498,6 +512,354 @@ def card_vs_cpu_train(seed, x_raw):
     return l_gpu[0]
 
 
+def check_fps(gen, B, N, K, C=3, masked=True):
+    """farthest_point_sample vs fps_reference: equal indices (the same
+    rounded operations in the same order), the kernel twice. Points N//2..
+    duplicate points 0.. (exact ties); with masks ~20% of points masked,
+    point 0 of cloud 0 masked and every point of the last cloud masked (all
+    slots 0 there). Returns the largest index difference (0)."""
+    from pointcloud_tpu_torch.ops import farthest_point_sample, fps_reference
+
+    dev = torch.device("cuda")
+    xyz = torch.rand((B, N, C), generator=gen, device=dev)
+    xyz[:, N - N // 2:] = xyz[:, : N // 2]
+    mask = None
+    if masked:
+        mask = torch.rand((B, N), generator=gen, device=dev) > 0.2
+        mask[0, 0] = False
+        mask[-1] = False
+    got = twice_equal("fps", lambda: (farthest_point_sample(xyz, K, mask),))[0]
+    want = fps_reference(xyz, K, mask)
+    if not torch.equal(got, want):
+        raise AssertionError(f"fps indices differ from the plain version "
+                             f"(B={B} N={N} K={K} C={C} masked={masked})")
+    if masked and not bool((got[-1] == 0).all()):
+        raise AssertionError("fps on a fully masked cloud must give zeros")
+    log(f"  fps B={B} N={N} K={K} C={C} masked={masked}: indices equal to the "
+        f"plain version's; two runs bit-equal")
+    return float((got - want).abs().max())
+
+
+def check_ball_group(gen, B, N, S, k, F, dtype, masked, radius):
+    """ball_group vs ball_group_reference: idx, valid and grouped equal
+    (the same membership test, gathers and one rounding), the kernel twice.
+    Centroids on every (N // S)-th point, the last one far outside the
+    cloud (an empty ball: every slot point 0, none valid). Returns the
+    largest |grouped error| (0)."""
+    from pointcloud_tpu_torch.ops import ball_group, ball_group_reference
+
+    dev = torch.device("cuda")
+    xyz = torch.rand((B, N, 3), generator=gen, device=dev)
+    feats = torch.randn((B, N, F), generator=gen, device=dev).to(dtype) if F else None
+    cents = xyz[:, :: N // S][:, :S].clone()
+    cents[:, -1] += 5.0
+    mask = torch.rand((B, N), generator=gen, device=dev) > 0.33 if masked else None
+    got = twice_equal("ball_group",
+                      lambda: ball_group(xyz, feats, cents, mask, k, radius))
+    want = ball_group_reference(xyz, feats, cents, mask, k, radius)
+    if not all(a.dtype == w.dtype and torch.equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"ball_group differs from the plain version (N={N} "
+                             f"S={S} k={k} F={F} {dtype} masked={masked})")
+    if not (bool((got[1][:, -1] == 0).all()) and not bool(got[2][:, -1].any())):
+        raise AssertionError("ball_group: an empty ball must give point 0, invalid")
+    fill = float(got[2].float().mean())
+    log(f"  ball_group B={B} N={N} S={S} k={k} F={F} {str(dtype)[6:]} "
+        f"masked={masked} r={radius}: idx, valid and grouped equal to the plain "
+        f"version's ({fill:.2f} of the slots in a ball); two runs bit-equal")
+    return float((got[0].float() - want[0].float()).abs().max())
+
+
+def ball_library(xyz, feats, cents, k, radius):
+    """cdist + first-k selection + gather, storing the (B, S, N) distance
+    matrix: timed as a yardstick, never called by the port."""
+    N = xyz.shape[1]
+    inb = torch.cdist(cents, xyz).square() <= radius * radius
+    key = torch.where(inb, torch.arange(N, dtype=torch.int32, device=xyz.device), N)
+    first = torch.topk(key, k, dim=-1, largest=False).values
+    valid = first < N
+    idx = torch.where(valid, first, torch.where(valid[..., :1], first[..., :1], 0))
+    flat = idx.reshape(idx.shape[0], -1, 1).long()
+    rows = torch.gather(torch.cat([xyz, feats.float()], -1), 1,
+                        flat.expand(-1, -1, 3 + feats.shape[-1]))
+    rows = rows.reshape(*idx.shape, -1)
+    return torch.cat([rows[..., :3] - cents[:, :, None], rows[..., 3:]], -1).to(
+        feats.dtype), idx, valid
+
+
+def fps_bound(B, N, K):
+    """~9 fp32 operations per (step, point) (3 sub, 3 mul, 2 add, 1 min);
+    bytes: xyz read once, indices written once."""
+    return bound(B * (K - 1) * N * 9, B * N * 3 * 4 + B * K * 4, PEAK_FP32_FLOPS)
+
+
+def ball_bound(B, N, S, k, F, esize, idx, valid):
+    """Bytes: xyz, features and centroids read once, grouped rows, idx and
+    valid written once. Operations: ~9 per distance test, over the points
+    this run's data makes the kernel test (up to the k-th in-ball point,
+    else all N)."""
+    scanned = torch.where(valid[..., -1], idx[..., -1].long() + 1, N)
+    ops = 9 * float(scanned.sum())
+    nbytes = (B * N * 3 * 4 + B * N * F * esize + B * S * 3 * 4
+              + B * S * k * ((3 + F) * esize + 4 + 1))
+    return bound(ops, nbytes, PEAK_FP32_FLOPS)
+
+
+def sensor_cloud(gen, sc, dev):
+    """One cloud of the scene's cameras x width x height points (xyz + rgb),
+    xyz drawn in a box 1.3x the scene's bbox so that FilterBBox drops about
+    half of them."""
+    n = len(sc.cameras) * sc.camera_size[0] * sc.camera_size[1]
+    bbox = torch.tensor(sc.bbox, dtype=torch.float32, device=dev)
+    mid, half = bbox.mean(1), (bbox[:, 1] - bbox[:, 0]) / 2 * 1.3
+    xyz = mid + (2 * torch.rand((n, 3), generator=gen, device=dev) - 1) * half
+    return torch.cat([xyz, torch.rand((n, 3), generator=gen, device=dev)], -1)
+
+
+def host_ms(fn, calls, warmup):
+    """Sorted host-clock ms of `calls` synchronised calls after `warmup`."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(calls):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t1) * 1e3)
+    return sorted(out)
+
+
+def pointnet2_path(seed, gen, x_raw, smi, err):
+    """The PointNet2 eval path, `encode` and the sensor chain at full width,
+    each with its launch counts; FPS and the ball grouping held against
+    their plain versions at the path's shapes and timed beside them, a
+    yardstick and their bounds; the step's parts. Returns the numbers of the
+    two kernels' `kernels` entries."""
+    from pointcloud_tpu_torch.envs.scenes import scene_config
+    from pointcloud_tpu_torch.ops import (
+        ball_group,
+        ball_group_reference,
+        farthest_point_sample,
+        fps_reference,
+        index_points,
+        nn_sweep,
+        sample_and_group_all,
+    )
+    from pointcloud_tpu_torch.train import create_model, make_eval_step
+    from pointcloud_tpu_torch.transforms import (
+        Compose,
+        FilterBBox,
+        SampleFurthestPoints,
+    )
+
+    dev = torch.device("cuda")
+    log(f"[PointNet2 eval path] Autoencoder / PointNet2 / Chamfer, scene Cube, "
+        f"B={B_PN2} x 2048 x 6, bf16")
+    spec = create_model("Autoencoder", "PointNet2", "Cube",
+                        loss_override="chamfer", device=dev, seed=seed)
+    step = make_eval_step(spec)
+    x0 = x_raw[:B_PN2].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    loss, _, out = step(x0, x0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(ITERS + 1)]
+    x = x0
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(ITERS):
+        x = x + loss * 1e-9  # chained on the previous loss, as bench.py
+        loss, _, out = step(x, x)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts("PointNet2 eval path", counts, nn_sweep=ITERS + 1,
+                  fps=2 * (ITERS + 1), ball_group=2 * (ITERS + 1))
+    per_iter = sorted(events[i].elapsed_time(events[i + 1]) for i in range(ITERS))
+    ms_step = wall / ITERS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  eval step B={B_PN2}: first call {first_s:.3f} s; {ITERS} chained "
+        f"steps {ms_step:.3f} ms/step on the host clock -> "
+        f"{B_PN2 / (ms_step / 1e3):.1f} clouds/s; event-to-event median "
+        f"{per_iter[ITERS // 2]:.3f} ms (min {per_iter[0]:.3f}, max "
+        f"{per_iter[-1]:.3f}); peak memory {peak:.2f} GiB | {smi}")
+    log(f"  loss {float(loss):.6f}; launches {counts}")
+    if not bool(torch.isfinite(loss)) or out.shape != (B_PN2, 2048, 6) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"PointNet2 eval: loss {loss}, out {tuple(out.shape)}")
+
+    with torch.inference_mode():
+        one = spec.in_transform(x_raw[:1])[0]
+        zero_counts()
+        lat = host_ms(lambda: spec.model.encode(one), calls=20, warmup=5)
+        enc_counts = read_counts()
+        enc = spec.model.encode(one)
+    expect_counts("PointNet2 encode", enc_counts, fps=2 * 25, ball_group=2 * 25)
+    if enc.shape != (1, 13) or not bool(torch.isfinite(enc).all()):
+        raise AssertionError(f"PointNet2 encode gave {tuple(enc.shape)}")
+    log(f"  encode(1 cloud) -> {tuple(enc.shape)}; host clock, 20 calls after 5 "
+        f"warm-ups: median {lat[10]:.3f} ms, max {lat[-1]:.3f} ms; launches "
+        f"{enc_counts}")
+
+    # the step's parts at B=256, CUDA events around the same calls
+    bb = spec.model.encoder.backbone
+    with torch.inference_mode():
+        xn = spec.in_transform(x)[0]
+        xyz = xn[..., :3].contiguous()
+        feats = xn[..., 3:].to(torch.bfloat16).contiguous()
+        parts, level_in = {}, []
+        for i, sa in enumerate((bb.SetAbstraction_0, bb.SetAbstraction_1)):
+            idx = farthest_point_sample(xyz, sa.npoint)
+            new_xyz = index_points(xyz, idx)
+            grouped, _, valid = ball_group(xyz, feats, new_xyz, None, sa.nsample,
+                                           sa.radius)
+            level_in.append((xyz, feats, new_xyz))
+            parts[f"SA{i + 1} fps"] = cuda_ms(
+                lambda: farthest_point_sample(xyz, sa.npoint), iters=5)
+            parts[f"SA{i + 1} ball_group"] = cuda_ms(lambda: ball_group(
+                xyz, feats, new_xyz, None, sa.nsample, sa.radius), iters=5)
+            parts[f"SA{i + 1} MLP + pool"] = cuda_ms(lambda: sa.pool(grouped, valid),
+                                                   iters=5)
+            xyz, feats = new_xyz, sa.pool(grouped, valid)
+        _, grouped, gmask, _ = sample_and_group_all(xyz, feats)
+        parts["SA3 MLP + pool"] = cuda_ms(
+            lambda: bb.SetAbstraction_2.pool(grouped, gmask), iters=5)
+        h = spec.model.encoder(xn)
+        parts["decoder"] = cuda_ms(lambda: spec.model.decoder(h), iters=5)
+        y = spec.out_transform(x)[0]
+        parts["nn_sweep"] = cuda_ms(lambda: nn_sweep(out, y), iters=5)
+    log(f"  eval step parts at B={B_PN2} (CUDA events, ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; sum {sum(parts.values()):.3f} vs the step's {ms_step:.3f}")
+
+    # FPS at SA1's shape (the path's heaviest FPS launch)
+    xyz1, feats1, cents1 = level_in[0]
+    B, N, K = xyz1.shape[0], xyz1.shape[1], bb.SetAbstraction_0.npoint
+    got = farthest_point_sample(xyz1, K)
+    if not torch.equal(got, fps_reference(xyz1, K)):
+        raise AssertionError("fps differs from the plain version at SA1's inputs")
+    f_ms = cuda_ms(lambda: farthest_point_sample(xyz1, K), iters=10)
+    f_plain = cuda_ms(lambda: fps_reference(xyz1, K), iters=2, warmup=1)
+    f_bound = fps_bound(B, N, K)
+    log(f"  fps B={B} N={N} K={K} (SA1): kernel {f_ms:.3f} ms | plain "
+        f"{f_plain:.3f} ms | library none (no PyTorch call selects points "
+        f"sequentially) | bound {f_bound[0]:.4f} ms ({f_bound[1]}; {K - 1} "
+        f"serial steps)")
+
+    # ball grouping at both levels; SA2's (the heaviest) goes to `kernels`
+    ball = {}
+    for lvl, sa in (("SA1", bb.SetAbstraction_0), ("SA2", bb.SetAbstraction_1)):
+        bx, bf, bc = level_in[0 if lvl == "SA1" else 1]
+        args = (bx, bf, bc, None, sa.nsample, sa.radius)
+        got = ball_group(*args)
+        want = ball_group_reference(*args)
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"ball_group differs from the plain version at "
+                                 f"{lvl}'s inputs")
+        err["ball_group"] = max(err["ball_group"], float(
+            (got[0].float() - want[0].float()).abs().max()))
+        lib = ball_library(bx, bf, bc, sa.nsample, sa.radius)
+        if not (torch.equal(lib[1], got[1]) and torch.equal(lib[2], got[2])):
+            log(f"  note: the cdist yardstick's membership differs at {lvl} "
+                f"(matmul expansion near the radius)")
+        Bb, Nb, Sb, kb, Fb = bx.shape[0], bx.shape[1], bc.shape[1], sa.nsample, bf.shape[2]
+        bnd = ball_bound(Bb, Nb, Sb, kb, Fb, bf.element_size(), got[1], got[2])
+        fill = float(got[2].float().mean())
+        del got, want, lib
+        torch.cuda.empty_cache()
+        ball[lvl] = (cuda_ms(lambda: ball_group(*args), iters=10),
+                     cuda_ms(lambda: ball_group_reference(*args), iters=2, warmup=1),
+                     cuda_ms(lambda: ball_library(bx, bf, bc, sa.nsample, sa.radius),
+                             iters=2, warmup=1), bnd)
+        log(f"  ball_group {lvl} B={Bb} N={Nb} S={Sb} k={kb} F={Fb} bf16 "
+            f"({fill:.3f} of the slots in a ball): kernel {ball[lvl][0]:.3f} ms | "
+            f"plain {ball[lvl][1]:.3f} ms | library cdist + topk + gather "
+            f"{ball[lvl][2]:.3f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})")
+    del spec, step, out, x, x0, xn, h, y, level_in, grouped, feats, xyz
+    torch.cuda.empty_cache()
+
+    # the sensor's FilterBBox -> SampleFurthestPoints on one cloud
+    sc = scene_config("Cube")
+    cloud = sensor_cloud(gen, sc, dev)
+    chain = Compose([FilterBBox(sc.bbox), SampleFurthestPoints(sc.sample_points)])
+    log(f"[sensor] FilterBBox -> SampleFurthestPoints({sc.sample_points}) on one "
+        f"cloud of {cloud.shape[0]} points ({len(sc.cameras)} cameras x "
+        f"{sc.camera_size[0]} x {sc.camera_size[1]})")
+    zero_counts()
+    down, dmask = chain(cloud)
+    torch.cuda.synchronize()
+    s_counts = read_counts()
+    expect_counts("sensor chain", s_counts, fps=1)
+    s_lat = host_ms(lambda: chain(cloud), calls=5, warmup=1)
+    keep = FilterBBox(sc.bbox)(cloud)[1]
+    s_xyz = cloud[None, :, :3].contiguous()
+    s_idx = farthest_point_sample(s_xyz, sc.sample_points, keep[None])
+    cpu_idx = fps_reference(s_xyz.cpu(), sc.sample_points, keep[None].cpu())
+    cpu_down, _ = chain(cloud.cpu())
+    if not (torch.equal(s_idx.cpu(), cpu_idx) and torch.equal(down.cpu(), cpu_down)):
+        raise AssertionError("sensor chain: card and CPU FPS indices differ")
+    if down.shape != (sc.sample_points, 6) or not bool(dmask.all()) \
+            or not bool(FilterBBox(sc.bbox)(down)[1].all()):
+        raise AssertionError("sensor chain output is not 2048 points in the bbox")
+    s_ms = cuda_ms(lambda: farthest_point_sample(s_xyz, sc.sample_points, keep[None]),
+                   iters=3, warmup=1)
+    s_plain = cuda_ms(lambda: fps_reference(s_xyz, sc.sample_points, keep[None]),
+                      iters=1, warmup=1)
+    s_bound = fps_bound(1, s_xyz.shape[1], sc.sample_points)
+    log(f"  {float(keep.float().mean()):.3f} of the points inside the bbox; "
+        f"chain host clock, 5 calls: median {s_lat[2]:.3f} ms, max "
+        f"{s_lat[-1]:.3f} ms; launches {s_counts}; FPS indices card vs CPU "
+        f"equal")
+    log(f"  fps B=1 N={s_xyz.shape[1]} K={sc.sample_points} (sensor): kernel "
+        f"{s_ms:.3f} ms | plain {s_plain:.3f} ms | library none | bound "
+        f"{s_bound[0]:.4f} ms ({s_bound[1]}; {sc.sample_points - 1} serial steps)")
+    return {"counts": counts, "fps": (f_ms, f_plain, f_bound),
+            "ball_group": ball["SA2"]}
+
+
+def card_vs_cpu_pointnet2(seed, x_raw):
+    """The fp32 PointNet2 model's eval step on the card and on the CPU, from
+    the same weights, at B=2: SA1's FPS indices equal, outputs within 1e-4,
+    the loss within 1e-5. The bf16 model's loss within 5% of fp32's."""
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.ops import farthest_point_sample
+    from pointcloud_tpu_torch.train import create_model, make_eval_step
+
+    cfg.precision = "fp32"
+    try:
+        specs = [create_model("Autoencoder", "PointNet2", "Cube",
+                              loss_override="chamfer", device=d, seed=seed)
+                 for d in ("cuda", "cpu")]
+    finally:
+        cfg.precision = "bf16-mixed"
+    xs = x_raw[:2]
+    idx = [farthest_point_sample(
+        sp.in_transform(xs.to(d))[0][..., :3].contiguous(), 512)
+        for sp, d in zip(specs, ("cuda", "cpu"))]
+    if not torch.equal(idx[0].cpu(), idx[1]):
+        raise AssertionError("PointNet2 SA1 FPS indices differ, card vs CPU")
+    (l_gpu, _, o_gpu), (l_cpu, _, o_cpu) = (
+        make_eval_step(sp)(xs.to(d), xs.to(d))
+        for sp, d in zip(specs, ("cuda", "cpu")))
+    e_out = float((o_gpu.cpu() - o_cpu).abs().max())
+    e_loss = abs(float(l_gpu) - float(l_cpu))
+    bf = create_model("Autoencoder", "PointNet2", "Cube", loss_override="chamfer",
+                      device="cuda", seed=seed)
+    l_bf = float(make_eval_step(bf)(xs, xs)[0])
+    bf_loss = abs(l_bf - float(l_gpu)) / float(l_gpu)
+    log(f"  PointNet2 fp32 eval step, card vs CPU, B=2: SA1 FPS indices equal; "
+        f"max |out err| {e_out:.2e}, |loss err| {e_loss:.2e}; bf16 model's loss "
+        f"vs fp32 rel diff {bf_loss:.2e}")
+    if e_out > 1e-4 or e_loss > 1e-5:
+        raise AssertionError("fp32 PointNet2 on the card disagrees with the CPU")
+    if bf_loss > 0.05:
+        raise AssertionError("bf16 PointNet2 loss is > 5% off the fp32 one")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -567,6 +929,19 @@ def main(argv=None) -> int:
     ]
     err["dense_pool_stats"] = max(e[0] for e in dense)
     err["dense_pool_stats_bwd"] = max(e[1] for e in dense)
+    err["fps"] = max(check_fps(gen, 8, 2048, 512),
+                     check_fps(gen, 8, 512, 128, masked=False),
+                     check_fps(gen, 3, 700, 64, C=6),
+                     check_fps(gen, 3, 100, 150),  # under-full: K > N
+                     check_fps(gen, 2, 5000, 256),  # 1024 threads
+                     check_fps(gen, 2, 20000, 256))  # global scratch
+    err["ball_group"] = max(
+        check_ball_group(gen, 4, 2048, 512, 32, 3, torch.bfloat16, True, 0.2),
+        check_ball_group(gen, 4, 512, 128, 64, 128, torch.bfloat16, False, 0.4),
+        check_ball_group(gen, 4, 512, 128, 64, 128, torch.float32, True, 0.4),
+        check_ball_group(gen, 3, 300, 40, 5, 7, torch.float32, True, 0.3),
+        check_ball_group(gen, 2, 5000, 64, 24, 4, torch.bfloat16, True, 0.1),
+        check_ball_group(gen, 2, 256, 16, 8, 0, torch.float32, False, 0.5))
 
     # ---- 3. eval path at full width ----
     log("[eval path] Autoencoder / PointNet / Chamfer, scene Cube")
@@ -599,9 +974,7 @@ def main(argv=None) -> int:
         enc = spec.model.encode(spec.in_transform(x_raw[:1])[0])
     torch.cuda.synchronize()
     eval_counts = read_counts()
-    expect_counts("eval path", eval_counts, {
-        "nn_sweep": ITERS + 1, "scatter_rows": 0, "chamfer_bwd": 0,
-        "dense_pool_stats": 0, "dense_pool_stats_bwd": 0})
+    expect_counts("eval path", eval_counts, nn_sweep=ITERS + 1)
 
     per_iter = sorted(events[k].elapsed_time(events[k + 1]) for k in range(ITERS))
     ms_iter = wall / ITERS * 1e3
@@ -699,10 +1072,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
     train_counts = read_counts()
-    expect_counts("train path", train_counts, {
-        "nn_sweep": TRAIN_ITERS, "scatter_rows": 0, "chamfer_bwd": TRAIN_ITERS,
-        "dense_pool_stats": 3 * TRAIN_ITERS,
-        "dense_pool_stats_bwd": 3 * TRAIN_ITERS})
+    expect_counts("train path", train_counts, nn_sweep=TRAIN_ITERS,
+                  chamfer_bwd=TRAIN_ITERS, dense_pool_stats=3 * TRAIN_ITERS,
+                  dense_pool_stats_bwd=3 * TRAIN_ITERS)
     losses = [float(v) for v in losses]
     per_iter = sorted(events[k].elapsed_time(events[k + 1])
                       for k in range(TRAIN_ITERS))
@@ -852,9 +1224,7 @@ def main(argv=None) -> int:
     chamfer_distance(xg, yg).backward()
     torch.cuda.synchronize()
     route_counts = read_counts()
-    expect_counts("segment-sum route", route_counts, {
-        "nn_sweep": 1, "scatter_rows": 2, "chamfer_bwd": 0,
-        "dense_pool_stats": 0, "dense_pool_stats_bwd": 0})
+    expect_counts("segment-sum route", route_counts, nn_sweep=1, scatter_rows=2)
     xc = rx.cpu().requires_grad_()
     yc = ry.cpu().requires_grad_()
     chamfer_distance(xc, yc).backward()
@@ -887,7 +1257,10 @@ def main(argv=None) -> int:
         f"({P_ROUTE * P_ROUTE} cost elements per cloud): fused chamfer_bwd "
         f"{fused_big:.3f} ms vs gathers + 2 scatter_rows {seg_big:.3f} ms")
 
-    # ---- 6. fp32 model on the card vs the CPU ----
+    # ---- 6. the PointNet2 eval path and the sensor chain ----
+    pn2 = pointnet2_path(args.seed, gen, x_raw, smi, err)
+
+    # ---- 7. fp32 models on the card vs the CPU ----
     log("[card vs CPU]")
     cfg.precision = "fp32"
     try:
@@ -928,6 +1301,7 @@ def main(argv=None) -> int:
         f"rel diff {bf_train:.2e}")
     if bf_train > 0.05:
         raise AssertionError("bf16 first train-step loss > 5% off the fp32 one")
+    card_vs_cpu_pointnet2(args.seed, x_raw)
 
     def entry(name, source, replaces, launches, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda",
@@ -951,6 +1325,12 @@ def main(argv=None) -> int:
         entry("dense_pool_stats_bwd", "dense_bn_pool.cu",
               "pointcloud_tpu/ops/dense_bn_pool.py:162",
               train_counts["dense_pool_stats_bwd"], b_ms, b_plain, b_bound, b_lib),
+        entry("fps", "fps.cu", "pointcloud_tpu/ops/pallas_kernels.py:1600",
+              pn2["counts"]["fps"], *pn2["fps"], None),
+        entry("ball_group", "ball_group.cu",
+              "pointcloud_tpu/ops/pallas_kernels.py:969",
+              pn2["counts"]["ball_group"], pn2["ball_group"][0],
+              pn2["ball_group"][1], pn2["ball_group"][3], pn2["ball_group"][2]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

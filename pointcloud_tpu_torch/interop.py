@@ -7,6 +7,11 @@ so a state_dict key is the flax path joined by dots, with these leaf rules:
   params/.../kernel (in, out)          -> .../weight (out, in), transposed
   params/.../{bias, scale, offset}     -> .../{bias, scale, offset}, as is
   batch_stats/.../{mean, var}          -> .../{mean, var} buffers, as is
+  params/.../w{i} (in, out)            -> .../w{i} (in, out), as is
+  params/.../{scale, offset}{i}        -> .../{scale, offset}{i}, as is
+  batch_stats/.../{mean, var}{i}       -> .../{mean, var}{i} buffers, as is
+
+(the numbered leaves are a SetAbstraction level's per-layer variables).
 
 Both functions are total: a collection or leaf they do not map raises
 KeyError, and `load_flax_variables` raises KeyError on any state_dict key
@@ -18,6 +23,8 @@ from __future__ import annotations
 
 from typing import Mapping
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -27,6 +34,18 @@ _LEAVES = {
                "offset": "offset"},
     "batch_stats": {"mean": "mean", "var": "var"},
 }
+_NUMBERED = {
+    "params": re.compile(r"(w|scale|offset)\d+"),
+    "batch_stats": re.compile(r"(mean|var)\d+"),
+}
+
+
+def _port_leaf(collection: str, leaf: str) -> str | None:
+    """The port's name of a flax leaf, None if the collection has no such
+    leaf."""
+    if _NUMBERED[collection].fullmatch(leaf):
+        return leaf
+    return _LEAVES[collection].get(leaf)
 
 
 def _leaves(tree: Mapping, prefix: tuple = ()):
@@ -46,7 +65,8 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
             raise KeyError(f"unknown flax collection {collection!r}")
         for path, value in _leaves(tree):
             leaf = path[-1]
-            if leaf not in _LEAVES[collection]:
+            name = _port_leaf(collection, leaf)
+            if name is None:
                 raise KeyError(
                     f"unknown flax leaf {collection}/{'/'.join(path)}"
                 )
@@ -57,7 +77,7 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
                         f"{'/'.join(path)}: a Dense kernel is 2-D, got {arr.shape}"
                     )
                 arr = arr.T
-            key = ".".join(path[:-1] + (_LEAVES[collection][leaf],))
+            key = ".".join(path[:-1] + (name,))
             if key in out:
                 raise KeyError(f"two flax leaves map to {key}")
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))

@@ -1,4 +1,4 @@
-"""Models: the PointNet encoder and the autoencoder heads."""
+"""Models: the PointNet and PointNet2 encoders and the autoencoder heads."""
 
 from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
     AE,
@@ -16,4 +16,8 @@ from pointcloud_tpu_torch.models.pointnet import (  # noqa: F401
     PointNetEncoder,
     PointwiseMLP,
     masked_max,
+)
+from pointcloud_tpu_torch.models.pointnet2 import (  # noqa: F401
+    PointNet2Encoder,
+    SetAbstraction,
 )

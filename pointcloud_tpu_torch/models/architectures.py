@@ -1,8 +1,8 @@
 """Heads and the autoencoder (port of pointcloud_tpu/models/architectures.py).
 
 `backbone_factory` maps backbone names to encoder constructors; `AE`
-assembles backbone + bottleneck + decoder. Only the PointNet backbone is
-ported so far.
+assembles backbone + bottleneck + decoder. The PointNet and PointNet2
+backbones are ported so far.
 """
 
 from __future__ import annotations
@@ -14,9 +14,11 @@ from torch import nn
 
 from pointcloud_tpu_torch.models.layers import Dense
 from pointcloud_tpu_torch.models.pointnet import PointNetEncoder
+from pointcloud_tpu_torch.models.pointnet2 import PointNet2Encoder
 
 backbone_factory = {
     "PointNet": PointNetEncoder,
+    "PointNet2": PointNet2Encoder,
 }
 
 

@@ -16,10 +16,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
-    """flax's lecun_normal for a (out, in) weight: truncated normal at two
-    standard deviations, scaled to variance 1 / fan_in."""
-    fan_in = weight.shape[1]
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
+                  fan_in: int | None = None):
+    """flax's lecun_normal: truncated normal at two standard deviations,
+    scaled to variance 1 / fan_in; fan_in defaults to shape[1], the input
+    width of a (out, in) weight."""
+    fan_in = weight.shape[1] if fan_in is None else fan_in
     # 0.8796...: std of a unit normal truncated to [-2, 2] (flax's constant)
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,

@@ -1,7 +1,12 @@
 """Point-cloud ops: pairwise distances, Chamfer distance and its kernels (the
-nearest-neighbour sweep, the fused backward, the segment-sum), and the fused
-Dense -> BatchNorm-statistics -> max-pool kernels."""
+nearest-neighbour sweep, the fused backward, the segment-sum), the fused
+Dense -> BatchNorm-statistics -> max-pool kernels, farthest-point sampling
+and the ball grouping."""
 
+from pointcloud_tpu_torch.ops.ball_group import (  # noqa: F401
+    ball_group,
+    ball_group_reference,
+)
 from pointcloud_tpu_torch.ops.chamfer import (  # noqa: F401
     chamfer_distance,
     masked_chamfer,
@@ -16,7 +21,19 @@ from pointcloud_tpu_torch.ops.dense_bn_pool import (  # noqa: F401
     dense_pool_stats_bwd,
     dense_pool_stats_reference,
 )
-from pointcloud_tpu_torch.ops.geometry import pairwise_sqdist  # noqa: F401
+from pointcloud_tpu_torch.ops.fps import (  # noqa: F401
+    farthest_point_sample,
+    farthest_point_sample_xyz,
+    fps_reference,
+)
+from pointcloud_tpu_torch.ops.geometry import (  # noqa: F401
+    ball_query,
+    first_k_in_ball,
+    index_points,
+    pairwise_sqdist,
+    sample_and_group,
+    sample_and_group_all,
+)
 from pointcloud_tpu_torch.ops.nn_sweep import (  # noqa: F401
     nn_sweep,
     nn_sweep_reference,

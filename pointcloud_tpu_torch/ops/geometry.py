@@ -1,7 +1,10 @@
-"""Pairwise distances (port of pointcloud_tpu/ops/geometry.py:27-56).
+"""Fixed-shape, mask-based geometry (port of pointcloud_tpu/ops/geometry.py):
+pairwise distances, gathers, the ball query and the set-abstraction
+grouping.
 
 Layout is channels-last, as in the JAX package: src (..., N, C),
-dst (..., M, C) -> (..., N, M).
+dst (..., M, C) -> (..., N, M). Invalid points stay in the arrays and carry
+mask=False.
 """
 
 from __future__ import annotations
@@ -34,3 +37,88 @@ def pairwise_sqdist(
     # (-2c + s2) + d2 is bit for bit the reference's (s2 - 2c) + d2.
     d = torch.matmul(src, dst.transpose(-1, -2))
     return d.mul_(-2.0).add_(s2).add_(d2.transpose(-1, -2)).clamp_(min=0.0)
+
+
+def index_points(points, idx):
+    """Batched gather: points (B, N, C), idx (B, *I) int -> (B, *I, C)."""
+    B, C = points.shape[0], points.shape[-1]
+    flat = idx.reshape(B, -1, 1).long().expand(-1, -1, C)
+    return torch.gather(points, 1, flat).reshape(*idx.shape, C)
+
+
+def first_k_in_ball(in_ball, k: int):
+    """The first k True positions along the last axis, in index order.
+
+    in_ball (..., N) bool -> (idx (..., k) int32, valid (..., k) bool). Slots
+    past the True count repeat slot 0; with no True position every slot is
+    0 (the reference's pad-with-first, pointnet2_utils.py:93-113).
+    """
+    n = in_ball.shape[-1]
+    ids = torch.arange(n, dtype=torch.int32, device=in_ball.device)
+    key = torch.where(in_ball, ids, n)
+    first = torch.topk(key, min(k, n), dim=-1, largest=False, sorted=True).values
+    if k > n:
+        first = torch.cat([first, first.new_full((*first.shape[:-1], k - n), n)], -1)
+    valid = first < n
+    slot0 = torch.where(valid[..., :1], first[..., :1], 0)
+    return torch.where(valid, first, slot0).int(), valid
+
+
+def ball_query(radius: float, k: int, xyz, new_xyz, mask=None):
+    """Indices of up to `k` points of `xyz` within `radius` of each query,
+    as the JAX package's XLA path computes them (the matmul expansion of
+    the distance): (idx (B, S, k) int32, in_ball (B, S, k) bool), the first
+    k in-radius points by index order, padded with the first.
+
+    The set-abstraction grouping (`sample_and_group`) takes `ball_group`
+    instead, whose direct differences follow the TPU kernel.
+    """
+    valid = pairwise_sqdist(new_xyz, xyz) <= radius * radius
+    if mask is not None:
+        valid = valid & mask[..., None, :]
+    return first_k_in_ball(valid, k)
+
+
+def sample_and_group(npoint: int, radius: float, nsample: int, xyz, features,
+                     mask=None):
+    """FPS-downsample, then group each centroid's ball (set-abstraction
+    input).
+
+    xyz (B, N, 3), features (B, N, F) or None, mask (B, N) bool. Returns
+      new_xyz (B, npoint, 3): the FPS centroids,
+      grouped (B, npoint, nsample, 3+F): centred xyz (+ features), in the
+        features' dtype,
+      group_mask (B, npoint, nsample) bool,
+      new_mask (B, npoint) bool.
+    Every grouping goes through `ball_group`; the JAX package's `use_knn`
+    option (kNN grouping) is left out until the kNN kernel is ported.
+    """
+    # imported here: both kernel modules import this one
+    from pointcloud_tpu_torch.ops.ball_group import ball_group
+    from pointcloud_tpu_torch.ops.fps import farthest_point_sample
+
+    xyz = xyz.float().contiguous()
+    fps_idx = farthest_point_sample(xyz, npoint, mask=mask)
+    new_xyz = index_points(xyz, fps_idx)
+    if mask is not None:
+        new_mask = torch.gather(mask, 1, fps_idx.long())
+    else:
+        new_mask = torch.ones(fps_idx.shape, dtype=torch.bool, device=xyz.device)
+    grouped, _, valid = ball_group(
+        xyz, None if features is None else features.contiguous(), new_xyz,
+        None if mask is None else mask.contiguous(), nsample, radius)
+    return new_xyz, grouped, valid & new_mask[..., None], new_mask
+
+
+def sample_and_group_all(xyz, features, mask=None):
+    """The whole cloud as one neighbourhood at the origin: new_xyz (B, 1, 3)
+    zeros, grouped (B, 1, N, 3+F), group_mask (B, 1, N), new_mask (B, 1)."""
+    B, N, _ = xyz.shape
+    new_xyz = torch.zeros((B, 1, 3), dtype=xyz.dtype, device=xyz.device)
+    grouped = xyz[:, None]
+    if features is not None:
+        grouped = torch.cat([grouped, features[:, None]], dim=-1)
+    group_mask = (torch.ones((B, 1, N), dtype=torch.bool, device=xyz.device)
+                  if mask is None else mask[:, None, :])
+    return (new_xyz, grouped, group_mask,
+            torch.ones((B, 1), dtype=torch.bool, device=xyz.device))

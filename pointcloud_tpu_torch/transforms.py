@@ -1,13 +1,22 @@
-"""Point-cloud transforms (port of pointcloud_tpu/transforms.py:127-155).
+"""Point-cloud transforms (port of pointcloud_tpu/transforms.py:40-55,
+:77-155).
 
 A transform is a callable `(pc, mask=None) -> (pc, mask)`. Where the JAX
 package maps a single-cloud transform over the batch with `jax.vmap`, these
-act on any leading dimensions: pc (..., N, D), mask (..., N) bool.
+act on any leading dimensions: pc (..., N, D), mask (..., N) bool. Filters
+clear mask bits and keep every row; samplers take the mask and return a
+fixed-size, fully valid cloud. The sensor's chain is
+Compose([FilterBBox(bbox), SampleFurthestPoints(K)]).
 """
 
 from __future__ import annotations
 
+from typing import Callable, Sequence
+
 import torch
+
+from pointcloud_tpu_torch.ops.fps import farthest_point_sample
+from pointcloud_tpu_torch.ops.geometry import index_points
 
 
 def _ensure_mask(pc, mask):
@@ -47,3 +56,48 @@ class Unnormalize(_BBoxAffine):
         lo, span = self._lo_span(pc)
         xyz = pc[..., : self.dim] * span + lo
         return torch.cat([xyz, pc[..., self.dim :]], dim=-1), mask
+
+
+class Compose:
+    """Chain transforms."""
+
+    def __init__(self, transforms: Sequence[Callable]):
+        self.transforms = list(transforms)
+
+    def __call__(self, pc, mask=None):
+        mask = _ensure_mask(pc, mask)
+        for t in self.transforms:
+            pc, mask = t(pc, mask)
+        return pc, mask
+
+
+class FilterBBox:
+    """Mask out points outside a 3D bounding box, bbox (3, 2) of (min, max)
+    per axis."""
+
+    def __init__(self, bbox):
+        self.bbox = torch.tensor(bbox, dtype=torch.float32)
+
+    def __call__(self, pc, mask=None):
+        mask = _ensure_mask(pc, mask)
+        bbox = self.bbox.to(pc.device)
+        xyz = pc[..., :3]
+        inside = torch.all((xyz >= bbox[:, 0]) & (xyz <= bbox[:, 1]), dim=-1)
+        return pc, mask & inside
+
+
+class SampleFurthestPoints:
+    """FPS-downsample to exactly K valid points (ops/fps.py)."""
+
+    def __init__(self, K: int):
+        self.K = K
+
+    def __call__(self, pc, mask=None):
+        mask = _ensure_mask(pc, mask)
+        lead, (N, D) = pc.shape[:-2], pc.shape[-2:]
+        flat = pc.reshape(-1, N, D)
+        xyz = flat[..., :3].float().contiguous()
+        idx = farthest_point_sample(xyz, self.K, mask=mask.reshape(-1, N).contiguous())
+        out = index_points(flat, idx)
+        ones = torch.ones((*lead, self.K), dtype=torch.bool, device=pc.device)
+        return out.reshape(*lead, self.K, D), ones

@@ -16,7 +16,7 @@ setup(
     ]),
     package_data={
         "pointcloud_tpu.rl": ["tqc.yml"],
-        "pointcloud_tpu_torch": ["csrc/*.cu"],
+        "pointcloud_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_utils import random_variables, to_np
+from torch_port_utils import jax_variables, raw_clouds, to_np
 
 from pointcloud_tpu import transforms as jtf
 from pointcloud_tpu.envs import scenes as jscenes
@@ -31,20 +31,6 @@ from pointcloud_tpu_torch.train import harness as tharness
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LOSS_TOL = 1e-5
-
-
-def raw_clouds(rng, sc, B, N):
-    """Clouds in the scene's bbox coordinates (xyz) with rgb in [0, 1]."""
-    bbox = np.asarray(sc.bbox, np.float32)
-    xyz = bbox[:, 0] + rng.random((B, N, 3), dtype=np.float32) * (
-        bbox[:, 1] - bbox[:, 0])
-    return np.concatenate([xyz, rng.random((B, N, 3), dtype=np.float32)], -1)
-
-
-def jax_variables(module, x, seed):
-    v = module.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]), train=False)
-    return random_variables(jax.tree_util.tree_map(np.asarray, v),
-                            np.random.default_rng(seed))
 
 
 def test_eval_step_matches_jax_at_full_size():
@@ -161,7 +147,7 @@ def test_interop_is_total():
 def test_create_model_rejects_unported_configs():
     for args, kw in (
         (("Segmenter", "PointNet", "Cube"), {"loss_override": "chamfer"}),
-        (("Autoencoder", "PointNet2", "Cube"), {"loss_override": "chamfer"}),
+        (("Autoencoder", "PointMLP", "Cube"), {"loss_override": "chamfer"}),
         (("Autoencoder", "PointNet", "Cube"), {}),
     ):
         with pytest.raises(NotImplementedError):
@@ -181,7 +167,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.interop, pointcloud_tpu_torch.losses, "
         "pointcloud_tpu_torch.ops.scatter_rows, "
         "pointcloud_tpu_torch.ops.chamfer_bwd, "
-        "pointcloud_tpu_torch.ops.dense_bn_pool\n"
+        "pointcloud_tpu_torch.ops.dense_bn_pool, "
+        "pointcloud_tpu_torch.ops.fps, pointcloud_tpu_torch.ops.ball_group, "
+        "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms\n"
         "from pointcloud_tpu_torch.train import make_train_step\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "

@@ -11,12 +11,16 @@ import pytest
 import torch
 
 from pointcloud_tpu_torch.ops import (
+    ball_group,
+    ball_group_reference,
     chamfer_bwd,
     chamfer_bwd_reference,
     chamfer_distance,
     dense_pool_stats,
     dense_pool_stats_bwd,
     dense_pool_stats_reference,
+    farthest_point_sample,
+    fps_reference,
     nn_sweep,
     nn_sweep_reference,
     scatter_rows,
@@ -274,3 +278,114 @@ def test_training_kernels_reject_what_they_do_not_take(dev):
         dense_pool_stats(xd.bfloat16(), wd, bd, sd, None, 64)  # mixed dtypes
     with pytest.raises(ValueError):
         dense_pool_stats(xd, wd.t().contiguous().t(), bd, sd, None, 64)
+
+
+# ---- the PointNet2 slice's kernels ----
+
+def fps_case(dev, seed, B, N, C=3, masked=True):
+    """Unit-cube clouds; points N//2.. duplicate points 0.. (exact ties);
+    with masks ~20% of points masked, point 0 masked in cloud 0 and every
+    point masked in the last cloud."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand((B, N, C), generator=g, device=dev)
+    xyz[:, N // 2 + N % 2:] = xyz[:, : N // 2]
+    mask = None
+    if masked:
+        mask = torch.rand((B, N), generator=g, device=dev) > 0.2
+        mask[0, 0] = False
+        mask[-1] = False
+    return xyz, mask
+
+
+@pytest.mark.parametrize("B,N,K", [(4, 2048, 512), (3, 512, 128), (2, 5000, 300),
+                                   (1, 20000, 256), (2, 100, 150)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_matches_plain_and_is_deterministic(dev, B, N, K, masked):
+    """Equal indices (the same rounded operations in the same order); the
+    shared-memory paths (256 and 1024 threads), the global-scratch path
+    (N > 12288) and an under-full cloud (K > N)."""
+    xyz, mask = fps_case(dev, N, B, N, masked=masked)
+    got = farthest_point_sample(xyz, K, mask)
+    again = farthest_point_sample(xyz, K, mask)
+    torch.cuda.synchronize()
+    want = fps_reference(xyz, K, mask)
+    assert got.dtype == torch.int32 and got.shape == (B, K)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    if masked:
+        assert (got[-1] == 0).all()  # no valid point: zeros
+        assert bool(torch.gather(mask[:-1], 1, got[:-1].long()).all())
+
+
+def test_fps_reads_xyz_of_wider_points(dev):
+    xyz, mask = fps_case(dev, 7, 2, 700, C=6)
+    assert torch.equal(farthest_point_sample(xyz, 64, mask),
+                       farthest_point_sample(xyz[..., :3].contiguous(), 64, mask))
+
+
+def ball_case(dev, seed, B, N, S, F, dtype, masked):
+    """Unit-cube clouds, centroids on every (N // S)-th point, the last
+    centroid far outside (an empty ball), ~1/3 of the points masked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand((B, N, 3), generator=g, device=dev)
+    feats = (torch.randn((B, N, F), generator=g, device=dev).to(dtype)
+             if F else None)
+    cents = xyz[:, :: N // S][:, :S].clone()
+    cents[:, -1] += 5.0
+    mask = torch.rand((B, N), generator=g, device=dev) > 0.33 if masked else None
+    return xyz, feats, cents, mask
+
+
+@pytest.mark.parametrize("N,S,k,F,radius", [(2048, 512, 32, 3, 0.2),
+                                            (512, 128, 64, 128, 0.4),
+                                            (300, 40, 5, 7, 0.3),
+                                            (5000, 64, 24, 4, 0.1),
+                                            (256, 16, 8, 0, 0.5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_ball_group_matches_plain_and_is_deterministic(dev, N, S, k, F, radius,
+                                                       dtype, masked):
+    """Bit-equal outputs: the same membership test (rounded intrinsics in
+    the plain version's order), the same gathers, one rounding of the
+    centred xyz; the shared-memory and global paths; k not a multiple of 8;
+    no features."""
+    xyz, feats, cents, mask = ball_case(dev, N + k, 2, N, S, F, dtype, masked)
+    got = ball_group(xyz, feats, cents, mask, k, radius)
+    again = ball_group(xyz, feats, cents, mask, k, radius)
+    torch.cuda.synchronize()
+    want = ball_group_reference(xyz, feats, cents, mask, k, radius)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert got[1].shape == (2, S, k) and got[2].dtype == torch.bool
+    assert (got[1][:, -1] == 0).all() and not got[2][:, -1].any()  # empty ball
+    if not masked:
+        assert got[2][:, :-1, 0].all()  # each centroid sits in its own ball
+
+
+def test_pointnet2_kernels_count_launches_and_keep_the_cpu_rule(dev):
+    xyz, feats, cents, mask = ball_case(dev, 1, 1, 256, 16, 3, torch.float32, True)
+    before = (farthest_point_sample.launches, ball_group.launches)
+    farthest_point_sample(xyz, 16, mask)
+    farthest_point_sample(xyz.cpu(), 16, mask.cpu())
+    ball_group(xyz, feats, cents, mask, 8, 0.3)
+    ball_group(xyz.cpu(), feats.cpu(), cents.cpu(), mask.cpu(), 8, 0.3)
+    assert (farthest_point_sample.launches, ball_group.launches) == tuple(
+        v + 1 for v in before)
+
+
+def test_pointnet2_kernels_reject_what_they_do_not_take(dev):
+    xyz, feats, cents, mask = ball_case(dev, 2, 2, 256, 16, 3, torch.float32, True)
+    with pytest.raises(TypeError):
+        farthest_point_sample(xyz.double(), 16)
+    with pytest.raises(ValueError):
+        farthest_point_sample(xyz.transpose(0, 1).contiguous().transpose(0, 1), 16)
+    with pytest.raises(TypeError):
+        ball_group(xyz, feats.half(), cents, mask, 8, 0.3)
+    with pytest.raises(TypeError):
+        ball_group(xyz.bfloat16(), feats, cents, mask, 8, 0.3)
+    with pytest.raises(ValueError):
+        ball_group(xyz, feats.transpose(0, 1).contiguous().transpose(0, 1), cents,
+                   mask, 8, 0.3)
+    with pytest.raises(ValueError):
+        ball_group(xyz, feats, cents, mask.cpu(), 8, 0.3)

@@ -10,14 +10,14 @@ torch.set_num_threads(1)
 def random_variables(variables, rng):
     """A flax variables tree with every leaf redrawn from `rng` (numpy), so
     that BatchNorm, the pools and the STN heads are not the identity:
-    kernels ~ N(0, 1/fan_in), biases/offsets ~ N(0, 0.1), BN scales of
+    kernels and SetAbstraction's w{i} ~ N(0, 1/fan_in), biases/offsets ~ N(0, 0.1), BN scales of
     random sign (some negative, which sends the pool through its min branch),
     running means ~ N(0, 0.1) and running variances in [0.5, 2]."""
 
     def draw(path, leaf):
         shape = np.shape(leaf)
-        name = path[-1]
-        if name == "kernel":
+        name = path[-1].rstrip("0123456789")  # SetAbstraction's w0, scale0, ...
+        if name in ("kernel", "w"):
             return rng.standard_normal(shape) / np.sqrt(shape[0])
         if name == "scale":
             sign = np.where(rng.random(shape) < 0.2, -1.0, 1.0)
@@ -36,6 +36,42 @@ def random_variables(variables, rng):
         return out
 
     return walk(variables)
+
+
+def raw_clouds(rng, sc, B, N):
+    """Clouds in the scene's bbox coordinates (xyz) with rgb in [0, 1]."""
+    bbox = np.asarray(sc.bbox, np.float32)
+    xyz = bbox[:, 0] + rng.random((B, N, 3), dtype=np.float32) * (
+        bbox[:, 1] - bbox[:, 0])
+    return np.concatenate([xyz, rng.random((B, N, 3), dtype=np.float32)], -1)
+
+
+def jax_variables(module, x, seed):
+    """Random flax variables (random_variables) of `module` for input x."""
+    import jax
+    import jax.numpy as jnp
+
+    v = module.init(jax.random.PRNGKey(0), jnp.asarray(x[:1]), train=False)
+    return random_variables(jax.tree_util.tree_map(np.asarray, v),
+                            np.random.default_rng(seed))
+
+
+def ball_margin(xyz, cents, radius):
+    """Smallest |d - r^2| / r^2 over all (centroid, point) pairs, with d the
+    float64 squared distance: how far every point keeps from the ball's
+    boundary, relative to r^2."""
+    d = ((cents[:, :, None, :].astype(np.float64)
+          - xyz[:, None].astype(np.float64)) ** 2).sum(-1)
+    return float(np.abs(d / (radius * radius) - 1.0).min())
+
+
+def fps_centroids(xyz, npoint, mask=None):
+    """The FPS centroids (the port's plain version) of numpy clouds."""
+    from pointcloud_tpu_torch.ops.fps import fps_reference
+
+    idx = fps_reference(torch.from_numpy(xyz), npoint,
+                        None if mask is None else torch.from_numpy(mask))
+    return np.take_along_axis(xyz, idx.numpy()[..., None].astype(np.int64), 1)
 
 
 def to_np(t):
