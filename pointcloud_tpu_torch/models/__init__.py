@@ -19,5 +19,6 @@ from pointcloud_tpu_torch.models.pointnet import (  # noqa: F401
 )
 from pointcloud_tpu_torch.models.pointnet2 import (  # noqa: F401
     PointNet2Encoder,
+    PointNet2SSGEncoder,
     SetAbstraction,
 )

@@ -1,16 +1,23 @@
-"""PointNet++ encoder (port of pointcloud_tpu/models/pointnet2.py:38-176,
-:238-267), eval mode.
+"""PointNet++ encoders (port of pointcloud_tpu/models/pointnet2.py:38-176,
+:238-296).
 
 Three set-abstraction (SA) levels: FPS-downsample, ball-query group, a
 shared MLP over each neighbourhood, max-pool per group. FPS and the ball
-grouping are the port's CUDA kernels (ops/fps.py, ops/ball_group.py); the
-per-group MLP is a bias-free Dense stack with BatchNorm on the running
-statistics, plain matmuls as the JAX package leaves them to XLA in eval.
+grouping are the port's CUDA kernels (ops/fps.py, ops/ball_group.py). The
+per-group MLP is a bias-free Dense stack with BatchNorm: in eval on the
+running statistics, plain matmuls as the JAX package leaves them to XLA; in
+train mode on the batch statistics through `mlp_pool_fused`
+(ops/preextract_fused.py), the fused Dense-BN-ReLU-pool chain.
+
+In train mode the JAX package takes its fused kernels only on a TPU above
+1e7 grouped elements (pointnet2.py:127-129), a threshold measured there.
+Here the device decides: CUDA tensors always run the kernels, CPU tensors the
+plain version. BatchNorm statistics in train mode include masked rows, as in
+the JAX package.
 
 Parameters carry the flax names: `w{i}` (cin, co) in flax's layout (not
 transposed), `scale{i}`, `offset{i}`, and buffers `mean{i}`, `var{i}`; the
-levels are `SetAbstraction_0..2`. Train mode runs the fused Dense-BN-pool
-chain (`mlp_pool_fused`), the next slice of the port, and raises here.
+levels are `SetAbstraction_0..2`.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from torch import nn
 
 from pointcloud_tpu_torch.models.layers import lecun_normal_
 from pointcloud_tpu_torch.ops.geometry import sample_and_group, sample_and_group_all
+from pointcloud_tpu_torch.ops.preextract_fused import mlp_pool_fused
 
 _NEG = -1e9
 EPS = 1e-5  # BatchNorm epsilon of the JAX package's SA levels
@@ -88,14 +96,31 @@ class SetAbstraction(nn.Module):
         out = torch.relu(mx).masked_fill_(mx < -5e8, _NEG)
         return out.to(dt)
 
+    def pool_train(self, grouped, group_mask):
+        """`pool` on the batch statistics, through `mlp_pool_fused`; the
+        running statistics move to 0.9 old + 0.1 new (biased variance), in
+        place."""
+        B, S, K, cin = grouped.shape
+        dt = self.dtype or grouped.dtype
+        pen = torch.where(group_mask.reshape(B, S * K), 0.0, 1e9)
+        ws, scales, offsets = (
+            [getattr(self, f"{name}{i}") for i in range(self.n_layers)]
+            for name in ("w", "scale", "offset"))
+        out, stats = mlp_pool_fused(grouped.reshape(B, S * K, cin).to(dt), ws,
+                                    scales, offsets, pen, K)
+        n = B * S * K
+        with torch.no_grad():
+            for i, (ss, sq) in enumerate(stats):
+                mean = ss / n
+                var = torch.clamp(sq / n - mean * mean, min=0.0)
+                getattr(self, f"mean{i}").mul_(0.9).add_(mean, alpha=0.1)
+                getattr(self, f"var{i}").mul_(0.9).add_(var, alpha=0.1)
+        return out.to(dt)
+
     def forward(self, xyz, features, train: bool = False, mask=None):
-        if train:
-            raise NotImplementedError(
-                "SetAbstraction in train mode runs the fused Dense-BN-pool "
-                "chain (mlp_pool_fused), the next slice of the port; only "
-                "eval is ported")
         new_xyz, grouped, group_mask, new_mask = self.group(xyz, features, mask)
-        return new_xyz, self.pool(grouped, group_mask), new_mask
+        pool = self.pool_train if train else self.pool
+        return new_xyz, pool(grouped, group_mask), new_mask
 
 
 class PointNet2Encoder(nn.Module):
@@ -106,13 +131,14 @@ class PointNet2Encoder(nn.Module):
     """
 
     ENCODING_DIM = 1024
+    NSAMPLE_0 = 32  # neighbours per group at the first level
 
     def __init__(self, space_dims: int = 3, feature_dims: int = 3, dtype=None):
         super().__init__()
         self.space_dims = space_dims
         self.feature_dims = feature_dims
         self.SetAbstraction_0 = SetAbstraction(
-            512, 0.2, 32, 3 + feature_dims, (64, 64, 128), dtype=dtype)
+            512, 0.2, self.NSAMPLE_0, 3 + feature_dims, (64, 64, 128), dtype=dtype)
         self.SetAbstraction_1 = SetAbstraction(
             128, 0.4, 64, 3 + 128, (128, 128, 256), dtype=dtype)
         self.SetAbstraction_2 = SetAbstraction(
@@ -126,3 +152,17 @@ class PointNet2Encoder(nn.Module):
             xyz, feats, mask = getattr(self, f"SetAbstraction_{i}")(
                 xyz, feats, train=train, mask=mask)
         return feats[:, 0, :]  # (B, 1024)
+
+
+class PointNet2SSGEncoder(PointNet2Encoder):
+    """The alternative SSG classification encoder (port of
+    pointcloud_tpu/models/pointnet2.py:270-296): k=64 at the first level,
+    xyz always the first three dims. Not in `backbone_factory`, as in the
+    JAX package."""
+
+    NSAMPLE_0 = 64
+
+    def __init__(self, space_dims: int = 3, feature_dims: int = 3, dtype=None):
+        if space_dims != 3:
+            raise ValueError("PointNet2SSGEncoder reads xyz from the first 3 dims")
+        super().__init__(3, feature_dims, dtype)

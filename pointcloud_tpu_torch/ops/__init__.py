@@ -1,6 +1,7 @@
 """Point-cloud ops: pairwise distances, Chamfer distance and its kernels (the
 nearest-neighbour sweep, the fused backward, the segment-sum), the fused
-Dense -> BatchNorm-statistics -> max-pool kernels, farthest-point sampling
+Dense -> BatchNorm-statistics -> max-pool kernels, the fused
+Dense-BatchNorm-ReLU chain with its group max-pool, farthest-point sampling
 and the ball grouping."""
 
 from pointcloud_tpu_torch.ops.ball_group import (  # noqa: F401
@@ -37,6 +38,21 @@ from pointcloud_tpu_torch.ops.geometry import (  # noqa: F401
 from pointcloud_tpu_torch.ops.nn_sweep import (  # noqa: F401
     nn_sweep,
     nn_sweep_reference,
+)
+from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
+    affine_scalars,
+    bn_pool,
+    bn_pool_reference,
+    bnact_mm_stats,
+    bnact_mm_stats_reference,
+    chain_bwd_pass,
+    chain_bwd_pass_reference,
+    mlp_pool_bwd_reference,
+    mlp_pool_fused,
+    mlp_pool_reference,
+    mm_stats,
+    mm_stats_reference,
+    up_scalars,
 )
 from pointcloud_tpu_torch.ops.scatter_rows import (  # noqa: F401
     scatter_rows,

@@ -3,7 +3,9 @@
 Port of pointcloud_tpu/ops/pallas_kernels.py:_group_ball_smajor_kernel
 (`grouped_gather_ball`). The kernel is csrc/ball_group.cu; its note states
 the design and the bound. `ball_group` launches it for CUDA tensors and
-takes the plain version `ball_group_reference` only for CPU tensors.
+takes the plain version `ball_group_reference` only for CPU tensors. Its
+gradient (a port of `_gg_ball_bwd`) is one `scatter_rows` of the grouped
+cotangent back onto the points, on either device.
 
 Membership follows the TPU kernel: ((pen + dx^2) + dy^2) + dz^2 <= r2 on
 direct differences, pen = 1e9 on masked points, r2 = float32(radius**2)
@@ -22,6 +24,7 @@ import torch
 
 from pointcloud_tpu_torch.ops import _build
 from pointcloud_tpu_torch.ops.geometry import first_k_in_ball, index_points
+from pointcloud_tpu_torch.ops.scatter_rows import scatter_rows
 
 _PEN = 1e9
 _MAX_BATCH = 65535  # gridDim.y
@@ -29,7 +32,7 @@ _MAX_BATCH = 65535  # gridDim.y
 
 def ball_group_reference(xyz, feats, new_xyz, mask, k: int, radius: float):
     """Plain PyTorch version of the kernel; same arguments and results as
-    `ball_group`."""
+    `ball_group`. Differentiable through its gathers by autograd."""
     r2 = torch.tensor(radius * radius, dtype=torch.float32, device=xyz.device)
     B, N, _ = xyz.shape
     acc = (torch.zeros((B, 1, N), device=xyz.device) if mask is None
@@ -54,19 +57,9 @@ def _launcher():
     return fn
 
 
-def ball_group(xyz, feats, new_xyz, mask, k: int, radius: float):
-    """Group the first k points within `radius` of each centroid.
-
-    xyz (B, N, 3) fp32, feats (B, N, F) fp32 or bf16 or None, new_xyz
-    (B, S, 3) fp32 centroids, mask (B, N) bool (True = valid) or None.
-    Returns grouped (B, S, k, 3+F) in the features' dtype (fp32 without
-    features) holding [xyz[idx] - centroid | feats[idx]], idx (B, S, k)
-    int32 and valid (B, S, k) bool (slot inside the ball).
-
-    CPU tensors take the plain version. CUDA tensors launch the kernel,
-    which takes contiguous tensors; anything else raises.
-    `ball_group.launches` counts the kernel's launches.
-    """
+def _group(xyz, feats, new_xyz, mask, k: int, radius: float):
+    """`ball_group` without its gradient: checks, then the kernel or the
+    plain version."""
     if xyz.dim() != 3 or xyz.shape[2] != 3 or new_xyz.dim() != 3 \
             or new_xyz.shape[2] != 3 or new_xyz.shape[0] != xyz.shape[0]:
         raise ValueError(f"ball_group takes xyz (B, N, 3) and new_xyz (B, S, 3); "
@@ -123,6 +116,61 @@ def ball_group(xyz, feats, new_xyz, mask, k: int, radius: float):
         raise RuntimeError(f"ball_group kernel launch failed: CUDA error {err}")
     ball_group.launches += 1
     return grouped, idx, valid
+
+
+class _BallGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz, feats, new_xyz, mask, k, radius):
+        grouped, idx, valid = _group(xyz, feats, new_xyz, mask, k, radius)
+        ctx.save_for_backward(idx)
+        ctx.n_points = xyz.shape[1]
+        ctx.feat_dtype = None if feats is None else feats.dtype
+        ctx.mark_non_differentiable(idx, valid)
+        return grouped, idx, valid
+
+    @staticmethod
+    def backward(ctx, dg, didx, dvalid):
+        del didx, dvalid
+        (idx,) = ctx.saved_tensors
+        B, S, k = idx.shape
+        need_xyz, need_feats, need_new = ctx.needs_input_grad[:3]
+        d_xyz = d_feats = d_new = None
+        if need_new:  # the centring: every slot subtracts its centroid
+            d_new = -dg[..., :3].float().sum(dim=2)
+        if need_xyz or need_feats:
+            # bf16 features: the cotangent is scattered as bf16 rows (fp32
+            # sums), as the JAX package does
+            rows = dg.reshape(B, S * k, -1).to(
+                torch.bfloat16 if ctx.feat_dtype == torch.bfloat16
+                else torch.float32)
+            scat = scatter_rows(rows.contiguous(), idx.reshape(B, S * k),
+                                ctx.n_points)
+            if need_xyz:
+                d_xyz = scat[..., :3]
+            if need_feats:
+                d_feats = scat[..., 3:].to(ctx.feat_dtype)
+        return d_xyz, d_feats, d_new, None, None, None
+
+
+def ball_group(xyz, feats, new_xyz, mask, k: int, radius: float):
+    """Group the first k points within `radius` of each centroid.
+
+    xyz (B, N, 3) fp32, feats (B, N, F) fp32 or bf16 or None, new_xyz
+    (B, S, 3) fp32 centroids, mask (B, N) bool (True = valid) or None.
+    Returns grouped (B, S, k, 3+F) in the features' dtype (fp32 without
+    features) holding [xyz[idx] - centroid | feats[idx]], idx (B, S, k)
+    int32 and valid (B, S, k) bool (slot inside the ball).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel,
+    which takes contiguous tensors; anything else raises.
+    `ball_group.launches` counts the kernel's launches.
+
+    Differentiable in xyz, feats and new_xyz (the selection is not): the
+    cotangent of `grouped` goes back onto the points through one
+    `scatter_rows` (deterministic), and minus its xyz channels summed over k
+    to the centroids; only the gradients that are needed are formed.
+    """
+    return _BallGroup.apply(xyz, feats, new_xyz, mask, k, radius)
 
 
 ball_group.launches = 0

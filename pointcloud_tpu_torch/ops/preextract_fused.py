@@ -1,0 +1,555 @@
+"""The fused Dense -> BatchNorm -> ReLU chain with a masked group max-pool
+(the set-abstraction body), forward and backward: CUDA kernels, plain
+versions, wrappers.
+
+Port of pointcloud_tpu/ops/preextract_fused.py in its plain-chain mode
+(`mlp_pool_fused`, `mlp_pool_reference` and the Pallas kernels
+`_mm_stats_kernel`, `_bnact_mm_stats_kernel`, `_bn_respool_kernel`,
+`_bwd_pass_kernel`). The kernels are csrc/mlp_chain.cu; its note states the
+design and the bound. The residual mode (`preextract_pool_fused`, PointMLP's
+PreExtraction) is not ported yet.
+
+Each pass has a wrapper (`mm_stats`, `bnact_mm_stats`, `bn_pool`,
+`chain_bwd_pass`) that launches its kernel for CUDA tensors and takes its
+plain version (`*_reference`) only for CPU tensors, and a launch counter
+(`<wrapper>.launches`). `mlp_pool_fused` chains them: on CUDA tensors it is a
+`torch.autograd.Function` whose backward runs `chain_bwd_pass` once per
+layer; on CPU tensors it is `mlp_pool_reference`, differentiated by
+autograd. `mlp_pool_bwd_reference` is the explicit backward out of the plain
+passes, with the kernels' rounding points.
+
+Scalars travel as (4, C) fp32 rows. For a BatchNorm (`affine_scalars`): mean,
+mul = gamma * rsig, beta, rsig. For a backward pass (`up_scalars`): c1, c4,
+c3, mean.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pointcloud_tpu_torch.ops import _build
+
+EPS = 1e-5
+_SENT = -1e9  # the pooled value of a group without a valid row
+_TILE_ROWS = 64
+_MAX_CHUNKS = 2048  # row chunks of the forward and da launches (gridDim.y)
+_DW_BLOCKS = 528  # blocks a dw launch aims for (4 per SM)
+_MAX_ROWS = 2**31 - 1
+
+
+# ---------------------------------------------------------------------------
+# scalars
+# ---------------------------------------------------------------------------
+
+def affine_scalars(ssum, ssq, gamma, beta, n: int):
+    """(4, C) fp32 rows mean, mul = gamma * rsig, beta, rsig of a train-mode
+    BatchNorm over n rows with column sums ssum and ssq (biased variance,
+    clamped at 0)."""
+    mean = ssum / n
+    var = torch.clamp(ssq / n - mean * mean, min=0.0)
+    rsig = torch.rsqrt(var + EPS)
+    return torch.stack([mean, rsig * gamma.float(), beta.float(), rsig])
+
+
+def up_scalars(sc, gamma, sd, se, n: int):
+    """(4, C) fp32 rows c1, c4, c3, mean of a layer's backward pass: with
+    sd = sum dz and se = sum dz * zhat over the layer's n rows,
+    dh = c1 dz - c4 - c3 (h - mean) is the train-mode BatchNorm backward."""
+    mean, _, _, rsig = sc
+    c1 = gamma.float() * rsig
+    return torch.stack([c1, c1 * sd / n, c1 * rsig * se / n, mean])
+
+
+def _bn_pre(h, sc):
+    return (h.float() - sc[0]) * sc[1] + sc[2]
+
+
+def _relu(v):
+    return torch.where(v > 0, v, 0.0)  # its gradient is exactly 1[v > 0]
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the four passes
+# ---------------------------------------------------------------------------
+
+def mm_stats_reference(x, w):
+    """Plain version of `mm_stats`: fp32 accumulation rounded once to
+    x.dtype, fp32 column sums of the rounded values over all rows."""
+    h = torch.matmul(x.float(), w.to(x.dtype).float()).to(x.dtype)
+    hf = h.float()
+    return h, hf.sum(dim=(0, 1)), (hf * hf).sum(dim=(0, 1))
+
+
+def bnact_mm_stats_reference(h_in, sc, w):
+    """Plain version of `bnact_mm_stats`."""
+    a = _relu(_bn_pre(h_in, sc)).to(h_in.dtype)
+    return mm_stats_reference(a, w)
+
+
+def bn_pool_reference(h, sc, pen, pool: int, final_relu: bool = True):
+    """Plain version of `bn_pool`. The pool goes through argmax (first
+    occurrence) and take_along_dim, so autograd sends each pooled gradient
+    to one row."""
+    B, R, C = h.shape
+    hf = h.float()
+    v = (_bn_pre(h, sc) - pen[..., None]).reshape(B, R // pool, pool, C)
+    am = torch.argmax(v, dim=2, keepdim=True)
+    mx = torch.take_along_dim(v, am, dim=2)[:, :, 0]
+    hsel = torch.take_along_dim(hf.reshape(B, R // pool, pool, C), am, dim=2)[:, :, 0]
+    out = _relu(mx) if final_relu else mx
+    out = torch.where(mx < 0.5 * _SENT, _SENT, out).to(h.dtype)
+    return out, mx, am[:, :, 0].int(), hsel
+
+
+def _dense_dz(dosel, amax, pool: int):
+    """(B, G * pool, C) fp32 holding dosel at row amax of each group."""
+    B, G, C = dosel.shape
+    dz = torch.zeros((B, G, pool, C), dtype=torch.float32, device=dosel.device)
+    dz.scatter_(2, amax.long()[:, :, None, :], dosel[:, :, None, :])
+    return dz.reshape(B, G * pool, C)
+
+
+def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
+                             dosel=None, amax=None, pool: int = 1,
+                             need_dzd: bool = True):
+    """Plain version of `chain_bwd_pass`, with its rounding points: dh and
+    dzd rounded to the activation dtype, Sd and Se summed from the rounded
+    dzd, every product accumulated in fp32."""
+    dt = h_up.dtype
+    Cd, Cu = w.shape
+    dzf = _dense_dz(dosel, amax, pool) if dz is None else dz.float()
+    dh = ((uc[0] * dzf - uc[1]) - uc[2] * (h_up.float() - uc[3])).to(dt).float()
+    wf = w.to(dt).float()
+    da = torch.matmul(dh, wf.t()) if need_dzd else None
+    sd = se = dzd = None
+    if sc_down is not None:
+        hdf = a_in.float()
+        pre = _bn_pre(a_in, sc_down)
+        a_up = _relu(pre).to(dt).float()
+        dzd = torch.where(pre > 0, da, 0.0).to(dt)
+        dzdf = dzd.float()
+        sd = dzdf.sum(dim=(0, 1))
+        se = (dzdf * ((hdf - sc_down[0]) * sc_down[3])).sum(dim=(0, 1))
+    else:
+        a_up = a_in.float()
+        if need_dzd:
+            dzd = da.to(dt)
+    dw = torch.matmul(a_up.reshape(-1, Cd).t(), dh.reshape(-1, Cu))
+    return dzd, sd, se, dw
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _launchers():
+    lib = _build.load("mlp_chain")
+    mm = lib.mlp_mm_stats_launch
+    mm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    pool = lib.mlp_bn_pool_launch
+    pool.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    bwd = lib.mlp_bwd_pass_launch
+    bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    for fn in (mm, pool, bwd):
+        fn.restype = ctypes.c_int
+    return mm, pool, bwd
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _round_up(v: int, to: int) -> int:
+    return -(-v // to) * to
+
+
+def _chunk_rows(rows: int) -> int:
+    """Rows a forward or da block owns: whole 64-row tiles, at most
+    _MAX_CHUNKS chunks."""
+    return max(_TILE_ROWS, _round_up(-(-rows // _MAX_CHUNKS), _TILE_ROWS))
+
+
+def _dw_chunk_rows(rows: int, cd: int, cu: int) -> int:
+    """Rows a dw block owns: whole 64-row tiles, about _DW_BLOCKS blocks over
+    the (Cd, Cu) tiles and the row chunks together."""
+    tiles = -(-cd // 128) * -(-cu // 128)
+    chunks = max(1, -(-_DW_BLOCKS // tiles))
+    return max(_TILE_ROWS, _round_up(-(-rows // chunks), _TILE_ROWS))
+
+
+def _device_of(name, *tensors):
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"{name} inputs lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, not {device}")
+    return device
+
+
+def _check_kernel(name, acts, f32s=(), i32s=()):
+    """The kernels take contiguous tensors: activations and weights all fp32
+    or all bf16, scalars and cotangents fp32, indices int32."""
+    dt = acts[0].dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(t.dtype != dt for t in acts):
+        raise TypeError(f"{name} kernel takes activations and weights all fp32 "
+                        f"or all bf16; got {[t.dtype for t in acts]}")
+    if any(t.dtype != torch.float32 for t in f32s) \
+            or any(t.dtype != torch.int32 for t in i32s):
+        raise TypeError(f"{name} kernel takes fp32 scalars, penalties and "
+                        f"cotangents and int32 indices")
+    if not all(t.is_contiguous() for t in (*acts, *f32s, *i32s)):
+        raise ValueError(f"{name} kernel takes contiguous tensors")
+    rows = acts[0].shape[0] * acts[0].shape[1]
+    if not 1 <= rows <= _MAX_ROWS:
+        raise ValueError(f"{name} kernel bounds exceeded: rows={rows}")
+
+
+def _check_product(name, x, w, sc):
+    if x.dim() != 3 or w.dim() != 2 or w.shape[0] != x.shape[2] \
+            or w.shape[0] < 1 or w.shape[1] < 1:
+        raise ValueError(f"{name} takes x (B, R, Cd) and w (Cd, Cu); got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if sc is not None and (sc.dim() != 2 or sc.shape[0] < 3
+                           or sc.shape[1] != x.shape[2]):
+        raise ValueError(f"{name} takes scalars (4, {x.shape[2]}); got "
+                         f"{tuple(sc.shape)}")
+
+
+def _mm_stats_kernel(x, sc, w):
+    B, R, Cd = x.shape
+    Cu = w.shape[1]
+    rows = B * R
+    chunk = _chunk_rows(rows)
+    h = torch.empty((B, R, Cu), dtype=x.dtype, device=x.device)
+    stats = torch.empty((2, Cu), dtype=torch.float32, device=x.device)
+    part = torch.empty((-(-rows // chunk), 2, Cu), dtype=torch.float32,
+                       device=x.device)
+    launch, _, _ = _launchers()
+    with torch.cuda.device(x.device):
+        err = launch(_ptr(x), _ptr(sc), _ptr(w), _ptr(h), _ptr(stats), _ptr(part),
+                     rows, Cd, Cu, chunk, int(x.dtype == torch.bfloat16),
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_chain product kernel launch failed: CUDA error {err}")
+    return h, stats[0], stats[1]
+
+
+def mm_stats(x, w):
+    """h = x.dtype(x @ w) with fp32 accumulation, and the fp32 column sums
+    ssum, ssq of the rounded h and h^2 over all B * R rows.
+
+    x (B, R, Cd) and w (Cd, Cu) in one dtype (fp32 or bf16 on the card).
+    Returns (h (B, R, Cu), ssum (Cu,), ssq (Cu,)). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (`mm_stats.launches` counts);
+    anything the kernel does not take raises."""
+    _check_product("mm_stats", x, w, None)
+    if _device_of("mm_stats", x, w).type == "cpu":
+        return mm_stats_reference(x, w)
+    _check_kernel("mm_stats", (x, w))
+    out = _mm_stats_kernel(x, None, w)
+    mm_stats.launches += 1
+    return out
+
+
+mm_stats.launches = 0
+
+
+def bnact_mm_stats(h_in, sc, w):
+    """a = dtype(relu((h_in - mean) * mul + beta)) from the scalars sc (4, Cd)
+    of `affine_scalars`, then `mm_stats(a, w)`; `a` is never stored.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (`bnact_mm_stats.launches` counts); anything else raises."""
+    _check_product("bnact_mm_stats", h_in, w, sc)
+    if _device_of("bnact_mm_stats", h_in, sc, w).type == "cpu":
+        return bnact_mm_stats_reference(h_in, sc, w)
+    _check_kernel("bnact_mm_stats", (h_in, w), (sc,))
+    out = _mm_stats_kernel(h_in, sc, w)
+    bnact_mm_stats.launches += 1
+    return out
+
+
+bnact_mm_stats.launches = 0
+
+
+def bn_pool(h, sc, pen, pool: int, final_relu: bool = True):
+    """The pool pass: v = (h - mean) * mul + beta - pen in fp32, and per
+    group of `pool` consecutive rows its max with the lowest row winning
+    ties.
+
+    h (B, R, C), sc (4, C) from `affine_scalars`, pen (B, R) fp32 (+1e9 on
+    rows kept out of the pool). Returns out (B, R/pool, C) in h.dtype
+    (relu(max), or the max itself without final_relu; -1e9 for a group
+    without a valid row), maxv fp32, amax int32 (row within the group) and
+    hsel fp32 (h at that row). CPU tensors take the plain version; CUDA
+    tensors launch the kernel (`bn_pool.launches` counts); anything else
+    raises."""
+    if h.dim() != 3 or sc.dim() != 2 or sc.shape[0] < 3 or sc.shape[1] != h.shape[2] \
+            or pen.shape != h.shape[:2]:
+        raise ValueError(f"bn_pool takes h (B, R, C), sc (4, C) and pen (B, R); "
+                         f"got {tuple(h.shape)}, {tuple(sc.shape)}, "
+                         f"{tuple(pen.shape)}")
+    B, R, C = h.shape
+    if pool < 1 or R % pool:
+        raise ValueError(f"pool must divide R = {R}; got {pool}")
+    device = _device_of("bn_pool", h, sc, pen)
+    if device.type == "cpu":
+        return bn_pool_reference(h, sc, pen, pool, final_relu)
+    _check_kernel("bn_pool", (h,), (sc, pen))
+    G = R // pool
+    out = torch.empty((B, G, C), dtype=h.dtype, device=device)
+    maxv = torch.empty((B, G, C), dtype=torch.float32, device=device)
+    amax = torch.empty((B, G, C), dtype=torch.int32, device=device)
+    hsel = torch.empty((B, G, C), dtype=torch.float32, device=device)
+    _, launch, _ = _launchers()
+    with torch.cuda.device(device):
+        err = launch(_ptr(h), _ptr(sc), _ptr(pen), _ptr(out), _ptr(maxv),
+                     _ptr(amax), _ptr(hsel), B * G, C, pool, int(final_relu),
+                     int(h.dtype == torch.bfloat16),
+                     torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bn_pool kernel launch failed: CUDA error {err}")
+    bn_pool.launches += 1
+    return out, maxv, amax, hsel
+
+
+bn_pool.launches = 0
+
+
+def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
+                   amax=None, pool: int = 1, need_dzd: bool = True):
+    """One backward pass of the chain, for the layer h_up = a @ w.
+
+    h_up (B, R, Cu): the layer's stored output; uc (4, Cu): `up_scalars`;
+    w (Cd, Cu); a_in (B, R, Cd): the stored tensor below, h_{u-1} with its
+    BatchNorm scalars sc_down (4, Cd), or the chain's input with sc_down
+    None. The layer's cotangent is dz (B, R, Cu) or, at the pooled layer,
+    dosel (B, R/pool, Cu) fp32 at row amax (int32) of each group of `pool`
+    rows. With dh = dtype(c1 dz - c4 - c3 (h_up - mean)) and da = dh @ w^T:
+      below a BatchNorm: dzd = dtype(da * 1[pre > 0]) and the fp32 column
+        sums sd = sum dzd, se = sum dzd * zhat of the layer below, and
+        dw = dtype(relu(pre))^T @ dh;
+      at the input: dzd = dtype(da), the gradient of a_in (None when
+        need_dzd is False), sd = se = None, dw = a_in^T @ dh.
+    Returns (dzd, sd, se, dw (Cd, Cu) fp32). CPU tensors take the plain
+    version; CUDA tensors launch the kernels (`chain_bwd_pass.launches`
+    counts one per pass); anything else raises."""
+    _check_product("chain_bwd_pass", a_in, w, sc_down)
+    B, R, Cd = a_in.shape
+    Cu = w.shape[1]
+    if h_up.shape != (B, R, Cu) or uc.shape != (4, Cu):
+        raise ValueError(f"chain_bwd_pass takes h_up {(B, R, Cu)} and uc "
+                         f"{(4, Cu)}; got {tuple(h_up.shape)}, {tuple(uc.shape)}")
+    if (dz is None) == (dosel is None) or (dosel is None) != (amax is None):
+        raise ValueError("chain_bwd_pass takes either dz or dosel with amax")
+    if dz is not None and dz.shape != (B, R, Cu):
+        raise ValueError(f"dz must be {(B, R, Cu)}; got {tuple(dz.shape)}")
+    if dosel is not None and (pool < 1 or R % pool or dosel.shape != (B, R // pool, Cu)
+                              or amax.shape != dosel.shape):
+        raise ValueError(f"dosel and amax must be {(B, R // max(pool, 1), Cu)} "
+                         f"with pool dividing R = {R}")
+    if sc_down is not None and (sc_down.shape[0] != 4 or not need_dzd):
+        raise ValueError("below a BatchNorm the pass takes sc_down (4, Cd) and "
+                         "always forms dzd")
+    device = _device_of("chain_bwd_pass", h_up, uc, w, a_in, sc_down, dz, dosel, amax)
+    if device.type == "cpu":
+        return chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down, dz, dosel,
+                                        amax, pool, need_dzd)
+    _check_kernel("chain_bwd_pass",
+                  [t for t in (a_in, h_up, w, dz) if t is not None],
+                  [t for t in (uc, sc_down, dosel) if t is not None],
+                  [t for t in (amax,) if t is not None])
+    rows = B * R
+    chunk = _chunk_rows(rows)
+    dw_chunk = _dw_chunk_rows(rows, Cd, Cu)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    dzd = torch.empty_like(a_in) if need_dzd else None
+    sdse = part = None
+    if sc_down is not None:
+        sdse, part = f32(2, Cd), f32(-(-rows // chunk), 2, Cd)
+    dw, dw_part = f32(Cd, Cu), f32(-(-rows // dw_chunk), Cd, Cu)
+    _, _, launch = _launchers()
+    with torch.cuda.device(device):
+        err = launch(_ptr(h_up), _ptr(dz), _ptr(dosel), _ptr(amax), _ptr(uc),
+                     _ptr(w), _ptr(a_in), _ptr(sc_down), _ptr(dzd), _ptr(sdse),
+                     _ptr(dw), _ptr(part), _ptr(dw_part), rows, Cd, Cu, pool,
+                     chunk, dw_chunk, int(a_in.dtype == torch.bfloat16),
+                     torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chain_bwd_pass kernel launch failed: CUDA error {err}")
+    chain_bwd_pass.launches += 1
+    if sdse is None:
+        return dzd, None, None, dw
+    return dzd, sdse[0], sdse[1], dw
+
+
+chain_bwd_pass.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the chain
+# ---------------------------------------------------------------------------
+
+def _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, passes):
+    """The forward passes, each through `passes` = (mm_stats,
+    bnact_mm_stats, bn_pool) or their plain versions. Returns the pooled
+    output, the per-layer (ssum, ssq) and what the backward reads."""
+    mm, bnact, pool_pass = passes
+    n = x.shape[0] * x.shape[1]
+    ws_c = [w.to(x.dtype).contiguous() for w in ws]
+    hs, stats, scs = [], [], []
+    for u in range(len(ws)):
+        h, ss, sq = bnact(hs[-1], scs[-1], ws_c[u]) if u else mm(x, ws_c[0])
+        hs.append(h)
+        stats.append((ss, sq))
+        scs.append(affine_scalars(ss, sq, gammas[u], betas[u], n))
+    out, maxv, amax, hsel = pool_pass(hs[-1], scs[-1], pen, pool, final_relu)
+    return out, tuple(stats), (ws_c, hs, scs, maxv, amax, hsel)
+
+
+_KERNELS = (mm_stats, bnact_mm_stats, bn_pool)
+_PLAIN = (mm_stats_reference, bnact_mm_stats_reference, bn_pool_reference)
+
+
+def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass):
+    """The backward passes, top layer first, each through `bwd_pass`
+    (`chain_bwd_pass` or its plain version). Returns (dx or None, dws,
+    dgammas, dbetas), fp32 but dx."""
+    ws_c, hs, scs, maxv, amax, hsel = saved
+    L = len(ws_c)
+    n = x.shape[0] * x.shape[1]
+    gate = 0.0 if final_relu else 0.5 * _SENT
+    dosel = (dout.float() * (maxv > gate)).contiguous()
+    sd = dosel.sum(dim=(0, 1))
+    se = (dosel * ((hsel - scs[-1][0]) * scs[-1][3])).sum(dim=(0, 1))
+    dws, dgs, dbs = [None] * L, [None] * L, [None] * L
+    dz = dx = None
+    for u in range(L - 1, -1, -1):
+        dgs[u], dbs[u] = se, sd
+        uc = up_scalars(scs[u], gammas[u], sd, se, n)
+        top = dict(dosel=dosel, amax=amax, pool=pool) if u == L - 1 else dict(dz=dz)
+        if u:
+            # rebinding dz frees the layer above's as soon as it was read
+            dz, sd, se, dws[u] = bwd_pass(hs[u], uc, ws_c[u], hs[u - 1],
+                                          scs[u - 1], **top)
+        else:
+            dx, _, _, dws[0] = bwd_pass(hs[0], uc, ws_c[0], x, None,
+                                        need_dzd=need_dx, **top)
+    return dx, dws, dgs, dbs
+
+
+class _MlpPoolFused(torch.autograd.Function):
+    """Inputs (pool, final_relu, L, x, pen, *ws, *gammas, *betas); outputs
+    (pooled, ssum_0, ssq_0, ..): the statistics are marked
+    non-differentiable."""
+
+    @staticmethod
+    def forward(ctx, pool, final_relu, L, x, pen, *params):
+        ws, gammas, betas = params[:L], params[L:2 * L], params[2 * L:]
+        out, stats, (ws_c, hs, scs, maxv, amax, hsel) = _chain_forward(
+            x, ws, gammas, betas, pen, pool, final_relu, _KERNELS)
+        ctx.save_for_backward(x, maxv, amax, hsel, *gammas, *ws_c, *hs, *scs)
+        ctx.pool, ctx.final_relu, ctx.L = pool, final_relu, L
+        flat = [t for pair in stats for t in pair]
+        ctx.mark_non_differentiable(*flat)
+        return (out, *flat)
+
+    @staticmethod
+    def backward(ctx, dout, *dstats):
+        del dstats  # non-differentiable outputs
+        L = ctx.L
+        x, maxv, amax, hsel, *rest = ctx.saved_tensors
+        gammas, ws_c, hs, scs = (rest[i * L:(i + 1) * L] for i in range(4))
+        dx, dws, dgs, dbs = _chain_backward(
+            x, gammas, (ws_c, hs, scs, maxv, amax, hsel), dout.contiguous(),
+            ctx.pool, ctx.final_relu, ctx.needs_input_grad[3], chain_bwd_pass)
+        # autograd casts each gradient to its input's dtype
+        return (None, None, None, dx, None, *dws, *dgs, *dbs)
+
+
+def _check_chain(x, ws, gammas, betas, pen, pool):
+    if x.dim() != 3 or not (len(ws) == len(gammas) == len(betas) >= 1):
+        raise ValueError("mlp_pool takes x (B, R, Cin) and L >= 1 weights, "
+                         "scales and offsets")
+    B, R, cin = x.shape
+    for w, g, b in zip(ws, gammas, betas):
+        if w.dim() != 2 or w.shape[0] != cin or g.shape != (w.shape[1],) \
+                or b.shape != g.shape:
+            raise ValueError(f"mlp_pool layer shapes do not chain: w "
+                             f"{tuple(w.shape)} after width {cin}, scale "
+                             f"{tuple(g.shape)}, offset {tuple(b.shape)}")
+        cin = w.shape[1]
+    if pen.shape != (B, R):
+        raise ValueError(f"pen must be {(B, R)}; got {tuple(pen.shape)}")
+    if pool < 1 or R % pool:
+        raise ValueError(f"pool must divide R = {R}; got {pool}")
+
+
+def mlp_pool_reference(x, ws, gammas, betas, pen, pool: int,
+                       final_relu: bool = True):
+    """Plain PyTorch version of `mlp_pool_fused` (a port of
+    pointcloud_tpu/ops/preextract_fused.py:mlp_pool_reference), out of the
+    plain passes and differentiable by autograd: the pool routes its gradient
+    to the first maximal row, ReLU's gradient is 1[pre > 0], and the batch
+    statistics are differentiated through."""
+    _check_chain(x, ws, gammas, betas, pen, pool)
+    return _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, _PLAIN)[:2]
+
+
+def mlp_pool_bwd_reference(x, ws, gammas, betas, pen, pool: int, dout,
+                           final_relu: bool = True):
+    """The chain's explicit backward out of the plain passes: the kernels'
+    arithmetic with their rounding points (dh and dz rounded to x.dtype, the
+    sums taken from the rounded values), where autograd through
+    `mlp_pool_reference` rounds elsewhere in bf16. Returns (dx, dws, dgammas,
+    dbetas) for the cotangent dout of the pooled output; cotangents of the
+    statistics are not taken."""
+    _check_chain(x, ws, gammas, betas, pen, pool)
+    with torch.no_grad():
+        saved = _chain_forward(x, ws, gammas, betas, pen, pool, final_relu,
+                               _PLAIN)[2]
+        return _chain_backward(x, gammas, saved, dout, pool, final_relu, True,
+                               chain_bwd_pass_reference)
+
+
+def mlp_pool_fused(x, ws, gammas, betas, pen, pool: int, final_relu: bool = True):
+    """The set-abstraction body as the fused chain: L Dense + train-mode
+    BatchNorm + ReLU layers over the grouped rows, then a masked max-pool
+    over each group of `pool` rows.
+
+    x (B, R, Cin) with R = S * pool, fp32 or bf16; ws[u] (C_{u-1}, C_u),
+    gammas[u], betas[u] (C_u,) fp32; pen (B, R) fp32, +1e9 on rows kept out
+    of the pool (they still feed the BatchNorm statistics). A group without
+    a valid row gives -1e9 and gets no gradient; final_relu=False returns
+    the pooled post-BatchNorm value without its ReLU.
+    Returns (pooled (B, R / pool, C_last) in x.dtype, ((ssum, ssq), ...) per
+    layer, fp32 sums of the rounded Dense outputs over all B * R rows).
+
+    Gradients flow from `pooled` to x, ws, gammas and betas. The statistics
+    are outputs for the running averages only: on CUDA tensors they are
+    marked non-differentiable (the JAX function folds their cotangents into
+    its passes; no caller sends one), while the plain version, being plain
+    autograd, differentiates them too.
+
+    CPU tensors take `mlp_pool_reference`; CUDA tensors run the kernels of
+    csrc/mlp_chain.cu through `mm_stats`, `bnact_mm_stats`, `bn_pool` and, in
+    the backward, `chain_bwd_pass`; anything they do not take raises.
+    """
+    _check_chain(x, ws, gammas, betas, pen, pool)
+    device = _device_of("mlp_pool_fused", x, pen, *ws, *gammas, *betas)
+    if device.type == "cpu":
+        return mlp_pool_reference(x, ws, gammas, betas, pen, pool, final_relu)
+    out, *flat = _MlpPoolFused.apply(pool, final_relu, len(ws), x.contiguous(),
+                                     pen.contiguous(), *ws, *gammas, *betas)
+    return out, tuple(zip(flat[0::2], flat[1::2]))

@@ -5,9 +5,9 @@ pointcloud_tpu/train/harness.py:57-126 and :336-386).
 one device; `make_optimizer` and `make_train_step` give the training step
 (forward in train mode, loss, backward, Adam); `make_eval_step` returns the
 eval forward + loss. The Autoencoder with Chamfer loss is ported, on the
-PointNet backbone (eval and train) and the PointNet2 backbone (eval); the
-other model types, the EMD loss, datasets, the train() loop and checkpoints
-come in later slices and raise here.
+PointNet and PointNet2 backbones (eval and train); the other model types,
+the EMD loss, datasets, the train() loop and checkpoints come in later
+slices and raise here.
 """
 
 from __future__ import annotations
@@ -107,12 +107,6 @@ def make_train_step(spec: TrainSpec, optimizer: torch.optim.Optimizer):
     updated), the loss with its `.log` hook, the backward and the optimizer
     step. Parameters, running statistics and optimizer state are updated in
     place, PyTorch's counterpart of the JAX step's donated buffers."""
-
-    if spec.backbone != "PointNet":
-        raise NotImplementedError(
-            f"the {spec.backbone} train step is not ported yet: its "
-            f"set-abstraction levels train through the fused Dense-BN-pool "
-            f"chain (mlp_pool_fused), the next slice of the port")
 
     def step(x_raw, y_raw):
         x, _ = spec.in_transform(x_raw)

@@ -169,6 +169,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.ops.chamfer_bwd, "
         "pointcloud_tpu_torch.ops.dense_bn_pool, "
         "pointcloud_tpu_torch.ops.fps, pointcloud_tpu_torch.ops.ball_group, "
+        "pointcloud_tpu_torch.ops.preextract_fused, "
         "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms\n"
         "from pointcloud_tpu_torch.train import make_train_step\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "

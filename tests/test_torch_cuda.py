@@ -11,8 +11,15 @@ import pytest
 import torch
 
 from pointcloud_tpu_torch.ops import (
+    affine_scalars,
     ball_group,
     ball_group_reference,
+    bn_pool,
+    bn_pool_reference,
+    bnact_mm_stats,
+    bnact_mm_stats_reference,
+    chain_bwd_pass,
+    chain_bwd_pass_reference,
     chamfer_bwd,
     chamfer_bwd_reference,
     chamfer_distance,
@@ -21,10 +28,16 @@ from pointcloud_tpu_torch.ops import (
     dense_pool_stats_reference,
     farthest_point_sample,
     fps_reference,
+    mlp_pool_bwd_reference,
+    mlp_pool_fused,
+    mlp_pool_reference,
+    mm_stats,
+    mm_stats_reference,
     nn_sweep,
     nn_sweep_reference,
     scatter_rows,
     scatter_rows_reference,
+    up_scalars,
 )
 
 pytestmark = pytest.mark.cuda
@@ -389,3 +402,248 @@ def test_pointnet2_kernels_reject_what_they_do_not_take(dev):
                    mask, 8, 0.3)
     with pytest.raises(ValueError):
         ball_group(xyz, feats, cents, mask.cpu(), 8, 0.3)
+
+
+# ---- the PointNet2 train slice's kernels ----
+
+def chain_case(dev, seed, B, R, layout, dtype, pool, masked=True):
+    """x in dtype, fp32 weights, scales (some negative), offsets and pen; the
+    last row of every group repeats its first (an exact tie, pen included)
+    and, with masks, group 0 of cloud 0 has no valid row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, R, layout[0][0]), generator=g, device=dev).to(dtype)
+    x4 = x.view(B, R // pool, pool, -1)
+    x4[:, :, -1] = x4[:, :, 0]
+    ws = [torch.randn(s, generator=g, device=dev) / s[0] ** 0.5 for s in layout]
+    gs = [torch.where(torch.rand((s[1],), generator=g, device=dev) < 0.2, -1.0, 1.0)
+          * (0.5 + torch.rand((s[1],), generator=g, device=dev)) for s in layout]
+    bs = [0.1 * torch.randn((s[1],), generator=g, device=dev) for s in layout]
+    pen = torch.zeros((B, R), device=dev)
+    if masked:
+        pen = torch.where(torch.rand((B, R), generator=g, device=dev) < 0.3, 1e9, 0.0)
+        pen[0, :pool] = 1e9
+        p3 = pen.view(B, R // pool, pool)
+        p3[:, :, -1] = p3[:, :, 0]
+    return x, ws, gs, bs, pen
+
+
+def close_act(got, want):
+    """fp32 1e-4 of the largest entry (summation order); bf16 one ulp of the
+    entry (the order can flip its one rounding) plus 2e-6 of the largest."""
+    g, w = got.float(), want.float()
+    scale = w.abs().max()
+    if want.dtype == torch.float32:
+        tol = 1e-4 * scale
+    else:
+        tol = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7) \
+            + 2e-6 * scale
+    assert got.dtype == want.dtype and ((g - w).abs() <= tol).all()
+
+
+def close_sums(got, want, dtype, bf16_tol=1e-3):
+    tol = 1e-4 if dtype == torch.float32 else bf16_tol
+    assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+CHAINS = [(2, 48, [(9, 16), (16, 16), (16, 24)], 4),
+          (2, 1024, [(6, 64), (64, 64), (64, 128)], 32),
+          (3, 640, [(131, 128), (128, 200), (200, 72)], 128),
+          (2, 128, [(259, 256), (256, 512), (512, 1024)], 128),
+          (2, 96, [(259, 40)], 32)]
+
+
+@pytest.mark.parametrize("case", CHAINS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("final_relu", [True, False])
+def test_chain_passes_match_plain_and_are_deterministic(dev, case, dtype, final_relu):
+    """Each of the four kernels against its plain version on the same
+    inputs, each twice: h by `close_act`, sums 1e-4 / 1e-3 relative, the
+    pool's four outputs exactly equal (ties to the lowest row, -1e9 on
+    exactly the groups without a valid row), dzd by `close_act`, dw 1e-4 /
+    1e-3 relative (the same dh bits on both sides), sd / se 1e-4 / 5e-3: they
+    sum the rounded dzd, whose entries differ by a bf16 ulp where the
+    summation order flipped a rounding, and the sums cancel."""
+    B, R, layout, pool = case
+    x, ws, gs, bs, pen = chain_case(dev, R, B, R, layout, dtype, pool)
+    n, L = B * R, len(layout)
+    ws_c = [w.to(dtype) for w in ws]
+    hs, scs = [], []
+    for u in range(L):
+        fn, ref = ((bnact_mm_stats, bnact_mm_stats_reference) if u
+                   else (mm_stats, mm_stats_reference))
+        args = (hs[-1], scs[-1], ws_c[u]) if u else (x, ws_c[0])
+        got, again, want = fn(*args), fn(*args), ref(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        close_act(got[0], want[0])
+        close_sums(got[1], want[1], dtype)
+        close_sums(got[2], want[2], dtype)
+        hs.append(got[0])
+        scs.append(affine_scalars(got[1], got[2], gs[u], bs[u], n))
+    pooled = bn_pool(hs[-1], scs[-1], pen, pool, final_relu)
+    for a, w in zip(pooled, bn_pool_reference(hs[-1], scs[-1], pen, pool, final_relu)):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    out, maxv, amax, hsel = pooled
+    assert not (amax == pool - 1).any()  # the tie went to the lower row
+    empty = ~(pen.view(B, R // pool, pool) == 0).any(dim=2)
+    assert empty[0, 0] and torch.equal(out.float() < -5e8,
+                                       empty[..., None].expand_as(out))
+
+    dout = torch.randn(out.shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(R)).to(dtype)
+    dosel = dout.float() * (maxv > (0.0 if final_relu else -5e8))
+    sd = dosel.sum(dim=(0, 1))
+    se = (dosel * ((hsel - scs[-1][0]) * scs[-1][3])).sum(dim=(0, 1))
+    dz = None
+    for u in range(L - 1, -1, -1):
+        uc = up_scalars(scs[u], gs[u], sd, se, n)
+        kw = dict(dosel=dosel, amax=amax, pool=pool) if u == L - 1 else dict(dz=dz)
+        args = (hs[u], uc, ws_c[u], hs[u - 1] if u else x, scs[u - 1] if u else None)
+        got, again = chain_bwd_pass(*args, **kw), chain_bwd_pass(*args, **kw)
+        want = chain_bwd_pass_reference(*args, **kw)
+        assert all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(got, again))
+        close_act(got[0], want[0])
+        close_sums(got[3], want[3], dtype)
+        if u:
+            close_sums(got[1], want[1], dtype, bf16_tol=5e-3)
+            close_sums(got[2], want[2], dtype, bf16_tol=5e-3)
+            dz, sd, se = got[:3]
+        else:
+            assert got[1] is None and got[2] is None
+            dw_only = chain_bwd_pass(*args, need_dzd=False, **kw)
+            assert dw_only[0] is None and torch.equal(dw_only[3], got[3])
+
+
+@pytest.mark.parametrize("case", CHAINS[:3])
+def test_mlp_pool_fused_fp32_matches_the_plain_chain(dev, case):
+    """The whole chain and its autograd against the plain version and its
+    autograd, fp32, 2e-4 of each tensor's largest entry (summation order
+    through three BatchNorms); no mask, so that no pooled maximum sits at a
+    planted tie's mercy; the statistics carry no gradient."""
+    B, R, layout, pool = case
+    x, ws, gs, bs, pen = chain_case(dev, 7, B, R, layout, torch.float32, pool,
+                                    masked=False)
+    torch.manual_seed(R)
+    x = torch.randn_like(x)  # no planted ties: both sides route alike
+    cw = torch.randn((B, R // pool, layout[-1][1]), device=dev)
+    res = []
+    for fn in (mlp_pool_fused, mlp_pool_reference):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *gs, *bs)]
+        L = len(ws)
+        out, stats = fn(leaves[0], leaves[1:1 + L], leaves[1 + L:1 + 2 * L],
+                        leaves[1 + 2 * L:], pen, pool)
+        res.append((out, stats, torch.autograd.grad((out * cw).sum(), leaves)))
+    (out, stats, grads), (rout, rstats, rgrads) = res
+    assert not stats[0][0].requires_grad and rstats[0][0].requires_grad
+    assert (out - rout).abs().max() <= 2e-4 * rout.abs().max()
+    for (a, b), (ra, rb) in zip(stats, rstats):
+        assert (a - ra).abs().max() <= 1e-4 * ra.abs().max()
+        assert (b - rb).abs().max() <= 1e-4 * rb.abs().max()
+    for g, r in zip(grads, rgrads):
+        assert (g - r).abs().max() <= 2e-4 * r.abs().max()
+
+
+def test_mlp_pool_fused_bf16_follows_the_explicit_backward(dev):
+    """bf16 at the SA1 widths: pooled outputs within 2e-2, gradients within
+    3e-2 of each tensor's largest entry of `mlp_pool_bwd_reference`, which
+    rounds where the kernels round (a flipped rounding of an 8-bit h moves
+    entries by a bf16 step of the largest summand)."""
+    B, R, layout, pool = CHAINS[1]
+    x, ws, gs, bs, pen = chain_case(dev, 9, B, R, layout, torch.bfloat16, pool)
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *gs, *bs)]
+    out, _ = mlp_pool_fused(leaves[0], leaves[1:4], leaves[4:7], leaves[7:], pen, pool)
+    rout, _ = mlp_pool_reference(x, ws, gs, bs, pen, pool)
+    assert out.dtype == torch.bfloat16
+    live = rout.float() > -5e8
+    assert torch.equal(out.float() > -5e8, live)
+    assert ((out.float() - rout.float()).abs()[live]
+            <= 2e-2 * (1 + rout.float().abs()[live])).all()
+    torch.manual_seed(0)
+    dout = (torch.randn(out.shape, device=dev) * live).to(torch.bfloat16)
+    grads = torch.autograd.grad(out, leaves, dout)
+    dx, dws, dgs, dbs = mlp_pool_bwd_reference(x, ws, gs, bs, pen, pool, dout)
+    assert grads[0].dtype == torch.bfloat16 and grads[1].dtype == torch.float32
+    for g, r in zip(grads, (dx, *dws, *dgs, *dbs)):
+        assert (g.float() - r.float()).abs().max() <= 3e-2 * r.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ball_group_gradient_matches_the_cpu_path(dev, dtype):
+    """One scatter_rows launch per backward; fp32 gradients 1e-5 relative to
+    the largest (summation order), bf16 feature gradients within one bf16
+    ulp; in fp32 also against autograd through the plain version."""
+    xyz, feats, cents, mask = ball_case(dev, 3, 2, 512, 64, 6, dtype, True)
+    torch.manual_seed(0)
+    cw = torch.randn((2, 64, 16, 9), device=dev)
+
+    def grads(fn, d):
+        leaves = [t.to(d).clone().requires_grad_() for t in (xyz, feats, cents)]
+        g = fn(*leaves, mask.to(d), 16, 0.3)[0]
+        return [t.to(dev) for t in torch.autograd.grad((g.float() * cw.to(d)).sum(),
+                                                       leaves)]
+
+    before = (ball_group.launches, scatter_rows.launches)
+    got = grads(ball_group, dev)
+    assert (ball_group.launches, scatter_rows.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip(got, grads(ball_group, dev)))
+    refs = [grads(ball_group, "cpu")]
+    if dtype == torch.float32:
+        refs.append(grads(ball_group_reference, dev))
+    for want in refs:
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            if w.dtype == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    w.float().abs().clamp_min(1e-30))) - 7)
+                assert ((g.float() - w.float()).abs() <= ulp + 1e-6).all()
+            else:
+                assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    # a gradient for the features alone: the set-abstraction train path
+    f = feats.clone().requires_grad_()
+    g = ball_group(xyz, f, cents, mask, 16, 0.3)[0]
+    (df,) = torch.autograd.grad((g.float() * cw).sum(), [f])
+    assert torch.equal(df, got[1])
+
+
+def test_chain_kernels_count_launches_and_keep_the_cpu_rule(dev):
+    x, ws, gs, bs, pen = chain_case(dev, 1, 2, 48, CHAINS[0][2], torch.float32, 4)
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *gs, *bs)]
+    names = (mm_stats, bnact_mm_stats, bn_pool, chain_bwd_pass)
+    before = [f.launches for f in names]
+    out, _ = mlp_pool_fused(leaves[0], leaves[1:4], leaves[4:7], leaves[7:], pen, 4)
+    assert [f.launches for f in names] == [before[0] + 1, before[1] + 2,
+                                           before[2] + 1, before[3]]
+    out.sum().backward()
+    assert chain_bwd_pass.launches == before[3] + 3
+    cpu = [t.detach().cpu() for t in (x, *ws, *gs, *bs)]
+    mlp_pool_fused(cpu[0], cpu[1:4], cpu[4:7], cpu[7:], pen.cpu(), 4)
+    assert [f.launches for f in names] == [before[0] + 1, before[1] + 2,
+                                           before[2] + 1, before[3] + 3]
+
+
+def test_chain_kernels_reject_what_they_do_not_take(dev):
+    x, ws, gs, bs, pen = chain_case(dev, 2, 2, 48, CHAINS[0][2], torch.float32, 4)
+    h, ss, sq = mm_stats(x, ws[0])
+    sc = affine_scalars(ss, sq, gs[0], bs[0], 96)
+    with pytest.raises(TypeError):
+        mm_stats(x.bfloat16(), ws[0])  # mixed dtypes
+    with pytest.raises(TypeError):
+        mm_stats(x.double(), ws[0].double())
+    with pytest.raises(ValueError):
+        mm_stats(x.transpose(0, 1).contiguous().transpose(0, 1), ws[0])
+    with pytest.raises(ValueError):
+        mm_stats(x, ws[0].cpu())
+    with pytest.raises(TypeError):
+        bnact_mm_stats(h, sc.double(), ws[1])
+    with pytest.raises(ValueError):
+        bn_pool(h, sc, pen, 5)
+    with pytest.raises(TypeError):
+        bn_pool(h, sc, pen.double(), 4)
+    with pytest.raises(ValueError):
+        mlp_pool_fused(x, ws, gs, bs, pen.cpu(), 4)
+    with pytest.raises(TypeError):
+        chain_bwd_pass(h, torch.zeros(4, 16, device=dev), ws[0], x,
+                       dosel=torch.zeros(2, 12, 16, device=dev),
+                       amax=torch.zeros(2, 12, 16, device=dev, dtype=torch.int64),
+                       pool=4)

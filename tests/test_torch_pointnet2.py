@@ -1,7 +1,8 @@
 """The port's PointNet2 pieces in eval mode against pointcloud_tpu on the
 CPU, fp32, on the same randomised flax variables: `sample_and_group`,
 `sample_and_group_all`, `SetAbstraction` at narrow widths and the
-`PointNet2Encoder` at its own widths on B=2 clouds of 1024 points.
+`PointNet2Encoder` at its own widths on B=2 clouds of 1024 points. Train
+mode is held in tests/test_torch_pointnet2_train.py.
 
 Off the TPU the JAX package groups through its XLA `ball_query` (the matmul
 expansion of the distance); the port follows the TPU kernel's direct
@@ -111,11 +112,18 @@ def test_pointnet2_encoder_at_its_widths():
 
 
 def test_train_mode_raises_and_init_follows_flax():
+    """Train mode runs (tests/test_torch_pointnet2_train.py holds it against
+    the JAX package); what still raises there is a feature width the level's
+    weights do not take."""
     sa = tpn2.SetAbstraction(8, 0.3, 4, 6, (16, 32))
-    with pytest.raises(NotImplementedError, match="mlp_pool_fused"):
-        sa(torch.rand(1, 32, 3), torch.rand(1, 32, 3), train=True)
     from pointcloud_tpu_torch.models.layers import init_flax_
 
+    init_flax_(sa, torch.Generator().manual_seed(0))
+    _, out, _ = sa(torch.rand(1, 32, 3), torch.rand(1, 32, 3), train=True)
+    assert out.shape == (1, 8, 32) and out.requires_grad
+    assert not torch.equal(sa.mean0, torch.zeros(16))  # the statistics moved
+    with pytest.raises(ValueError, match="do not chain"):
+        sa(torch.rand(1, 32, 3), torch.rand(1, 32, 5), train=True)
     init_flax_(sa, torch.Generator().manual_seed(0))
     assert sa.w1.shape == (16, 32)  # flax's (in, out) layout
     assert float(sa.w1.detach().std()) == pytest.approx(16 ** -0.5, rel=0.2)
