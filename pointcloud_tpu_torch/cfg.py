@@ -1,4 +1,4 @@
-"""Global configuration (port of pointcloud_tpu/cfg.py:15-37).
+"""Global configuration (port of pointcloud_tpu/cfg.py:15-77).
 
 Importing this module sets PyTorch's float32 matmul and cuDNN convolution
 precision to full fp32 (TF32 off). A float32 matmul on the card already runs
@@ -9,6 +9,8 @@ Chamfer cross term, the fp32 decoder head, the parity checks) mean fp32.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -18,7 +20,25 @@ torch.backends.cudnn.allow_tf32 = False
 # on the card. 'fp32' forces full precision everywhere.
 precision = "bf16-mixed"
 
+# More verbose output and sanity checks (they synchronise the device).
+debug = bool(int(os.environ.get("PCTPU_DEBUG", "0")))
+
 vision_lr = 1e-3  # Adam's learning rate (pointcloud_tpu/cfg.py:49)
+
+# Earth Mover's Distance operating points (pointcloud_tpu/cfg.py:62-77).
+emd_eps = 0.005  # training: constant temperature
+emd_iterations = 50
+# The reference's test operating point, kept for parity experiments.
+emd_test_eps = 0.002
+emd_test_iterations = 10000
+# Eval default: Sinkhorn annealed geometrically from emd_anneal_from to
+# emd_eval_eps reaches the test point's matching in ~60 iterations.
+emd_eval_eps = 0.002
+emd_eval_iterations = 60
+emd_anneal_from = 0.1
+# EMD backend: 'sinkhorn' (entropic OT, the kernel of ops/sinkhorn.py) or
+# 'auction' (the deterministic reformulation of the reference CUDA auction).
+emd_method = "sinkhorn"
 
 
 def compute_dtype(device) -> torch.dtype | None:

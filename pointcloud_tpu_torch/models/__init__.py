@@ -1,4 +1,5 @@
-"""Models: the PointNet and PointNet2 encoders and the autoencoder heads."""
+"""Models: the PointNet and PointNet2 encoders and the autoencoder and
+segmenter heads."""
 
 from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
     AE,
@@ -6,6 +7,8 @@ from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
     PCDecoder,
     PCEncoder,
     PCEncoderDecoder,
+    PCSegmenter,
+    SegAE,
     backbone_factory,
     encoding_dim_of,
 )

@@ -1,7 +1,7 @@
 """Heads and the autoencoder (port of pointcloud_tpu/models/architectures.py).
 
-`backbone_factory` maps backbone names to encoder constructors; `AE`
-assembles backbone + bottleneck + decoder. The PointNet and PointNet2
+`backbone_factory` maps backbone names to encoder constructors; `AE` and
+`SegAE` assemble backbone + bottleneck + decoder. The PointNet and PointNet2
 backbones are ported so far.
 """
 
@@ -76,6 +76,23 @@ class PCDecoder(nn.Module):
                                                   self.out_dim)
 
 
+class PCSegmenter(nn.Module):
+    """Decoder emitting xyz (sigmoid) + per-class logits (raw):
+    encoding -> (B, out_points, 3 + num_classes)."""
+
+    def __init__(self, in_features: int, out_points: int, num_classes: int,
+                 hidden_sizes: Sequence[int] = (512, 1024, 2048), dtype=None):
+        super().__init__()
+        self.out_points = out_points
+        self.out_dim = 3 + num_classes
+        self.MLP_0 = MLP(in_features, hidden_sizes, out_points * self.out_dim,
+                         None, dtype=dtype)
+
+    def forward(self, x, train: bool = False):
+        x = self.MLP_0(x, train=train).reshape(-1, self.out_points, self.out_dim)
+        return torch.cat([torch.sigmoid(x[..., :3]), x[..., 3:]], dim=-1)
+
+
 class PCEncoder(nn.Module):
     """Backbone + bottleneck projection."""
 
@@ -113,4 +130,13 @@ def AE(preencoder: nn.Module, out_points: int = 2048, out_dim: int = 6,
     return PCEncoderDecoder(
         encoder=PCEncoder(preencoder, bottleneck, dtype=dtype),
         decoder=PCDecoder(bottleneck, out_points, out_dim, dtype=dtype),
+    )
+
+
+def SegAE(preencoder: nn.Module, num_classes: int, out_points: int = 2048,
+          bottleneck: int = 16, dtype=None) -> PCEncoderDecoder:
+    """Autoencoder with segmentation output."""
+    return PCEncoderDecoder(
+        encoder=PCEncoder(preencoder, bottleneck, dtype=dtype),
+        decoder=PCSegmenter(bottleneck, out_points, num_classes, dtype=dtype),
     )

@@ -1,8 +1,9 @@
 """Point-cloud ops: pairwise distances, Chamfer distance and its kernels (the
 nearest-neighbour sweep, the fused backward, the segment-sum), the fused
 Dense -> BatchNorm-statistics -> max-pool kernels, the fused
-Dense-BatchNorm-ReLU chain with its group max-pool, farthest-point sampling
-and the ball grouping."""
+Dense-BatchNorm-ReLU chain with its group max-pool, farthest-point sampling,
+the ball grouping, and Earth Mover's Distance matching with its Sinkhorn
+kernel."""
 
 from pointcloud_tpu_torch.ops.ball_group import (  # noqa: F401
     ball_group,
@@ -21,6 +22,11 @@ from pointcloud_tpu_torch.ops.dense_bn_pool import (  # noqa: F401
     dense_pool_stats,
     dense_pool_stats_bwd,
     dense_pool_stats_reference,
+)
+from pointcloud_tpu_torch.ops.emd import (  # noqa: F401
+    auction_match,
+    emd_match,
+    sinkhorn_match,
 )
 from pointcloud_tpu_torch.ops.fps import (  # noqa: F401
     farthest_point_sample,
@@ -57,4 +63,11 @@ from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
 from pointcloud_tpu_torch.ops.scatter_rows import (  # noqa: F401
     scatter_rows,
     scatter_rows_reference,
+)
+from pointcloud_tpu_torch.ops.sinkhorn import (  # noqa: F401
+    eps_schedule,
+    matching_difference,
+    sinkhorn,
+    sinkhorn_reference,
+    top_two_gap,
 )

@@ -1,13 +1,15 @@
 """Model wiring, the train step and the eval step (port of
-pointcloud_tpu/train/harness.py:57-126 and :336-386).
+pointcloud_tpu/train/harness.py:57-153 and :336-386).
 
 `create_model` builds the model + loss + transforms of one configuration on
 one device; `make_optimizer` and `make_train_step` give the training step
 (forward in train mode, loss, backward, Adam); `make_eval_step` returns the
-eval forward + loss. The Autoencoder with Chamfer loss is ported, on the
-PointNet and PointNet2 backbones (eval and train); the other model types,
-the EMD loss, datasets, the train() loop and checkpoints come in later
-slices and raise here.
+eval forward + loss. Ported: the Autoencoder (Earth Mover's Distance, its
+default loss, or Chamfer with loss_override="chamfer") and the Segmenter
+(EMD with class weights), on the PointNet and PointNet2 backbones, eval and
+train. The MultiSegmenter, the StatePredictor, the PointMLP backbones,
+datasets, the train() loop and checkpoints come in later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -20,8 +22,12 @@ from torch import nn
 
 from pointcloud_tpu_torch import cfg
 from pointcloud_tpu_torch.envs.scenes import scene_config
-from pointcloud_tpu_torch.losses import ChamferDistance, _noop_log
-from pointcloud_tpu_torch.models.architectures import AE, backbone_factory
+from pointcloud_tpu_torch.losses import (
+    ChamferDistance,
+    EarthMoverDistance,
+    _noop_log,
+)
+from pointcloud_tpu_torch.models.architectures import AE, SegAE, backbone_factory
 from pointcloud_tpu_torch.models.layers import init_flax_
 from pointcloud_tpu_torch.transforms import Normalize
 
@@ -56,35 +62,58 @@ def create_model(
     numbers; interop.load_flax_variables(spec.model, ...) replaces them with
     the JAX package's. Activations are bf16 on a CUDA device under
     cfg.precision == 'bf16-mixed' and fp32 on the CPU.
+
+    loss_override='chamfer' swaps the Autoencoder's EMD loss for Chamfer; the
+    Segmenter has no other loss than EMD.
     """
-    if model_type != "Autoencoder":
+    if model_type in ("MultiSegmenter", "StatePredictor"):
+        missing = {
+            "MultiSegmenter": "MultiSegAE and SegmentingChamferDistance",
+            "StatePredictor": "MultiGTEncoder and StatePredictionLoss",
+        }[model_type]
         raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet (Autoencoder only)"
+            f"model type {model_type!r} is not ported yet ({missing} are "
+            f"missing; Autoencoder and Segmenter are ported)"
         )
+    if model_type not in ("Autoencoder", "Segmenter"):
+        raise NotImplementedError(f"Unknown model type: {model_type}")
     if backbone not in backbone_factory:
         raise NotImplementedError(
             f"backbone {backbone!r} is not ported yet "
             f"(have {sorted(backbone_factory)})"
         )
-    if loss_override != "chamfer":
-        raise NotImplementedError(
-            "the Autoencoder's EMD loss is not ported yet: pass "
-            "loss_override='chamfer'"
-        )
     device = torch.device(device)
     sc = scene_config(scene)
     dtype = cfg.compute_dtype(device)
-    model = AE(
-        backbone_factory[backbone](feature_dims=3, dtype=dtype),
-        out_points=sc.sample_points,
-        out_dim=6,
-        bottleneck=sum(sc.class_latent_dim),
-        dtype=dtype,
-    )
+    encoder_backbone = backbone_factory[backbone](feature_dims=3, dtype=dtype)
+    num_classes = len(sc.classes) if model_type == "Segmenter" else None
+    if model_type == "Autoencoder":
+        model = AE(
+            encoder_backbone,
+            out_points=sc.sample_points,
+            out_dim=6,
+            bottleneck=sum(sc.class_latent_dim),
+            dtype=dtype,
+        )
+    else:  # the target is (B, N, 4): xyz + the class label as a float
+        model = SegAE(
+            encoder_backbone,
+            num_classes=num_classes,
+            out_points=sc.sample_points,
+            bottleneck=sum(sc.class_latent_dim),
+            dtype=dtype,
+        )
+    if model_type == "Autoencoder" and loss_override == "chamfer":
+        loss = ChamferDistance()
+    else:
+        loss = EarthMoverDistance(
+            eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=num_classes,
+            anneal_from=None,  # the constant-eps training operating point
+        )
     init_flax_(model, torch.Generator().manual_seed(seed))
     return TrainSpec(
         model=model.to(device).eval(),
-        loss=ChamferDistance(),
+        loss=loss,
         in_transform=Normalize(sc.bbox),
         out_transform=Normalize(sc.bbox),
         model_type=model_type,

@@ -146,9 +146,10 @@ def test_interop_is_total():
 
 def test_create_model_rejects_unported_configs():
     for args, kw in (
-        (("Segmenter", "PointNet", "Cube"), {"loss_override": "chamfer"}),
+        (("MultiSegmenter", "PointNet", "Cube"), {}),
+        (("StatePredictor", "PointNet", "Cube"), {}),
         (("Autoencoder", "PointMLP", "Cube"), {"loss_override": "chamfer"}),
-        (("Autoencoder", "PointNet", "Cube"), {}),
+        (("Segmenter", "PointMLPE", "Cube"), {}),
     ):
         with pytest.raises(NotImplementedError):
             tharness.create_model(*args, device="cpu", **kw)
@@ -170,8 +171,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.ops.dense_bn_pool, "
         "pointcloud_tpu_torch.ops.fps, pointcloud_tpu_torch.ops.ball_group, "
         "pointcloud_tpu_torch.ops.preextract_fused, "
+        "pointcloud_tpu_torch.ops.sinkhorn, pointcloud_tpu_torch.ops.emd, "
         "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms\n"
         "from pointcloud_tpu_torch.train import make_train_step\n"
+        "from pointcloud_tpu_torch.losses import EarthMoverDistance\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "
         "'pointcloud_tpu.'))]\n"

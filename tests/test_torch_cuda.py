@@ -26,8 +26,11 @@ from pointcloud_tpu_torch.ops import (
     dense_pool_stats,
     dense_pool_stats_bwd,
     dense_pool_stats_reference,
+    emd_match,
+    eps_schedule,
     farthest_point_sample,
     fps_reference,
+    matching_difference,
     mlp_pool_bwd_reference,
     mlp_pool_fused,
     mlp_pool_reference,
@@ -37,6 +40,9 @@ from pointcloud_tpu_torch.ops import (
     nn_sweep_reference,
     scatter_rows,
     scatter_rows_reference,
+    sinkhorn,
+    sinkhorn_match,
+    sinkhorn_reference,
     up_scalars,
 )
 
@@ -647,3 +653,95 @@ def test_chain_kernels_reject_what_they_do_not_take(dev):
                        dosel=torch.zeros(2, 12, 16, device=dev),
                        amax=torch.zeros(2, 12, 16, device=dev, dtype=torch.int64),
                        pool=4)
+
+
+# Sinkhorn matching. The kernel's potentials differ from the plain version's
+# by rounding (ex2.approx, another summation order), and the matching is an
+# argmax: a row whose two best scores lie within that round-off may go to
+# another target. So: at least 99.5% of the rows equal; on every other row
+# the kernel's target scores within 1e-6 of the best (float64, the plain
+# version's potentials); dists within 1e-6 where the assignments agree.
+# After a single iteration ties are structural (every target whose nearest
+# point is i scores log(1/M) eps on row i, up to round-off: several percent
+# of the rows at 64 points), so that case demands 90% and the gap rule.
+SINKHORN_SHAPES = [
+    (2, 128, 128, 3, 0.005, 50, None, 0.995),
+    (2, 128, 128, 3, 0.01, 30, None, 0.995),
+    (3, 64, 128, 6, 0.01, 20, None, 0.995),
+    (2, 100, 77, 3, 0.002, 60, 0.1, 0.995),
+    (2, 1500, 2500, 4, 0.005, 50, None, 0.995),  # ragged tiles and chunks
+    (2, 2048, 2048, 6, 0.002, 60, 0.1, 0.995),
+    (2, 64, 64, 3, 0.005, 1, None, 0.9),
+    (1, 1, 3, 3, 0.005, 5, None, 0.995),
+]
+
+
+def sinkhorn_case(dev, seed, B, N, M, C):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.random((B, N, C), dtype=np.float32)).to(dev),
+            torch.from_numpy(rng.random((B, M, C), dtype=np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("shape", SINKHORN_SHAPES)
+def test_sinkhorn_matches_plain_and_is_deterministic(dev, shape):
+    B, N, M, C, eps, iters, anneal, share = shape
+    x, y = sinkhorn_case(dev, 21, B, N, M, C)
+    got = sinkhorn(x, y, eps, iters, anneal)
+    again = sinkhorn(x, y, eps, iters, anneal)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert got[0].shape == got[1].shape == (B, N)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert int(got[1].min()) >= 0 and int(got[1].max()) < M
+    *want, f, g = sinkhorn_reference(x, y, eps_schedule(eps, iters, anneal))
+    same, gap, d_err = matching_difference(x, y, f, g, got, want)
+    assert same >= share and gap <= 1e-6 and d_err <= 1e-6, (same, gap, d_err)
+    # the stored distance is the squared distance to the named target
+    picked = torch.gather(y[..., :3], 1, got[1].long()[..., None].expand(-1, -1, 3))
+    direct = (x[..., :3] - picked).square().sum(-1)
+    assert float((got[0] - direct).abs().max()) <= 1e-6
+
+
+def test_sinkhorn_identity_and_unused_dims(dev):
+    x, _ = sinkhorn_case(dev, 22, 2, 64, 64, 6)
+    d, a = sinkhorn(x, x, 0.002, 100)
+    assert torch.equal(a, torch.arange(64, device=dev, dtype=torch.int32).expand(2, 64))
+    assert float(d.max()) <= 1e-6
+    x2 = x.clone()
+    x2[..., 3:] += 1.0  # dims 3: take no part
+    d2, a2 = sinkhorn(x2, x, 0.002, 100)
+    assert torch.equal(a2, a) and torch.equal(d2, d)
+    db, ab = sinkhorn(x.bfloat16(), x.bfloat16(), 0.002, 100)  # cast to fp32
+    assert torch.equal(ab, a)
+
+
+def test_sinkhorn_follows_the_library_formulation(dev):
+    """`emd.sinkhorn_match` (stored cost by the matmul expansion,
+    torch.logsumexp) on the same clouds: the same matching up to near ties."""
+    x, y = sinkhorn_case(dev, 23, 4, 512, 512, 3)
+    got = sinkhorn(x, y, 0.005, 50)
+    lib = sinkhorn_match(x, y, 0.005, 50)
+    *_, f, g = sinkhorn_reference(x, y, eps_schedule(0.005, 50))
+    same, gap, d_err = matching_difference(x, y, f, g, lib, got)
+    assert same >= 0.995 and gap <= 2e-6 and d_err <= 1e-6, (same, gap, d_err)
+
+
+def test_sinkhorn_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
+    x, y = sinkhorn_case(dev, 24, 2, 64, 48, 3)
+    before = sinkhorn.launches
+    sinkhorn(x, y, 0.01, 10)
+    assert sinkhorn.launches == before + 1
+    sinkhorn(x.cpu(), y.cpu(), 0.01, 10)  # the plain version: no launch
+    assert sinkhorn.launches == before + 1
+    xl = x.clone().requires_grad_()
+    d, a = emd_match(xl, y, 0.01, 10)
+    assert sinkhorn.launches == before + 2
+    d.sum().backward()
+    want = 2.0 * (x - torch.gather(y, 1, a.long()[..., None].expand(-1, -1, 3)))
+    assert float((xl.grad - want).abs().max()) <= 1e-6
+    with pytest.raises(ValueError):
+        sinkhorn(x, y.cpu())
+    with pytest.raises(ValueError):
+        sinkhorn(x[..., :2], y)
+    with pytest.raises(TypeError):
+        sinkhorn(x.int(), y)
