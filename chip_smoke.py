@@ -45,13 +45,24 @@ lines:
      class label); the PointNet2 autoencoder and segmenter with EMD, one eval
      and one train step each at B=64; the Sinkhorn kernel at the B=128 path's own inputs at the
      training and the eval operating point; the fp32 EMD train step card vs
-     CPU; launch counts of a step asserted exactly.
-Within phases 3-6, 8 and 9 each kernel is held against its plain version again
+     CPU; launch counts of a step asserted exactly;
+ 10. the PointMLP eval paths at full width: knn_group against its plain
+     version (k of 1, 5, 24, 32, ragged N, masked and under-full clouds, no
+     features, fp32 and bf16, with and without xyz, every stage's shape of
+     the B=32 path; two runs bit-equal) and its gradient; make_eval_step at
+     B=32 x 2048 x 6 (bench.py's PointMLP batch, bf16) for PointMLP with
+     Chamfer and PointMLP-Elite with its default EMD loss, 20 chained steps
+     with exact launch counts, the stage-by-stage encoder time and `encode`
+     on one cloud; one eval step of the Segmenter on PointMLP-Elite at B=8;
+     the fp32 models card vs CPU at B=2 (equal FPS and kNN indices at every
+     stage).
+Within phases 3-6 and 8-10 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound, with both Chamfer backward routes at the
 train step's shapes, the parts of each step and a torch.profiler trace of
 each train step (device time by kernel, busy and idle share). For each path
-(3, 4, 5, 6, 8, the four of 9, encode, the sensor chain) every kernel's launch count is set
+(3, 4, 5, 6, 8, the four of 9, the three of 10, encode, the sensor chain)
+every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
 JSON object. Imports nothing of JAX or of the JAX package.
@@ -87,7 +98,14 @@ B_SEG = 64  # its Segmenter batch; also the PointNet2 + EMD batch here
 PEAK_SFU_OPS = PEAK_FP32_FLOPS / 2 / 8
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's header line ("[...") carries the seconds since
+    the script started."""
+    if a and str(a[0]).startswith("["):
+        a = (f"{a[0]} (t={time.perf_counter() - _T0:.1f} s)", *a[1:])
     print(*a, flush=True)
 
 
@@ -156,6 +174,7 @@ def counters():
         dense_pool_stats,
         dense_pool_stats_bwd,
         farthest_point_sample,
+        knn_group,
         mm_stats,
         nn_sweep,
         scatter_rows,
@@ -166,7 +185,8 @@ def counters():
             "dense_pool_stats_bwd": dense_pool_stats_bwd,
             "fps": farthest_point_sample, "ball_group": ball_group,
             "mm_stats": mm_stats, "bnact_mm_stats": bnact_mm_stats,
-            "bn_pool": bn_pool, "chain_bwd_pass": chain_bwd_pass}
+            "bn_pool": bn_pool, "chain_bwd_pass": chain_bwd_pass,
+            "knn_group": knn_group}
 
 
 def zero_counts():
@@ -1784,6 +1804,389 @@ def emd_paths(seed, gen, x_raw, smi, err):
 
 
 
+B_MLP = 32  # bench.py's PointMLP batch
+K_MLP = 24  # neighbours a group at every PointMLP stage
+
+
+def check_knn_group(gen, B, N, S, k, F, dtype, masked, with_xyz):
+    """knn_group vs knn_group_reference: idx and the gathered rows equal
+    (the same penalised distances, the same (distance, index) order, exact
+    gathers), the kernel twice. Centroids on every (N // S)-th point; with
+    masks ~30% of the points masked, cloud 1 under-full (3 valid points) and
+    cloud 2 without a valid point (every slot repeats slot 0). Returns the
+    largest |grouped error| (0)."""
+    from pointcloud_tpu_torch.ops import knn_group, knn_group_reference
+
+    dev = torch.device("cuda")
+    xyz = torch.rand((B, N, 3), generator=gen, device=dev)
+    feats = torch.randn((B, N, F), generator=gen, device=dev).to(dtype) if F else None
+    cents = xyz[:, :: max(1, N // S)][:, :S].contiguous()
+    mask = None
+    if masked:
+        mask = torch.rand((B, N), generator=gen, device=dev) > 0.3
+        mask[1] = False
+        mask[1, [0, N // 2, N - 1]] = True
+        mask[2] = False
+    got = twice_equal("knn_group", lambda: tuple(
+        t for t in knn_group(xyz, feats, cents, mask, k, with_xyz) if t is not None))
+    want = tuple(t for t in knn_group_reference(xyz, feats, cents, mask, k, with_xyz)
+                 if t is not None)
+    if len(got) != len(want) or not all(
+            a.dtype == w.dtype and torch.equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"knn_group differs from the plain version (B={B} N={N} "
+                             f"S={S} k={k} F={F} {dtype} masked={masked} "
+                             f"xyz={with_xyz})")
+    idx = got[-1]
+    if masked and not (bool((idx[1, :, min(3, k):] == idx[1, :, :1]).all())
+                       and bool((idx[2] == idx[2, :, :1]).all())):
+        raise AssertionError("knn_group: slots past the valid count must repeat slot 0")
+    log(f"  knn_group B={B} N={N} S={S} k={k} F={F} {str(dtype)[6:]} masked={masked} "
+        f"xyz={with_xyz}: idx and rows equal to the plain version's; two runs "
+        f"bit-equal")
+    return 0.0 if len(got) == 1 else max(
+        float((a.float() - w.float()).abs().max()) for a, w in zip(got[:-1], want[:-1]))
+
+
+def check_knn_group_grad(gen, B, N, S, k, F, dtype, with_xyz):
+    """The gradient of knn_group on the card (one scatter_rows launch)
+    against the same function on the CPU and, in fp32, against autograd
+    through knn_group_reference on the card; the backward twice, bit-equal.
+    Tolerances as check_ball_group_grad. Returns the largest absolute
+    error."""
+    from pointcloud_tpu_torch.ops import knn_group, knn_group_reference
+
+    dev = torch.device("cuda")
+    xyz = torch.rand((B, N, 3), generator=gen, device=dev)
+    feats = torch.randn((B, N, F), generator=gen, device=dev).to(dtype)
+    cents = xyz[:, :: N // S][:, :S].contiguous()
+    mask = torch.rand((B, N), generator=gen, device=dev) > 0.33
+    cws = [torch.randn((B, S, k, c), generator=gen, device=dev)
+           for c in ((3, F) if with_xyz else (F,))]
+
+    def grads(fn, d):
+        leaves = [t.detach().to(d).clone().requires_grad_() for t in (xyz, feats)]
+        gx, gf, _ = fn(*leaves, cents.to(d), mask.to(d), k, with_xyz)
+        outs = ([gx] if with_xyz else []) + [gf]
+        loss = sum((o.float() * cw.to(d)).sum() for o, cw in zip(outs, cws))
+        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return [g for g in got if g is not None]
+
+    before = dict(read_counts())
+    got = twice_equal("knn_group backward", lambda: grads(knn_group, dev))
+    after = read_counts()
+    if (after["knn_group"] - before["knn_group"],
+            after["scatter_rows"] - before["scatter_rows"]) != (2, 2):
+        raise AssertionError("knn_group's gradient must take one knn_group and one "
+                             "scatter_rows launch")
+    refs = [grads(knn_group, "cpu")]
+    if dtype == torch.float32:
+        refs.append(grads(knn_group_reference, dev))
+    worst = 0.0
+    for want in refs:
+        if len(want) != len(got):
+            raise AssertionError("knn_group: gradients of other inputs than the CPU's")
+        for g, w in zip(got, want):
+            w = w.to(dev)
+            worst = max(worst, float((g.float() - w.float()).abs().max()))
+            if g.dtype != w.dtype:
+                raise AssertionError(f"knn_group gradient dtype {g.dtype}")
+            if w.dtype == torch.bfloat16:
+                ok = (g.float() - w.float()).abs() <= bf16_ulp(w) + 1e-6
+            else:
+                ok = (g - w).abs() <= 1e-5 * w.abs().max()
+            if not bool(ok.all()):
+                raise AssertionError(f"knn_group gradient differs ({dtype}, k={k})")
+    log(f"  knn_group gradient B={B} N={N} S={S} k={k} F={F} {str(dtype)[6:]} "
+        f"xyz={with_xyz}: equal to the CPU path's"
+        f"{' and to autograd through the plain version' if len(refs) > 1 else ''} "
+        f"within tolerance (max |err| {worst:.1e}); two runs bit-equal; one "
+        f"scatter_rows launch per backward")
+    return worst
+
+
+def knn_library(xyz, feats, cents, k):
+    """cdist + topk + gather, storing the (B, S, N) distance matrix: timed as
+    a yardstick, never called by the port (topk does not promise the
+    kernel's tie order)."""
+    idx = torch.topk(torch.cdist(cents, xyz).square(), k, dim=-1,
+                     largest=False).indices
+    B, S, _ = idx.shape
+    rows = torch.gather(feats, 1, idx.reshape(B, S * k, 1).expand(-1, -1, feats.shape[2]))
+    return rows.reshape(B, S, k, -1), idx
+
+
+def knn_bound(B, N, S, k, F, esize):
+    """Bytes: xyz, features and centroids read once, the grouped rows and
+    idx written once. Operations: ~10 fp32 a (centroid, point) pair (3 sub,
+    3 mul, 3 add, 1 compare), every pair once."""
+    return bound(10.0 * B * S * N,
+                 B * N * 3 * 4 + B * N * F * esize + B * S * 3 * 4
+                 + B * S * k * (F * esize + 4), PEAK_FP32_FLOPS)
+
+
+def pointmlp_stage_inputs(bb, xn):
+    """(xyz, feats, new_xyz) of each stage's kNN grouping in one eval forward
+    of the backbone `bb` (the kernels outside any counted window)."""
+    from pointcloud_tpu_torch.ops import farthest_point_sample, index_points
+
+    got = []
+
+    def grab(module, args):
+        xyz, feats, groups = args[:3]
+        new_xyz = index_points(xyz, farthest_point_sample(xyz, groups))
+        got.append((xyz, feats.contiguous(), new_xyz))
+
+    hooks = [getattr(bb, f"LocalGrouper_{i}").register_forward_pre_hook(grab)
+             for i in range(bb.n_stages)]
+    try:
+        with torch.inference_mode():
+            bb(xn)
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def pointmlp_stage_times(bb, xn):
+    """CUDA-event times (ms) of each part of the backbone's eval forward at
+    the batch of xn: the embedding, then per stage the grouper (FPS, the kNN
+    kernel, the normalisation), PreExtraction and PosExtraction."""
+    parts = {}
+    with torch.inference_mode():
+        parts["embed"] = cuda_ms(lambda: bb.DenseBNAct_0(xn[..., :3]), iters=5)
+        xyz = xn[..., :3].float().contiguous()
+        feats = bb.DenseBNAct_0(xn[..., :3])
+        groups = xyz.shape[1]
+        for i in range(bb.n_stages):
+            groups //= bb.reducers[i]
+            lg, pre, pos = (getattr(bb, f"{n}_{i}") for n in
+                            ("LocalGrouper", "PreExtraction", "PosExtraction"))
+            parts[f"S{i + 1} grouper"] = cuda_ms(lambda: lg(xyz, feats, groups),
+                                                 iters=5)
+            xyz, grouped, _ = lg(xyz, feats, groups)
+            parts[f"S{i + 1} pre"] = cuda_ms(lambda: pre(grouped), iters=5)
+            h = pre(grouped)
+            parts[f"S{i + 1} pos"] = cuda_ms(lambda: pos(h), iters=5)
+            feats = pos(h)
+            del grouped, h
+    return parts
+
+
+def knn_margins(xyz, k=K_MLP):
+    """Smallest relative gap between each centroid's k-th and (k+1)-th
+    float64 squared distance, over every PointMLP stage of the clouds xyz
+    (B, N, 3) (FPS on the CPU, halving at every stage)."""
+    from pointcloud_tpu_torch.ops import fps_reference, index_points
+
+    xyz = xyz.detach().cpu().float()
+    worst = 1.0
+    for _ in range(4):
+        cents = index_points(xyz, fps_reference(xyz, xyz.shape[1] // 2))
+        d = torch.cdist(cents.double(), xyz.double()).square()
+        two = torch.topk(d, k + 1, dim=-1, largest=False).values[..., k - 1:]
+        worst = min(worst, float(((two[..., 1] - two[..., 0])
+                                  / two[..., 1].clamp_min(1e-30)).min()))
+        xyz = cents
+    return worst
+
+
+def card_vs_cpu_pointmlp(seed, x_raw, bf):
+    """The fp32 PointMLP autoencoder's eval step (Chamfer) on the card and on
+    the CPU from the same weights, at B=2 clouds whose every stage keeps each
+    centroid's 24th and 25th distances 1e-5 apart (relative): FPS and kNN
+    indices equal at every stage, outputs within 1e-4, the loss within 1e-5;
+    the loss of `bf`, the bf16 model from the same seed, within 5% of
+    fp32's."""
+    import copy
+    import dataclasses
+
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.ops import farthest_point_sample, knn_group
+    from pointcloud_tpu_torch.train import create_model, make_eval_step
+
+    cfg.precision = "fp32"
+    try:
+        cpu = create_model("Autoencoder", "PointMLP", "Cube", loss_override="chamfer",
+                           device="cpu", seed=seed)
+    finally:
+        cfg.precision = "bf16-mixed"
+    # the same fp32 modules on the card (drawing the weights again costs
+    # seconds on the host)
+    specs = [dataclasses.replace(cpu, model=copy.deepcopy(cpu.model).cuda()), cpu]
+    for start in range(0, 16, 2):
+        xs = x_raw[start:start + 2]
+        margin = knn_margins(specs[1].in_transform(xs.cpu())[0][..., :3])
+        if margin > 1e-5:
+            break
+    else:
+        raise AssertionError("no pair of clouds keeps its kNN sets 1e-5 apart")
+    idx = []
+    for sp, d in zip(specs, ("cuda", "cpu")):
+        got = []
+        for xyz, feats, new_xyz in pointmlp_stage_inputs(
+                sp.model.encoder.backbone, sp.in_transform(xs.to(d))[0]):
+            got.append(farthest_point_sample(xyz, new_xyz.shape[1]))
+            got.append(knn_group(xyz, feats, new_xyz, None, K_MLP)[2])
+        idx.append(got)
+    if len(idx[0]) != 8 or not all(torch.equal(a.cpu(), b)
+                                   for a, b in zip(*idx)):
+        raise AssertionError("PointMLP FPS or kNN indices differ, card vs CPU")
+    (l_gpu, _, o_gpu), (l_cpu, _, o_cpu) = (
+        make_eval_step(sp)(xs.to(d), xs.to(d))
+        for sp, d in zip(specs, ("cuda", "cpu")))
+    e_out = float((o_gpu.cpu() - o_cpu).abs().max())
+    e_loss = abs(float(l_gpu) - float(l_cpu))
+    l_bf = float(make_eval_step(bf)(xs, xs)[0])
+    bf_loss = abs(l_bf - float(l_gpu)) / float(l_gpu)
+    log(f"  PointMLP fp32 eval step, card vs CPU, B=2 (clouds {start}, "
+        f"{start + 1}: kNN margin {margin:.2e}): FPS and kNN indices equal at all "
+        f"4 stages; max |out err| {e_out:.2e}, |loss err| {e_loss:.2e}; bf16 "
+        f"model's loss vs fp32 rel diff {bf_loss:.2e}")
+    if e_out > 1e-4 or e_loss > 1e-5:
+        raise AssertionError("fp32 PointMLP on the card disagrees with the CPU")
+    if bf_loss > 0.05:
+        raise AssertionError("bf16 PointMLP loss is > 5% off the fp32 one")
+
+
+def pointmlp_paths(seed, gen, x_raw, smi):
+    """The PointMLP eval paths at full width, each with exact launch counts:
+    PointMLP with Chamfer and PointMLP-Elite with its default EMD loss at
+    B=32 (eval steps, the stage-by-stage encoder time, `encode`), and the
+    Segmenter on PointMLP-Elite at B=8 (one eval step, counts only);
+    knn_group at stages 1 and 4 of the B=32 path's own inputs against its
+    plain version, timed beside it, a library yardstick and its bound.
+    Returns the numbers of the kernel's `kernels` entry and the bf16
+    PointMLP spec."""
+    from pointcloud_tpu_torch.ops import knn_group, knn_group_reference
+    from pointcloud_tpu_torch.train import create_model, make_eval_step
+
+    dev = torch.device("cuda")
+    xb = x_raw[:B_MLP].contiguous()
+    out = {}
+    for backbone, loss_override, loss_kernel in (("PointMLP", "chamfer", "nn_sweep"),
+                                                 ("PointMLPE", None, "sinkhorn")):
+        log(f"[PointMLP eval path] Autoencoder / {backbone} / "
+            f"{loss_override or 'default EMD'} loss, scene Cube, B={B_MLP} x 2048 "
+            f"x 6, bf16")
+        spec = create_model("Autoencoder", backbone, "Cube",
+                            loss_override=loss_override, device=dev, seed=seed)
+        ev = drive_eval(make_eval_step(spec), xb, ITERS)
+        expect_counts(f"{backbone} eval path", ev["counts"], fps=4 * (ITERS + 1),
+                      knn_group=4 * (ITERS + 1), **{loss_kernel: ITERS + 1})
+        log(f"  eval step B={B_MLP}: first call {ev['first_s']:.3f} s; {ITERS} "
+            f"chained steps {ev['ms']:.3f} ms/step on the host clock -> "
+            f"{B_MLP / (ev['ms'] / 1e3):.1f} clouds/s; event-to-event median "
+            f"{ev['per_iter'][ITERS // 2]:.3f} ms (min {ev['per_iter'][0]:.3f}, "
+            f"max {ev['per_iter'][-1]:.3f}); peak memory {ev['peak']:.2f} GiB | {smi}")
+        log(f"  loss {float(ev['loss']):.6f}; launches {ev['counts']}")
+        o = ev["out"]
+        if not bool(torch.isfinite(ev["loss"])) or o.shape != (B_MLP, 2048, 6) \
+                or not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{backbone} eval: loss {ev['loss']}, out "
+                                 f"{tuple(o.shape)}")
+        bb = spec.model.encoder.backbone
+        with torch.inference_mode():
+            xn = spec.in_transform(ev["x"])[0]
+            parts = pointmlp_stage_times(bb, xn)
+            enc_ms = cuda_ms(lambda: spec.model.encoder(xn), iters=5)
+            h = spec.model.encoder(xn)
+            dec_ms = cuda_ms(lambda: spec.model.decoder(h), iters=5)
+        log(f"  encoder {enc_ms:.3f} ms, decoder {dec_ms:.3f} ms of the step; "
+            f"encoder parts (CUDA events, ms): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            + f"; sum {sum(parts.values()):.3f}")
+
+        with torch.inference_mode():
+            one = spec.in_transform(x_raw[:1])[0]
+            zero_counts()
+            lat = host_ms(lambda: spec.model.encode(one), calls=20, warmup=5)
+            enc_counts = read_counts()
+            enc = spec.model.encode(one)
+        expect_counts(f"{backbone} encode", enc_counts, fps=4 * 25, knn_group=4 * 25)
+        if enc.shape != (1, 13) or not bool(torch.isfinite(enc).all()):
+            raise AssertionError(f"{backbone} encode gave {tuple(enc.shape)}")
+        log(f"  encode(1 cloud) -> {tuple(enc.shape)}; host clock, 20 calls after "
+            f"5 warm-ups: median {lat[10]:.3f} ms, max {lat[-1]:.3f} ms; launches "
+            f"{enc_counts}")
+        with torch.inference_mode():
+            trace_steps(lambda a, _: spec.model.encode(a), one, None, lat[10],
+                        f"{backbone} encode, 1 cloud")
+
+        # the kernel at stages 1 and 4 of this path's own inputs
+        stages = pointmlp_stage_inputs(bb, xn)
+        for st in (0, 3):
+            sx, sf, sc = stages[st]
+            args = (sx, sf, sc, None, K_MLP)
+            got = knn_group(*args)
+            want = knn_group_reference(*args)
+            if not (torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])):
+                raise AssertionError(f"knn_group differs from the plain version at "
+                                     f"{backbone} stage {st + 1}'s inputs")
+            lib = knn_library(sx, sf, sc, K_MLP)
+            same = float((torch.sort(lib[1], -1).values
+                          == torch.sort(got[2].long(), -1).values).all(-1)
+                         .float().mean())
+            del got, want, lib
+            torch.cuda.empty_cache()
+            Bs, Ns, Ss, Fs = sx.shape[0], sx.shape[1], sc.shape[1], sf.shape[2]
+            bnd = knn_bound(Bs, Ns, Ss, K_MLP, Fs, sf.element_size())
+            times = (cuda_ms(lambda: knn_group(*args), iters=10),
+                     cuda_ms(lambda: knn_group_reference(*args), iters=2, warmup=1),
+                     cuda_ms(lambda: knn_library(sx, sf, sc, K_MLP), iters=3,
+                             warmup=1), bnd)
+            out[(backbone, st + 1)] = times
+            log(f"  knn_group {backbone} stage {st + 1} B={Bs} N={Ns} S={Ss} "
+                f"k={K_MLP} F={Fs} bf16: kernel {times[0]:.3f} ms | plain "
+                f"{times[1]:.3f} ms | library cdist + topk + gather {times[2]:.3f} "
+                f"ms ({same:.4f} of the groups the same set) | bound "
+                f"{bnd[0]:.4f} ms ({bnd[1]})")
+        out[backbone] = ev["counts"]
+        if backbone == "PointMLP":
+            out["spec"] = spec
+        del spec, ev, o, xn, h, stages
+        torch.cuda.empty_cache()
+
+    log("[PointMLP Segmenter] Segmenter / PointMLPE / EMD, B=8 x 2048, bf16: one "
+        "eval step")
+    spec = create_model("Segmenter", "PointMLPE", "Cube", device=dev, seed=seed)
+    classes = len(spec.scene.classes)
+    xs = x_raw[:8].contiguous()
+    labels = torch.randint(0, classes, (8, xs.shape[1], 1), generator=gen,
+                           device=dev).float()
+    zero_counts()
+    loss, logs, seg_out = make_eval_step(spec)(xs, torch.cat([xs[..., :3], labels], -1))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("Segmenter / PointMLPE eval step", counts, fps=4, knn_group=4,
+                  sinkhorn=1)
+    if not bool(torch.isfinite(loss)) or seg_out.shape != (8, 2048, 3 + classes):
+        raise AssertionError(f"Segmenter / PointMLPE eval: loss {loss}")
+    log(f"  eval step: loss {float(loss):.6f}; launches {counts}")
+    del spec
+    torch.cuda.empty_cache()
+    return out
+
+
+def pointmlp_kernel_checks(gen, err):
+    """knn_group against its plain version at small odd shapes and at every
+    stage's shape of the B=32 path (random inputs), and its gradient."""
+    bf, f32 = torch.bfloat16, torch.float32
+    err["knn_group"] = max(
+        check_knn_group(gen, 3, 100, 12, 1, 7, f32, True, True),
+        check_knn_group(gen, 3, 100, 12, 5, 0, f32, True, True),
+        check_knn_group(gen, 3, 300, 40, 32, 16, bf, True, False),
+        check_knn_group(gen, 3, 20, 4, 24, 3, f32, True, True),  # k > N
+        check_knn_group(gen, 3, 1000, 77, 24, 33, bf, False, True),  # 2-byte rows
+        check_knn_group(gen, 3, 20000, 64, 24, 8, bf, True, False),  # global path
+        *(check_knn_group(gen, B_MLP, n, n // 2, K_MLP, f, bf, False, False)
+          for n, fs in ((2048, (64, 32)), (1024, (128, 64)), (512, (256, 128)),
+                        (256, (512, 256))) for f in fs))
+    err["scatter_rows"] = max(
+        err["scatter_rows"],
+        check_knn_group_grad(gen, 3, 512, 64, 16, 6, f32, True),
+        check_knn_group_grad(gen, 3, 512, 64, 24, 64, bf, False))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2215,6 +2618,14 @@ def main(argv=None) -> int:
     card_vs_cpu_train(args.seed, x_raw, loss_override=None, first_tol=1e-4,
                       steps_tol=1e-2)
 
+    # ---- 10. the PointMLP eval paths ----
+    log("[PointMLP: knn_group vs its plain version]")
+    gen_mlp = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    pointmlp_kernel_checks(gen_mlp, err)
+    mlp = pointmlp_paths(args.seed, gen_mlp, x_raw, smi)
+    log("[card vs CPU, PointMLP]")
+    card_vs_cpu_pointmlp(args.seed, x_raw, mlp.pop("spec"))
+
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""
         _, _, ms, plain, lib, bnd = next(
@@ -2258,6 +2669,10 @@ def main(argv=None) -> int:
         entry("sinkhorn", "sinkhorn.cu", "pointcloud_tpu/ops/pallas_kernels.py:31",
               emd["counts"]["sinkhorn"], emd["sinkhorn"][0], emd["sinkhorn"][1],
               emd["sinkhorn"][2], emd["sinkhorn"][3]),
+        entry("knn_group", "knn_group.cu", "pointcloud_tpu/ops/pallas_kernels.py:1220",
+              mlp["PointMLP"]["knn_group"], mlp[("PointMLP", 1)][0],
+              mlp[("PointMLP", 1)][1], mlp[("PointMLP", 1)][3],
+              mlp[("PointMLP", 1)][2]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -10,8 +10,11 @@ so a state_dict key is the flax path joined by dots, with these leaf rules:
   params/.../w{i} (in, out)            -> .../w{i} (in, out), as is
   params/.../{scale, offset}{i}        -> .../{scale, offset}{i}, as is
   batch_stats/.../{mean, var}{i}       -> .../{mean, var}{i} buffers, as is
+  params/.../affine_{alpha, beta}      -> .../affine_{alpha, beta}, as is
 
-(the numbered leaves are a SetAbstraction level's per-layer variables).
+(the numbered leaves are the per-layer variables of a SetAbstraction level
+or a PointMLP PreExtraction; the affine pair, of shape (1, 1, 1, dim), is a
+PointMLP LocalGrouper's).
 
 Both functions are total: a collection or leaf they do not map raises
 KeyError, and `load_flax_variables` raises KeyError on any state_dict key
@@ -31,7 +34,8 @@ from torch import nn
 
 _LEAVES = {
     "params": {"kernel": "weight", "bias": "bias", "scale": "scale",
-               "offset": "offset"},
+               "offset": "offset", "affine_alpha": "affine_alpha",
+               "affine_beta": "affine_beta"},
     "batch_stats": {"mean": "mean", "var": "var"},
 }
 _NUMBERED = {

@@ -1,5 +1,5 @@
-"""Models: the PointNet and PointNet2 encoders and the autoencoder and
-segmenter heads."""
+"""Models: the PointNet, PointNet2 and PointMLP encoders and the
+autoencoder and segmenter heads."""
 
 from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
     AE,
@@ -12,12 +12,21 @@ from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
     backbone_factory,
     encoding_dim_of,
 )
+from pointcloud_tpu_torch.models.pointmlp import (  # noqa: F401
+    LocalGrouper,
+    PointMLP,
+    PointMLPElite,
+    PointMLPModel,
+    PosExtraction,
+    PreExtraction,
+)
 from pointcloud_tpu_torch.models.pointnet import (  # noqa: F401
     STN,
     BNMaxPool,
     DenseBNMaxPool,
     PointNetEncoder,
     PointwiseMLP,
+    check_train_mask_contract,
     masked_max,
 )
 from pointcloud_tpu_torch.models.pointnet2 import (  # noqa: F401

@@ -1,8 +1,9 @@
 """Heads and the autoencoder (port of pointcloud_tpu/models/architectures.py).
 
 `backbone_factory` maps backbone names to encoder constructors; `AE` and
-`SegAE` assemble backbone + bottleneck + decoder. The PointNet and PointNet2
-backbones are ported so far.
+`SegAE` assemble backbone + bottleneck + decoder. Every backbone of the JAX
+package's factory is ported: PointNet, PointNet2, and PointMLP and
+PointMLP-Elite (eval only so far).
 """
 
 from __future__ import annotations
@@ -14,11 +15,14 @@ from torch import nn
 
 from pointcloud_tpu_torch.models.layers import Dense
 from pointcloud_tpu_torch.models.pointnet import PointNetEncoder
+from pointcloud_tpu_torch.models.pointmlp import PointMLP, PointMLPElite
 from pointcloud_tpu_torch.models.pointnet2 import PointNet2Encoder
 
 backbone_factory = {
     "PointNet": PointNetEncoder,
     "PointNet2": PointNet2Encoder,
+    "PointMLP": PointMLP,
+    "PointMLPE": PointMLPElite,
 }
 
 

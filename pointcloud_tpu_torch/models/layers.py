@@ -36,26 +36,29 @@ def _promoted(x: torch.Tensor, *params: torch.Tensor) -> torch.dtype:
 
 
 class Dense(nn.Module):
-    """flax nn.Dense: y = x @ kernel + bias, weight stored (out, in)."""
+    """flax nn.Dense: y = x @ kernel + bias, weight stored (out, in).
+    `use_bias=False` registers no bias, as flax creates none."""
 
     def __init__(self, in_features: int, features: int, dtype=None,
-                 zero_init: bool = False):
+                 zero_init: bool = False, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.zero_init = zero_init  # flax kernel_init=zeros (the STN head)
         self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     def reset_parameters(self, generator: torch.Generator):
         if self.zero_init:
             nn.init.zeros_(self.weight)
         else:
             lecun_normal_(self.weight, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x):
         dt = self.dtype or _promoted(x, self.weight)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def batch_stats(x):

@@ -37,6 +37,32 @@ from pointcloud_tpu_torch.ops.dense_bn_pool import dense_pool_stats
 _NEG = -1e9
 
 
+def check_train_mask_contract(train: bool, mask) -> None:
+    """Document and, under cfg.debug, check the BatchNorm/mask contract.
+
+    BatchNorm batch statistics do NOT respect validity masks: in train mode
+    every point (masked or not) contributes to the mean and variance. That is
+    right for the supported training pipeline (samplers re-densify clouds
+    before they reach a model, and the train step passes no mask) but wrong
+    for a masked training pipeline, so under cfg.debug a train-mode forward
+    with a mask warns. (Max-pools and grouping do respect masks; only the
+    BatchNorm statistics do not.)
+    """
+    if train and mask is not None:
+        from pointcloud_tpu_torch import cfg
+
+        if cfg.debug:
+            import warnings
+
+            warnings.warn(
+                "training-mode forward with a validity mask: BatchNorm "
+                "statistics will include masked-out points (documented "
+                "model contract — re-densify with a sampler before "
+                "training instead)",
+                stacklevel=3,
+            )
+
+
 def masked_max(x, mask, dim: int):
     """Global max-pool that ignores masked-out points."""
     if mask is not None:
@@ -262,6 +288,7 @@ class PointNetEncoder(nn.Module):
         return x
 
     def forward(self, x, train: bool = False, mask=None):
+        check_train_mask_contract(train, mask)
         x = self._point_features(x, train, mask)
         x = self.mlp1(x, train=train)
         return self.dbnpool2(x, train=train, mask=mask)  # (B, 1024)

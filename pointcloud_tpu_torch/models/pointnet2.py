@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from pointcloud_tpu_torch.models.layers import lecun_normal_
+from pointcloud_tpu_torch.models.pointnet import check_train_mask_contract
 from pointcloud_tpu_torch.ops.geometry import sample_and_group, sample_and_group_all
 from pointcloud_tpu_torch.ops.preextract_fused import mlp_pool_fused
 
@@ -146,6 +147,7 @@ class PointNet2Encoder(nn.Module):
             dtype=dtype)
 
     def forward(self, x, train: bool = False, mask=None):
+        check_train_mask_contract(train, mask)
         xyz = x[..., : self.space_dims]
         feats = x[..., self.space_dims :] if self.feature_dims > 0 else None
         for i in range(3):

@@ -2,8 +2,8 @@
 nearest-neighbour sweep, the fused backward, the segment-sum), the fused
 Dense -> BatchNorm-statistics -> max-pool kernels, the fused
 Dense-BatchNorm-ReLU chain with its group max-pool, farthest-point sampling,
-the ball grouping, and Earth Mover's Distance matching with its Sinkhorn
-kernel."""
+the ball and kNN groupings, and Earth Mover's Distance matching with its
+Sinkhorn kernel."""
 
 from pointcloud_tpu_torch.ops.ball_group import (  # noqa: F401
     ball_group,
@@ -36,10 +36,17 @@ from pointcloud_tpu_torch.ops.fps import (  # noqa: F401
 from pointcloud_tpu_torch.ops.geometry import (  # noqa: F401
     ball_query,
     first_k_in_ball,
+    group_neighbors,
     index_points,
+    knn,
     pairwise_sqdist,
     sample_and_group,
     sample_and_group_all,
+    three_nn_interpolate,
+)
+from pointcloud_tpu_torch.ops.knn_group import (  # noqa: F401
+    knn_group,
+    knn_group_reference,
 )
 from pointcloud_tpu_torch.ops.nn_sweep import (  # noqa: F401
     nn_sweep,

@@ -1,6 +1,6 @@
 """Fixed-shape, mask-based geometry (port of pointcloud_tpu/ops/geometry.py):
-pairwise distances, gathers, the ball query and the set-abstraction
-grouping.
+pairwise distances, gathers, the kNN and ball queries, the neighbourhood
+grouping, the set-abstraction grouping and the 3-NN interpolation.
 
 Layout is channels-last, as in the JAX package: src (..., N, C),
 dst (..., M, C) -> (..., N, M). Invalid points stay in the arrays and carry
@@ -64,6 +64,38 @@ def first_k_in_ball(in_ball, k: int):
     return torch.where(valid, first, slot0).int(), valid
 
 
+def knn(k: int, xyz, new_xyz, mask=None, approx=None):
+    """The k nearest neighbours of each query in `new_xyz` among `xyz`, as
+    the JAX package's XLA path computes them (the matmul expansion of the
+    distance): (idx (B, S, k) int32, sqdists (B, S, k)).
+
+    xyz (B, N, C), new_xyz (B, S, C), mask (B, N) bool (True = valid).
+    Masked points get the distance 1e10 and never win over a valid one; the
+    slots of a cloud with fewer than k valid points repeat slot 0, index and
+    distance. Slot order is distance order with the lowest index first on
+    ties (a stable sort: torch.topk does not promise that order). `approx`
+    (the TPU's approx_max_k) has no counterpart here and raises.
+    `group_neighbors` takes the kNN kernel instead, whose direct differences
+    follow the TPU kernel.
+    """
+    if approx:
+        raise NotImplementedError(
+            "approx=True selects with the TPU's approx_max_k, which has no "
+            "PyTorch counterpart; the port's kNN is exact")
+    if k > xyz.shape[1]:
+        raise ValueError(f"knn needs k <= N; got k={k}, N={xyz.shape[1]}")
+    d = pairwise_sqdist(new_xyz, xyz)  # (B, S, N)
+    if mask is not None:
+        d = torch.where(mask[..., None, :], d, _BIG)
+    dist, idx = torch.sort(d, dim=-1, stable=True)
+    dist, idx = dist[..., :k], idx[..., :k]
+    if mask is not None:  # under-full clouds: the empty slots repeat slot 0
+        under = dist >= _BIG
+        idx = torch.where(under, idx[..., :1], idx)
+        dist = torch.where(under, dist[..., :1], dist)
+    return idx.int(), dist
+
+
 def ball_query(radius: float, k: int, xyz, new_xyz, mask=None):
     """Indices of up to `k` points of `xyz` within `radius` of each query,
     as the JAX package's XLA path computes them (the matmul expansion of
@@ -79,8 +111,40 @@ def ball_query(radius: float, k: int, xyz, new_xyz, mask=None):
     return first_k_in_ball(valid, k)
 
 
+def group_neighbors(xyz, feats, new_xyz, k: int, radius=None, mask=None,
+                    with_xyz: bool = True):
+    """kNN grouping and gather in one step, through the `knn_group` kernel.
+
+    xyz (B, N, 3), feats (B, N, F) or None, new_xyz (B, S, 3) queries, mask
+    (B, N) bool or None. Returns (grouped_xyz (B, S, k, 3), not centred, or
+    None when `with_xyz` is False; grouped_feats (B, S, k, F) or None;
+    idx (B, S, k) int32; valid (B, S, k) bool, all True in kNN mode).
+
+    Any k goes to the kernel: the JAX package's `k % 8` gate
+    (geometry.py:201-202) was the TPU kernel's store alignment. The
+    `radius=` mode goes, in the JAX package, through the legacy grouping
+    kernel (`_group_kernel`), which is ported with the MSG set abstraction.
+    """
+    if radius is not None:
+        raise NotImplementedError(
+            "group_neighbors(radius=...) is the legacy grouping kernel's ball "
+            "mode (pointcloud_tpu/ops/pallas_kernels.py:_group_kernel), to be "
+            "ported with the MSG set abstraction (ROADMAP Queue 2 #11, Queue 1 "
+            "item 9); sample_and_group groups balls through ball_group")
+    # imported here: the kernel module imports this one
+    from pointcloud_tpu_torch.ops.knn_group import knn_group
+
+    gx, gf, idx = knn_group(
+        xyz[..., :3].float().contiguous(),
+        None if feats is None else feats.contiguous(),
+        new_xyz[..., :3].float().contiguous(),
+        None if mask is None else mask.contiguous(), k, with_xyz)
+    valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    return None if gx is None else gx.to(xyz.dtype), gf, idx, valid
+
+
 def sample_and_group(npoint: int, radius: float, nsample: int, xyz, features,
-                     mask=None):
+                     mask=None, use_knn: bool = False):
     """FPS-downsample, then group each centroid's ball (set-abstraction
     input).
 
@@ -90,8 +154,11 @@ def sample_and_group(npoint: int, radius: float, nsample: int, xyz, features,
         features' dtype,
       group_mask (B, npoint, nsample) bool,
       new_mask (B, npoint) bool.
-    Every grouping goes through `ball_group`; the JAX package's `use_knn`
-    option (kNN grouping) is left out until the kNN kernel is ported.
+    The ball grouping goes through `ball_group`, whose centred xyz is
+    rounded to the features' dtype; `use_knn` groups the nsample nearest
+    points through `group_neighbors` instead, and the centred xyz and the
+    features are concatenated in their promoted dtype, as in the JAX
+    package.
     """
     # imported here: both kernel modules import this one
     from pointcloud_tpu_torch.ops.ball_group import ball_group
@@ -104,6 +171,13 @@ def sample_and_group(npoint: int, radius: float, nsample: int, xyz, features,
         new_mask = torch.gather(mask, 1, fps_idx.long())
     else:
         new_mask = torch.ones(fps_idx.shape, dtype=torch.bool, device=xyz.device)
+    if use_knn:
+        grouped_xyz, grouped_feat, _, valid = group_neighbors(
+            xyz, features, new_xyz, nsample, mask=mask)
+        grouped = grouped_xyz - new_xyz[:, :, None, :]
+        if grouped_feat is not None:
+            grouped = torch.cat([grouped, grouped_feat], dim=-1)
+        return new_xyz, grouped, valid & new_mask[..., None], new_mask
     grouped, _, valid = ball_group(
         xyz, None if features is None else features.contiguous(), new_xyz,
         None if mask is None else mask.contiguous(), nsample, radius)
@@ -122,3 +196,15 @@ def sample_and_group_all(xyz, features, mask=None):
                   if mask is None else mask[:, None, :])
     return (new_xyz, grouped, group_mask,
             torch.ones((B, 1), dtype=torch.bool, device=xyz.device))
+
+
+def three_nn_interpolate(xyz_to, xyz_from, features_from, mask_from=None,
+                         eps: float = 1e-8):
+    """Inverse-distance-weighted 3-NN feature upsampling (the JAX package's
+    op of the same name, XLA there: plain PyTorch here). xyz_to (B, N, 3),
+    xyz_from (B, S, 3), features_from (B, S, F) -> (B, N, F)."""
+    idx, d = knn(3, xyz_from, xyz_to, mask=mask_from)  # (B, N, 3)
+    w = 1.0 / (d + eps)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    neighbors = index_points(features_from, idx)  # (B, N, 3, F)
+    return torch.sum(neighbors * w[..., None], dim=-2)

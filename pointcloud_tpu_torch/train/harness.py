@@ -7,7 +7,8 @@ one device; `make_optimizer` and `make_train_step` give the training step
 eval forward + loss. Ported: the Autoencoder (Earth Mover's Distance, its
 default loss, or Chamfer with loss_override="chamfer") and the Segmenter
 (EMD with class weights), on the PointNet and PointNet2 backbones, eval and
-train. The MultiSegmenter, the StatePredictor, the PointMLP backbones,
+train, and on the PointMLP and PointMLPE backbones, eval (their train-mode
+forward raises until its slice). The MultiSegmenter, the StatePredictor,
 datasets, the train() loop and checkpoints come in later slices and raise
 here.
 """

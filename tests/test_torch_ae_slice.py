@@ -148,8 +148,6 @@ def test_create_model_rejects_unported_configs():
     for args, kw in (
         (("MultiSegmenter", "PointNet", "Cube"), {}),
         (("StatePredictor", "PointNet", "Cube"), {}),
-        (("Autoencoder", "PointMLP", "Cube"), {"loss_override": "chamfer"}),
-        (("Segmenter", "PointMLPE", "Cube"), {}),
     ):
         with pytest.raises(NotImplementedError):
             tharness.create_model(*args, device="cpu", **kw)
@@ -172,7 +170,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.ops.fps, pointcloud_tpu_torch.ops.ball_group, "
         "pointcloud_tpu_torch.ops.preextract_fused, "
         "pointcloud_tpu_torch.ops.sinkhorn, pointcloud_tpu_torch.ops.emd, "
-        "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms\n"
+        "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms, "
+        "pointcloud_tpu_torch.models.pointmlp, pointcloud_tpu_torch.ops.knn_group\n"
         "from pointcloud_tpu_torch.train import make_train_step\n"
         "from pointcloud_tpu_torch.losses import EarthMoverDistance\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "

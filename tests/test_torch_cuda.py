@@ -30,6 +30,8 @@ from pointcloud_tpu_torch.ops import (
     eps_schedule,
     farthest_point_sample,
     fps_reference,
+    knn_group,
+    knn_group_reference,
     matching_difference,
     mlp_pool_bwd_reference,
     mlp_pool_fused,
@@ -745,3 +747,117 @@ def test_sinkhorn_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
         sinkhorn(x[..., :2], y)
     with pytest.raises(TypeError):
         sinkhorn(x.int(), y)
+
+
+# ---- the PointMLP slice's kNN grouping ----
+
+def knn_case(dev, seed, B, N, S, F, dtype, masked):
+    """Unit-cube clouds, centroids on every (N // S)-th point; with masks
+    ~30% of the points masked, cloud 1 under-full (3 valid points) and
+    cloud 2 without a valid point."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand((B, N, 3), generator=g, device=dev)
+    feats = (torch.randn((B, N, F), generator=g, device=dev).to(dtype)
+             if F else None)
+    cents = xyz[:, :: max(1, N // S)][:, :S].contiguous()
+    mask = None
+    if masked:
+        mask = torch.rand((B, N), generator=g, device=dev) > 0.3
+        mask[1] = False
+        mask[1, [0, N // 2, N - 1]] = True
+        mask[2] = False
+    return xyz, feats, cents, mask
+
+
+@pytest.mark.parametrize("N,S,k,F,with_xyz", [(2048, 1024, 24, 64, False),
+                                              (256, 128, 24, 512, False),
+                                              (100, 12, 5, 7, True),
+                                              (300, 40, 32, 0, True),
+                                              (20, 4, 24, 3, True),
+                                              (20000, 64, 24, 4, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_knn_group_matches_plain_and_is_deterministic(dev, N, S, k, F, with_xyz,
+                                                      dtype, masked):
+    """Bit-equal outputs: the same penalised distances (rounded intrinsics
+    in the plain version's order), the same (distance, index) order, exact
+    gathers; the shared-memory and global paths, k not a multiple of 8,
+    k > N, no features, 16-byte and element-wise row copies."""
+    xyz, feats, cents, mask = knn_case(dev, N + k, 3, N, S, F, dtype, masked)
+    got = knn_group(xyz, feats, cents, mask, k, with_xyz)
+    again = knn_group(xyz, feats, cents, mask, k, with_xyz)
+    torch.cuda.synchronize()
+    want = knn_group_reference(xyz, feats, cents, mask, k, with_xyz)
+    for a, b, w in zip(got, again, want):
+        assert (a is None) == (b is None) == (w is None)
+        if w is not None:
+            assert torch.equal(a, b)
+            assert a.dtype == w.dtype and torch.equal(a, w)
+    idx = got[2]
+    assert idx.shape == (3, S, k) and idx.dtype == torch.int32
+    if masked:  # slots past the valid count repeat slot 0
+        assert (idx[1, :, min(3, k):] == idx[1, :, :1]).all()
+        assert (idx[2] == idx[2, :, :1]).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_xyz", [False, True])
+def test_knn_group_gradient_matches_the_cpu_path(dev, dtype, with_xyz):
+    """One scatter_rows launch per backward, bit-equal over two runs; fp32
+    gradients 1e-5 relative to the largest (summation order), bf16 feature
+    gradients within one bf16 ulp; in fp32 also against autograd through the
+    plain version on the card."""
+    xyz, feats, cents, mask = knn_case(dev, 4, 3, 512, 64, 6, dtype, True)
+    torch.manual_seed(0)
+    cws = [torch.randn((3, 64, 16, c), device=dev)
+           for c in ((3, 6) if with_xyz else (6,))]
+
+    def grads(fn, d):
+        leaves = [t.to(d).clone().requires_grad_() for t in (xyz, feats)]
+        gx, gf, _ = fn(*leaves, cents.to(d), mask.to(d), 16, with_xyz)
+        outs = ([gx] if with_xyz else []) + [gf]
+        loss = sum((o.float() * cw.to(d)).sum() for o, cw in zip(outs, cws))
+        return [None if g is None else g.to(dev)
+                for g in torch.autograd.grad(loss, leaves, allow_unused=True)]
+
+    before = (knn_group.launches, scatter_rows.launches)
+    got = grads(knn_group, dev)
+    assert (knn_group.launches, scatter_rows.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    again = grads(knn_group, dev)
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again))
+    refs = [grads(knn_group, "cpu")]
+    if dtype == torch.float32:
+        refs.append(grads(knn_group_reference, dev))
+    for want in refs:
+        for g, w in zip(got, want):
+            if w is None or g is None:  # xyz without grouped_xyz: no gradient
+                assert not with_xyz and g is None
+                continue
+            assert g.dtype == w.dtype
+            if w.dtype == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    w.float().abs().clamp_min(1e-30))) - 7)
+                assert ((g.float() - w.float()).abs() <= ulp + 1e-6).all()
+            else:
+                assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_knn_group_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
+    xyz, feats, cents, mask = knn_case(dev, 5, 3, 256, 16, 3, torch.float32, True)
+    before = knn_group.launches
+    knn_group(xyz, feats, cents, mask, 8)
+    knn_group(xyz.cpu(), feats.cpu(), cents.cpu(), mask.cpu(), 8)
+    assert knn_group.launches == before + 1
+    with pytest.raises(TypeError):
+        knn_group(xyz, feats.half(), cents, mask, 8)
+    with pytest.raises(TypeError):
+        knn_group(xyz.bfloat16(), feats, cents, mask, 8)
+    with pytest.raises(ValueError):
+        knn_group(xyz, feats.transpose(0, 1).contiguous().transpose(0, 1), cents,
+                  mask, 8)
+    with pytest.raises(ValueError):
+        knn_group(xyz, feats, cents, mask.cpu(), 8)
+    with pytest.raises(ValueError):
+        knn_group(xyz, feats, cents, mask, 0)

@@ -65,6 +65,40 @@ def ball_margin(xyz, cents, radius):
     return float(np.abs(d / (radius * radius) - 1.0).min())
 
 
+def knn_margin(xyz, cents, k, mask=None, gaps=None):
+    """Smallest relative gap (d_(j+1) - d_j) / d_(j+1) between consecutive
+    float64 squared distances of each centroid's nearest valid points, over
+    the `gaps` gaps after the j-th nearest for j = k - gaps + 1 .. k (default
+    1: only the k-th against the (k+1)-th, which fixes the neighbour set; k:
+    every gap up to the (k+1)-th, which fixes the slot order too). 1.0 where
+    a cloud has no (k+1)-th valid point."""
+    d = ((cents[:, :, None, :].astype(np.float64)
+          - xyz[:, None].astype(np.float64)) ** 2).sum(-1)
+    if mask is not None:
+        d = np.where(mask[:, None, :], d, np.inf)
+    d = np.sort(d, axis=-1)
+    d = np.concatenate([d, np.full(d.shape[:-1] + (1,), np.inf)], -1)
+    gaps = 1 if gaps is None else gaps
+    lo, hi = d[..., k - gaps:k], d[..., k - gaps + 1:k + 1]
+    with np.errstate(invalid="ignore", divide="ignore"):
+        rel = np.where(np.isfinite(hi), (hi - lo) / np.maximum(hi, 1e-30), 1.0)
+    return float(rel.min()) if rel.size else 1.0
+
+
+def stage_margins(xyz, k=24, stages=4):
+    """knn_margin of each PointMLP stage's FPS centroids (the port's plain
+    FPS, halving the points at every stage) among that stage's points."""
+    from pointcloud_tpu_torch.ops.fps import fps_reference
+
+    out = []
+    for _ in range(stages):
+        idx = fps_reference(torch.from_numpy(xyz), xyz.shape[1] // 2).numpy()
+        cents = np.take_along_axis(xyz, idx[..., None].astype(np.int64), 1)
+        out.append(knn_margin(xyz, cents, k))
+        xyz = cents
+    return out
+
+
 def fps_centroids(xyz, npoint, mask=None):
     """The FPS centroids (the port's plain version) of numpy clouds."""
     from pointcloud_tpu_torch.ops.fps import fps_reference
