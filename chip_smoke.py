@@ -55,13 +55,25 @@ lines:
      with exact launch counts, the stage-by-stage encoder time and `encode`
      on one cloud; one eval step of the Segmenter on PointMLP-Elite at B=8;
      the fp32 models card vs CPU at B=2 (equal FPS and kNN indices at every
-     stage).
-Within phases 3-6 and 8-10 each kernel is held against its plain version again
+     stage);
+ 11. the PointMLP train paths at full width: the residual mode of the four
+     chain passes against their plain versions (mid width 16, a pool of 24
+     over rows that are not a multiple of 64, one to three blocks, width
+     1024, fp32 and bf16, planted ties; two runs bit-equal); make_optimizer
+     + make_train_step at B=32 x 2048 x 6, bf16, for PointMLP with Chamfer
+     and PointMLP-Elite with its default EMD loss, a warm-up step and 5
+     chained steps with exact launch counts, the step's parts and a trace,
+     every stage's residual chain held against its plain versions at that
+     batch's own inputs and PointMLP's stages timed; one train step of the
+     Segmenter on PointMLP-Elite at B=8; the fp32 PointMLP train step card
+     vs CPU at B=2 (equal FPS and kNN indices, first loss and update).
+Within phases 3-6 and 8-11 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound, with both Chamfer backward routes at the
 train step's shapes, the parts of each step and a torch.profiler trace of
 each train step (device time by kernel, busy and idle share). For each path
-(3, 4, 5, 6, 8, the four of 9, the three of 10, encode, the sensor chain)
+(3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, encode, the
+sensor chain)
 every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
@@ -268,7 +280,7 @@ def twice_equal(name, fn):
     """Run fn twice on the same inputs; the results must be bit-equal."""
     a, b = fn(), fn()
     torch.cuda.synchronize()
-    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+    if not all((u is None and v is None) or torch.equal(u, v) for u, v in zip(a, b)):
         raise AssertionError(f"{name}: two runs on the same inputs differ")
     return a
 
@@ -982,21 +994,26 @@ def close_sums(name, got, want, tol):
 
 
 def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
-                  need_dx=True, planted=False):
+                  need_dx=True, planted=False, residual=False, tag=""):
     """Each pass of the chain against its plain version ON THE SAME INPUTS
-    (the kernel chain's own tensors feed both), each kernel twice and
+    (the kernel chain's own tensors feed both: the passes are walked by the
+    port's own _chain_forward and _chain_backward), each kernel twice and
     bit-equal. mm_stats / bnact_mm_stats: h by `close_act`, ssum and ssq 1e-4
-    (fp32) or 1e-3 (bf16) relative. bn_pool: out, maxv, amax and hsel exactly
-    equal (the same rounded operations, lowest row on ties). chain_bwd_pass:
-    dzd by `close_act`; dw 1e-4 / 1e-3 relative (dh is bit-equal on both
-    sides, so dw differs by summation order only); sd and se 1e-4 (fp32) or
-    5e-3 (bf16) relative: they sum the rounded dzd, whose entries differ by
-    a bf16 ulp where the order flipped a rounding, and the sums cancel. `planted`: the
-    inputs are `chain_inputs`', whose ties are then checked (every call checks that exactly the groups without a valid row
-    give -1e9). Updates `err` with the largest absolute errors (of h, out, dw);
-    returns the forward tensors of the kernel chain."""
+    (fp32) or 1e-3 (bf16) relative, a stored residual r (write_r) exactly
+    equal. bn_pool: out, maxv, amax and hsel exactly equal (the same rounded
+    operations, lowest row on ties). chain_bwd_pass: dzd by `close_act`; dw
+    1e-4 / 1e-3 relative (dh is bit-equal on both sides, so dw differs by
+    summation order only); sd and se 1e-4 (fp32) or 5e-3 (bf16) relative:
+    they sum the rounded dzd, whose entries differ by a bf16 ulp where the
+    order flipped a rounding, and the sums cancel. `residual`: PointMLP's
+    residual chain (pen None): the residual adds, the stored block outputs
+    and the skip shares of the backward. `planted`: the inputs are
+    `chain_inputs`', whose ties are then checked (with pen, every call
+    checks that exactly the groups without a valid row give -1e9). Updates
+    `err` (keys: the wrapper's name + `tag`) with the largest absolute
+    errors (of h, out, dw); returns the forward's saved tensors (ws_c, hs,
+    scs, rs, maxv, amax, hsel) and the pooled output."""
     from pointcloud_tpu_torch.ops import (
-        affine_scalars,
         bn_pool,
         bn_pool_reference,
         bnact_mm_stats,
@@ -1005,109 +1022,111 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
         chain_bwd_pass_reference,
         mm_stats,
         mm_stats_reference,
-        up_scalars,
     )
+    from pointcloud_tpu_torch.ops import preextract_fused as tpf
 
-    (B, R, _), L, dt = x.shape, len(ws), x.dtype
-    n = B * R
+    (B, R, _), dt = x.shape, x.dtype
     tol = 1e-4 if dt == torch.float32 else 1e-3
-    ws_c = [w.to(dt).contiguous() for w in ws]
-    hs, scs, e_stats = [], [], 0.0
-    for u in range(L):
-        name = "bnact_mm_stats" if u else "mm_stats"
-        fn, ref = ((bnact_mm_stats, bnact_mm_stats_reference) if u
-                   else (mm_stats, mm_stats_reference))
-        args = (hs[-1], scs[-1], ws_c[u]) if u else (x, ws_c[0])
-        h, ss, sq = twice_equal(name, lambda: fn(*args))
-        rh, rss, rsq = ref(*args)
-        err[name] = max(err[name], close_act(f"{name} {label} layer {u}", h, rh))
-        e_stats = max(e_stats, close_sums(f"{name} {label} ssum", ss, rss, tol),
-                      close_sums(f"{name} {label} ssq", sq, rsq, tol))
-        del rh
-        hs.append(h)
-        scs.append(affine_scalars(ss, sq, gs[u], bs[u], n))
+    worst = {"stats": 0.0, "sums": 0.0, "dz": 0.0}
 
-    pooled = twice_equal("bn_pool", lambda: bn_pool(hs[-1], scs[-1], pen, pool,
-                                                    final_relu))
-    want = bn_pool_reference(hs[-1], scs[-1], pen, pool, final_relu)
-    for what, g, w in zip(("out", "maxv", "amax", "hsel"), pooled, want):
-        if g.dtype != w.dtype or not torch.equal(g, w):
-            raise AssertionError(f"bn_pool {label}: {what} differs from the plain "
-                                 f"version's")
-    out, maxv, amax, hsel = pooled
-    err["bn_pool"] = max(err["bn_pool"],
-                         float((out.float() - want[0].float()).abs().max()))
-    if planted:
-        if pool > 1 and bool((amax == pool - 1).any()):
-            raise AssertionError(f"bn_pool {label}: a tie went to the higher row")
-    # -1e9 in every channel of a group without a valid row, and only there
-    empty = ~(pen.view(B, R // pool, pool) == 0).any(dim=2)
-    if not torch.equal(out.float() < -5e8, empty[..., None].expand_as(out)):
-        raise AssertionError(f"bn_pool {label}: -1e9 must mark exactly the groups "
-                             f"without a valid row")
-    del want
+    def note(name, e):
+        err[name + tag] = max(err.get(name + tag, 0.0), e)
 
+    def product(name, fn, ref):
+        def run(*a, **kw):
+            got = twice_equal(name, lambda: fn(*a, **kw))
+            want = ref(*a, **kw)
+            note(name, close_act(f"{name} {label} {tuple(a[-1].shape)}", got[0],
+                                 want[0]))
+            worst["stats"] = max(worst["stats"],
+                                 close_sums(f"{name} {label} ssum", got[1], want[1], tol),
+                                 close_sums(f"{name} {label} ssq", got[2], want[2], tol))
+            if len(got) == 4 and not torch.equal(got[3], want[3]):
+                raise AssertionError(f"{name} {label}: the stored residual differs "
+                                     f"from the plain version's")
+            return got
+        return run
+
+    def pool_pass(*a, **kw):
+        got = twice_equal("bn_pool", lambda: bn_pool(*a, **kw))
+        want = bn_pool_reference(*a, **kw)
+        for what, g, w in zip(("out", "maxv", "amax", "hsel"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"bn_pool {label}: {what} differs from the plain "
+                                     f"version's")
+        note("bn_pool", float((got[0].float() - want[0].float()).abs().max()))
+        return got
+
+    def bwd(*a, **kw):
+        got = twice_equal("chain_bwd_pass", lambda: chain_bwd_pass(*a, **kw))
+        want = chain_bwd_pass_reference(*a, **kw)
+        what = f"chain_bwd_pass {label} {tuple(a[2].shape)}"
+        if got[0] is not None:
+            worst["dz"] = max(worst["dz"], close_act(f"{what} dzd", got[0], want[0]))
+        if got[1] is not None:
+            for g, w in zip(got[1:3], want[1:3]):
+                worst["sums"] = max(worst["sums"], close_sums(
+                    f"{what} sd/se", g, w, 1e-4 if dt == torch.float32 else 5e-3))
+        worst["sums"] = max(worst["sums"], close_sums(f"{what} dw", got[3], want[3], tol))
+        note("chain_bwd_pass", float((got[3] - want[3]).abs().max()))
+        return got
+
+    passes = (product("mm_stats", mm_stats, mm_stats_reference),
+              product("bnact_mm_stats", bnact_mm_stats, bnact_mm_stats_reference),
+              pool_pass)
+    out, _, saved = tpf._chain_forward(x, ws, gs, bs, pen, pool, final_relu, passes,
+                                       residual)
+    amax = saved[5]
+    if planted and pool > 1 and bool((amax == pool - 1).any()):
+        raise AssertionError(f"bn_pool {label}: a tie went to the higher row")
+    if pen is not None:
+        # -1e9 in every channel of a group without a valid row, and only there
+        empty = ~(pen.view(B, R // pool, pool) == 0).any(dim=2)
+        if not torch.equal(out.float() < -5e8, empty[..., None].expand_as(out)):
+            raise AssertionError(f"bn_pool {label}: -1e9 must mark exactly the "
+                                 f"groups without a valid row")
     dout = torch.randn(out.shape, generator=gen, device=x.device).to(dt)
-    dosel = (dout.float() * (maxv > (0.0 if final_relu else -5e8))).contiguous()
-    sd = dosel.sum(dim=(0, 1))
-    se = (dosel * ((hsel - scs[-1][0]) * scs[-1][3])).sum(dim=(0, 1))
-    dz, e_sums, e_dz = None, 0.0, 0.0
-    for u in range(L - 1, -1, -1):
-        uc = up_scalars(scs[u], gs[u], sd, se, n)
-        kw = dict(dosel=dosel, amax=amax, pool=pool) if u == L - 1 else dict(dz=dz)
-        a_in, sc_down = (hs[u - 1], scs[u - 1]) if u else (x, None)
-        kw["need_dzd"] = bool(u) or need_dx
-        # twice_equal compares tensors: leave the None results out
-        got = twice_equal("chain_bwd_pass", lambda: [
-            t for t in chain_bwd_pass(hs[u], uc, ws_c[u], a_in, sc_down, **kw)
-            if t is not None])
-        want = [t for t in chain_bwd_pass_reference(hs[u], uc, ws_c[u], a_in,
-                                                    sc_down, **kw) if t is not None]
-        what = f"chain_bwd_pass {label} layer {u}"
-        if kw["need_dzd"]:
-            e_dz = max(e_dz, close_act(f"{what} dzd", got[0], want[0]))
-        for g, w in zip(got[-3:-1] if u else [], want[-3:-1] if u else []):
-            e_sums = max(e_sums, close_sums(f"{what} sd/se", g, w,
-                                            1e-4 if dt == torch.float32 else 5e-3))
-        e_sums = max(e_sums, close_sums(f"{what} dw", got[-1], want[-1], tol))
-        err["chain_bwd_pass"] = max(err["chain_bwd_pass"],
-                                    float((got[-1] - want[-1]).abs().max()))
-        if u:
-            dz, sd, se = got[0], got[1], got[2]
-        del want
+    tpf._chain_backward(x, gs, saved, dout, pool, final_relu, need_dx, bwd, residual)
     log(f"  chain {label} {str(dt)[6:]} B={B} R={R} pool={pool} layers "
-        f"{[tuple(w.shape) for w in ws]} final_relu={final_relu}: h within "
-        f"tolerance, ssum/ssq rel {e_stats:.1e}; bn_pool equal; backward dzd max "
-        f"|err| {e_dz:.1e}, sd/se/dw rel {e_sums:.1e}; every kernel twice bit-equal")
-    return ws_c, hs, scs, pooled
+        f"{[tuple(w.shape) for w in ws]} {'residual' if residual else 'plain'}, "
+        f"final_relu={final_relu}: h within tolerance, ssum/ssq rel "
+        f"{worst['stats']:.1e}; bn_pool equal; backward dzd max |err| "
+        f"{worst['dz']:.1e}, sd/se/dw rel {worst['sums']:.1e}; every kernel twice "
+        f"bit-equal")
+    return saved, out
 
 
-def check_chain(gen, B, R, layout, pool, dtype, masked, final_relu, err):
-    """The four passes on `chain_inputs`, then the whole `mlp_pool_fused`
-    (forward and backward through autograd) against the composition of its
-    own wrappers: bit-equal, being the same launches."""
-    from pointcloud_tpu_torch.ops import mlp_pool_fused
+def check_chain(gen, B, R, layout, pool, dtype, masked, final_relu, err,
+                residual=False, tag=""):
+    """The four passes on `chain_inputs` (residual: no pen), then the whole
+    `mlp_pool_fused` or `preextract_pool_fused` (forward and backward through
+    autograd) against the composition of its own wrappers: bit-equal, being
+    the same launches."""
+    from pointcloud_tpu_torch.ops import mlp_pool_fused, preextract_pool_fused
 
     x, ws, gs, bs, pen = chain_inputs(gen, B, R, layout, dtype, pool, masked)
+    if residual:
+        pen = None
     label = f"Cin={layout[0][0]}"
-    _, _, _, pooled = compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err,
-                                    label, planted=True)
+    _, pooled = compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
+                              planted=True, residual=residual, tag=tag)
     leaves = [t.clone().requires_grad_() for t in (x, *ws, *gs, *bs)]
     L = len(ws)
 
     def whole():
-        out, stats = mlp_pool_fused(leaves[0], leaves[1:1 + L], leaves[1 + L:1 + 2 * L],
-                                    leaves[1 + 2 * L:], pen, pool, final_relu)
+        args = (leaves[0], leaves[1:1 + L], leaves[1 + L:1 + 2 * L], leaves[1 + 2 * L:])
+        out, stats = (preextract_pool_fused(*args, pool) if residual
+                      else mlp_pool_fused(*args, pen, pool, final_relu))
         grads = torch.autograd.grad(out.float().sum(), leaves)
         return [out, *[t for pair in stats for t in pair], *grads]
 
-    res = twice_equal("mlp_pool_fused", whole)
-    if not torch.equal(res[0], pooled[0]) or res[1].requires_grad:
-        raise AssertionError(f"mlp_pool_fused {label}: the chain disagrees with its "
+    res = twice_equal("preextract_pool_fused" if residual else "mlp_pool_fused", whole)
+    if not torch.equal(res[0], pooled) or res[1].requires_grad:
+        raise AssertionError(f"fused chain {label}: the chain disagrees with its "
                              f"passes, or its statistics carry a gradient")
     if not all(g.dtype == t.dtype and bool(torch.isfinite(g).all())
                for g, t in zip(res[1 + 2 * L:], leaves)):
-        raise AssertionError(f"mlp_pool_fused {label}: bad gradients")
+        raise AssertionError(f"fused chain {label}: bad gradients")
 
 
 def check_ball_group_grad(gen, B, N, S, k, F, dtype, radius):
@@ -1165,31 +1184,40 @@ def check_ball_group_grad(gen, B, N, S, k, F, dtype, radius):
     return worst
 
 
-def chain_bounds(rows, groups, cd, cu, es, sparse, down_bn, need_dzd=True):
+def chain_bounds(rows, groups, cd, cu, es, sparse, down_bn, need_dzd=True,
+                 res=False, write_r=False, pen=True, skip=None):
     """(forward product, pool pass over cu channels, backward pass) bounds of
     one layer: bytes with every tensor read or written once, operations at
     the dense bf16 tensor-core rate (2 rows cd cu a product; the pool's ~6
-    fp32 operations an element on the CUDA cores)."""
+    fp32 operations an element on the CUDA cores). The residual chain's
+    extras: `res` reads a residual tensor of the layer input's width (the
+    pool's: cu), `write_r` writes the layer input, `pen` (the masked pool)
+    reads a penalty a row, `skip` adds a pooled ("pool": groups x cd
+    cotangents and rows) or dense ("dense": rows x cd) share to da."""
     w_bytes = cd * cu * es
     fwd = bound(2 * rows * cd * cu,
-                rows * (cd + cu) * es + w_bytes + 2 * cu * 4 + 3 * cd * 4,
-                PEAK_BF16_FLOPS)
-    pool = bound(6 * rows * cu, rows * cu * es + rows * 4
+                rows * (cd + cu) * es + w_bytes + 2 * cu * 4 + 3 * cd * 4
+                + rows * cd * es * (int(res) + int(write_r)), PEAK_BF16_FLOPS)
+    pool = bound(6 * rows * cu, rows * cu * es * (1 + int(res)) + rows * 4 * int(pen)
                  + groups * cu * (es + 12) + 3 * cu * 4, PEAK_FP32_FLOPS)
     dz_bytes = groups * cu * 8 if sparse else rows * cu * es
+    skip_bytes = {None: 0, "pool": groups * cd * 8, "dense": rows * cd * es}[skip]
     bwd = bound((4 if need_dzd else 2) * rows * cd * cu,
                 rows * cu * es + dz_bytes + w_bytes + rows * cd * es
                 + (rows * cd * es if need_dzd else 0) + cd * cu * 4
-                + (2 * cd * 4 if down_bn else 0) + 4 * cu * 4, PEAK_BF16_FLOPS)
+                + (2 * cd * 4 if down_bn else 0) + 4 * cu * 4
+                + rows * cd * es * int(res) + skip_bytes, PEAK_BF16_FLOPS)
     return fwd, pool, bwd
 
 
-def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level):
-    """Each launch of one level's chain at the path's own tensors (`fwd` from
-    compare_chain): kernel, plain version, a library yardstick (bf16 matmul
-    + F.batch_norm(training=True) + ReLU + amax, and autograd through them;
-    timed here, never called by the port) and the bound. Returns rows of
-    (kernel name, layer, ms, plain ms, library ms, (bound ms, by))."""
+def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
+    """Each launch of one level's (or stage's) chain at the path's own tensors
+    (`fwd` from compare_chain), walked as the chain walks them: kernel,
+    plain version, a library yardstick (bf16 matmul +
+    F.batch_norm(training=True) + ReLU [+ the residual add] + amax, and
+    autograd through them; timed here, never called by the port) and the
+    bound. Returns rows of (kernel name, layer, ms, plain ms, library ms,
+    (bound ms, by))."""
     import torch.nn.functional as F
 
     from pointcloud_tpu_torch.ops import (
@@ -1201,11 +1229,12 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level):
         chain_bwd_pass_reference,
         mm_stats,
         mm_stats_reference,
-        up_scalars,
     )
+    from pointcloud_tpu_torch.ops import preextract_fused as tpf
     from pointcloud_tpu_torch.ops.preextract_fused import EPS
 
-    ws_c, hs, scs, (out, maxv, amax, hsel) = fwd
+    saved, out = fwd
+    ws_c, hs, scs, rs, maxv, amax, hsel = saved
     (B, R, _), L, dt = x.shape, len(ws), x.dtype
     rows, groups, es = B * R, B * R // pool, x.element_size()
 
@@ -1217,68 +1246,87 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level):
         return F.batch_norm(h.reshape(rows, -1), None, None, gs[u].to(dt),
                             bs[u].to(dt), True, 0.0, EPS).reshape(h.shape)
 
+    def lib_res(res):  # the residual as the library forms it
+        if res is None:
+            return 0.0
+        return torch.relu(bn(res[0], 0)) if isinstance(res, tuple) else res
+
     out_rows = []
     for u in range(L):
         cd, cu = ws[u].shape
-        bnd = chain_bounds(rows, groups, cd, cu, es, False, bool(u))[0]
         if u:
-            args = (hs[u - 1], scs[u - 1], ws_c[u])
-            ms = cuda_ms(lambda: bnact_mm_stats(*args), iters=5)
-            plain = cuda_ms(lambda: bnact_mm_stats_reference(*args), iters=1, warmup=1)
+            res = tpf._layer_residual(u, L, residual, hs, scs, rs)
+            write_r = residual and u % 2 == 1 and (u + 1) // 2 >= 2
+            args, kw = (hs[u - 1], scs[u - 1], ws_c[u]), dict(res=res, write_r=write_r)
+            ms = cuda_ms(lambda: bnact_mm_stats(*args, **kw), iters=5)
+            plain = cuda_ms(lambda: bnact_mm_stats_reference(*args, **kw), iters=1,
+                            warmup=1)
             lib = cuda_ms(lambda: sums(torch.matmul(
-                torch.relu(bn(hs[u - 1], u - 1)), ws_c[u])), iters=2, warmup=1)
+                torch.relu(bn(hs[u - 1], u - 1) + lib_res(res)), ws_c[u])), iters=2,
+                warmup=1)
+            bnd = chain_bounds(rows, groups, cd, cu, es, False, True,
+                               res=res is not None, write_r=write_r)[0]
         else:
             ms = cuda_ms(lambda: mm_stats(x, ws_c[0]), iters=5)
             plain = cuda_ms(lambda: mm_stats_reference(x, ws_c[0]), iters=1, warmup=1)
             lib = cuda_ms(lambda: sums(torch.matmul(x, ws_c[0])), iters=2, warmup=1)
+            bnd = chain_bounds(rows, groups, cd, cu, es, False, False)[0]
         out_rows.append(("bnact_mm_stats" if u else "mm_stats", u, ms, plain, lib, bnd))
     cl = ws[-1].shape[1]
-    ms = cuda_ms(lambda: bn_pool(hs[-1], scs[-1], pen, pool), iters=5)
-    plain = cuda_ms(lambda: bn_pool_reference(hs[-1], scs[-1], pen, pool), iters=1,
-                    warmup=1)
+    pool_res = None
+    if residual:
+        pool_res = (hs[0], scs[0]) if L == 3 else rs[(L - 1) // 2 - 2]
+    pkw = dict(res=pool_res)
+    ms = cuda_ms(lambda: bn_pool(hs[-1], scs[-1], pen, pool, **pkw), iters=5)
+    plain = cuda_ms(lambda: bn_pool_reference(hs[-1], scs[-1], pen, pool, **pkw),
+                    iters=1, warmup=1)
+    pen4 = 0.0 if pen is None else pen.reshape(B, R // pool, pool, 1)
     lib = cuda_ms(lambda: torch.relu(torch.amax(
-        bn(hs[-1], L - 1).reshape(B, R // pool, pool, cl).float()
-        - pen.reshape(B, R // pool, pool, 1), dim=2)), iters=2, warmup=1)
-    out_rows.append(("bn_pool", L - 1, ms, plain, lib,
-                     chain_bounds(rows, groups, 1, cl, es, False, True)[1]))
+        (bn(hs[-1], L - 1) + lib_res(pool_res)).reshape(B, R // pool, pool, cl).float()
+        - pen4, dim=2)), iters=2, warmup=1)
+    out_rows.append(("bn_pool", L - 1, ms, plain, lib, chain_bounds(
+        rows, groups, 1, cl, es, False, True, res=residual, pen=pen is not None)[1]))
 
-    dosel = torch.randn(out.shape, device=x.device) * (maxv > 0)
-    n = rows
-    sd = dosel.sum(dim=(0, 1))
-    se = (dosel * ((hsel - scs[-1][0]) * scs[-1][3])).sum(dim=(0, 1))
-    dz = None
-    for u in range(L - 1, -1, -1):
-        cd, cu = ws[u].shape
-        uc = up_scalars(scs[u], gs[u], sd, se, n)
-        sparse = u == L - 1
-        kw = dict(dosel=dosel, amax=amax, pool=pool) if sparse else dict(dz=dz)
-        a_in, sc_down = (hs[u - 1], scs[u - 1]) if u else (x, None)
-        kw["need_dzd"] = bool(u) or need_dx
-        args = (hs[u], uc, ws_c[u], a_in, sc_down)
-        res = chain_bwd_pass(*args, **kw)
-        ms = cuda_ms(lambda: chain_bwd_pass(*args, **kw), iters=3, warmup=1)
-        plain = cuda_ms(lambda: chain_bwd_pass_reference(*args, **kw), iters=1, warmup=1)
-        # library: autograd through relu -> matmul -> batch_norm for the same
-        # cotangent, to the tensor below and to w
-        leaf = (a_in if u == 0 else torch.relu(bn(a_in, u - 1))).detach()
-        leaf.requires_grad_(kw["need_dzd"])
-        wl = ws_c[u].detach().clone().requires_grad_()
+    layer = [L]
+
+    def timed_bwd(*a, **kw):
+        """One backward pass, timed three ways; returns the kernel's result."""
+        layer[0] -= 1
+        u = layer[0]
+        h_up, _, w, a_in, sc_down = a
+        cd, cu = w.shape
+        res = chain_bwd_pass(*a, **kw)
+        ms = cuda_ms(lambda: chain_bwd_pass(*a, **kw), iters=3, warmup=1)
+        plain = cuda_ms(lambda: chain_bwd_pass_reference(*a, **kw), iters=1, warmup=1)
+        # library: autograd through relu(bn + res) -> matmul -> batch_norm for
+        # the same cotangent, to the tensor below and to w
+        need = kw.get("need_dzd", True)
+        leaf = (a_in if u == 0 else torch.relu(bn(a_in, u - 1)
+                                               + lib_res(kw.get("res")))).detach()
+        leaf.requires_grad_(need)
+        wl = w.detach().clone().requires_grad_()
         y = bn(torch.matmul(torch.relu(leaf) if u else leaf, wl), u)
+        sparse = "dosel" in kw
         if sparse:
             cot = torch.zeros((B, R // pool, pool, cu), dtype=dt, device=x.device)
-            cot.scatter_(2, amax.long()[:, :, None, :], dosel.to(dt)[:, :, None, :])
+            cot.scatter_(2, kw["amax"].long()[:, :, None, :],
+                         kw["dosel"].to(dt)[:, :, None, :])
             cot = cot.reshape(B, R, cu)
         else:
-            cot = dz
-        wrt = (leaf, wl) if kw["need_dzd"] else (wl,)
+            cot = kw["dz"]
+        wrt = (leaf, wl) if need else (wl,)
         lib = cuda_ms(lambda: torch.autograd.grad(y, wrt, cot, retain_graph=True),
                       iters=2, warmup=1)
         del y, leaf, cot
+        skip = ("pool" if "skip_pool" in kw else "dense" if "skip_dense" in kw
+                else None)
         out_rows.append(("chain_bwd_pass", u, ms, plain, lib, chain_bounds(
-            rows, groups, cd, cu, es, sparse, bool(u), kw["need_dzd"])[2]))
-        if u:
-            dz, sd, se = res[0], res[1], res[2]
-        del res
+            rows, groups, cd, cu, es, sparse, sc_down is not None, need,
+            res=kw.get("res") is not None, skip=skip)[2]))
+        return res
+
+    dout = torch.randn(out.shape, device=x.device).to(dt)
+    tpf._chain_backward(x, gs, saved, dout, pool, True, need_dx, timed_bwd, residual)
     for name, u, ms, plain, lib, bnd in out_rows:
         cd, cu = ws[u].shape
         shape = f"C={cu} pool={pool}" if name == "bn_pool" else f"{cd}->{cu}"
@@ -1621,12 +1669,12 @@ def step_parts(spec, opt, x, y):
     return [sorted(p[i] for p in parts)[1] for i in range(3)]
 
 
-def report_train(label, B, tr, want_logs, smi):
+def report_train(label, B, tr, want_logs, smi, must_fall=True):
     """Print a drive_train result; fail on a non-finite loss, on a loss that
-    does not fall, or on missing log keys. Under EMD the matching changes
-    from step to step and Adam's first updates raise the loss before it
-    falls, so single steps are noisy: falling means that the last three
-    chained steps average below the first three."""
+    does not fall (unless not `must_fall`), or on missing log keys. Under
+    EMD the matching changes from step to step and Adam's first updates
+    raise the loss before it falls, so single steps are noisy: falling means
+    that the last three chained steps average below the first three."""
     n = len(tr["losses"])
     log(f"  train step B={B}: warm-up step {tr['first_s']:.3f} s; {n} chained "
         f"steps {tr['ms']:.3f} ms/step on the host clock -> "
@@ -1640,7 +1688,7 @@ def report_train(label, B, tr, want_logs, smi):
         f"launches {tr['counts']}")
     if not all(torch.isfinite(torch.tensor(tr["losses"]))):
         raise AssertionError(f"{label}: non-finite train loss {tr['losses']}")
-    if not sum(tr["losses"][-3:]) < sum(tr["losses"][:3]):
+    if must_fall and not sum(tr["losses"][-3:]) < sum(tr["losses"][:3]):
         raise AssertionError(f"{label}: the train loss did not fall over the steps")
     if set(tr["logs"]) != want_logs:
         raise AssertionError(f"{label}: logged {sorted(tr['logs'])}")
@@ -2187,6 +2235,253 @@ def pointmlp_kernel_checks(gen, err):
         check_knn_group_grad(gen, 3, 512, 64, 24, 64, bf, False))
 
 
+MLP_TRAIN_ITERS = 5  # chained PointMLP train steps after the warm-up step
+RES = " (residual mode)"  # the err keys and `kernels` names of the residual passes
+
+
+def pointmlp_train_kernel_checks(gen, err):
+    """The residual chain's passes against their plain versions at small
+    odd shapes: Elite's mid width 16 with a pool of 24 over 144 rows (a
+    group straddles the 64-row tiles), two blocks with a pool of 24, three
+    blocks (RES_DENSE inside the stack), PointMLP's stage-4 width 1024;
+    fp32 and bf16; planted ties; then the whole preextract_pool_fused."""
+    bf, f32 = torch.bfloat16, torch.float32
+    elite = [(12, 64), (64, 16), (16, 64)]
+    two = [(10, 16)] + [(16, 16)] * 4
+    for dt in (f32, bf):
+        check_chain(gen, 2, 72, elite, 24, dt, False, True, err, residual=True, tag=RES)
+        check_chain(gen, 3, 48, two, 24, dt, False, True, err, residual=True, tag=RES)
+    check_chain(gen, 1, 96, [(6, 8)] + [(8, 8)] * 6, 4, f32, False, True, err,
+                residual=True, tag=RES)
+    check_chain(gen, 2, 24 * 8, [(2048, 1024)] + [(1024, 1024)] * 4, 24, bf, False,
+                True, err, residual=True, tag=RES)
+
+
+def pre_extraction_inputs(bb, xn):
+    """Each stage's PreExtraction input (B, G * K, D) in the activation dtype
+    and its weights, scales and offsets, from one train-mode forward of the
+    backbone `bb` without autograd (the kernels outside any counted
+    window)."""
+    got = []
+
+    def grab(module, args):
+        B, G, K, D = args[0].shape
+        dt = module.dtype or args[0].dtype
+        got.append((args[0].reshape(B, G * K, D).to(dt).contiguous(),
+                    *[[getattr(module, f"{n}{i}").detach() for i in range(module.n_layers)]
+                      for n in ("w", "scale", "offset")], K))
+
+    hooks = [getattr(bb, f"PreExtraction_{i}").register_forward_pre_hook(grab)
+             for i in range(bb.n_stages)]
+    try:
+        with torch.no_grad():
+            bb(xn, train=True)
+    finally:
+        for h in hooks:
+            h.remove()
+    return got
+
+
+def pointmlp_train_paths(seed, gen, x_raw, smi, err):
+    """The PointMLP train paths at full width with exact launch counts:
+    PointMLP with Chamfer and PointMLP-Elite with its default EMD loss at
+    B=32 (a warm-up step and MLP_TRAIN_ITERS chained steps, the step's parts,
+    a trace), every stage's residual chain held against its plain versions
+    at that batch's own inputs, and PointMLP's four stages timed beside the
+    plain versions, the library yardstick and the bounds; one train step of
+    the Segmenter on PointMLP-Elite at B=8 (counts only). Returns each
+    path's counts and the timing rows by stage."""
+    from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    xb = x_raw[:B_MLP].contiguous()
+    out = {}
+    for backbone, loss_override, loss_kernels in (
+            ("PointMLP", "chamfer", dict(nn_sweep=1, chamfer_bwd=1)),
+            ("PointMLPE", None, dict(sinkhorn=1))):
+        label = f"{backbone} train step, B={B_MLP}"
+        log(f"[PointMLP train path] make_train_step, Autoencoder / {backbone} / "
+            f"{loss_override or 'default EMD'} loss, scene Cube, B={B_MLP} x 2048 x 6, "
+            f"bf16")
+        spec = create_model("Autoencoder", backbone, "Cube", loss_override=loss_override,
+                            device=dev, seed=seed)
+        opt = make_optimizer(spec)
+        step = make_train_step(spec, opt)
+        bb = spec.model.encoder.backbone
+        layers = [getattr(bb, f"PreExtraction_{i}").n_layers for i in range(bb.n_stages)]
+        per_step = dict(fps=4, knn_group=4, scatter_rows=4, mm_stats=4,
+                        bnact_mm_stats=sum(layers) - 4, bn_pool=4,
+                        chain_bwd_pass=sum(layers), **loss_kernels)
+        tr = drive_train(step, xb, xb, MLP_TRAIN_ITERS)
+        expect_counts(f"{backbone} train path", tr["counts"],
+                      **{k: v * MLP_TRAIN_ITERS for k, v in per_step.items()})
+        # a few steps from the random init: Adam's first updates may raise
+        # the loss before it falls, so only its finiteness is required here
+        report_train(label, B_MLP, tr, set() if loss_override else
+                     {"train_loss/EMD", "train_loss/feature"}, smi, must_fall=False)
+        for name, buf in bb.named_buffers():
+            if not bool(torch.isfinite(buf).all()) or bool((buf == (
+                    1.0 if "var" in name else 0.0)).all()):
+                raise AssertionError(f"{backbone}: running statistic {name} did not move")
+        trace_steps(step, xb, xb, tr["ms"], label)
+        fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xb, xb)
+        log(f"  train step parts (median of 3, CUDA events): forward + loss "
+            f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
+        opt.zero_grad(set_to_none=True)
+        stages = pre_extraction_inputs(bb, spec.in_transform(xb)[0])
+        counts = tr["counts"]
+        del spec, opt, step, tr
+        torch.cuda.empty_cache()
+        rows = {}
+        for i in range(len(stages)):
+            x, ws, gs, bs, K = stages[i]
+            stage = f"{backbone} S{i + 1}"
+            fwd = compare_chain(gen, x, ws, gs, bs, None, K, True, err,
+                                f"{stage} of the B={B_MLP} batch", residual=True,
+                                tag=RES)
+            torch.cuda.empty_cache()
+            if backbone == "PointMLP":
+                rows[f"S{i + 1}"] = time_chain(x, ws, gs, bs, None, K, fwd, True, stage,
+                                               residual=True)
+            stages[i] = None
+            del fwd, x, ws, gs, bs
+            torch.cuda.empty_cache()
+        for name in ("mm_stats", "bnact_mm_stats", "bn_pool", "chain_bwd_pass"):
+            if not rows:
+                break
+            tot = [[sum(r[j] for r in lv if r[0] == name) for lv in rows.values()]
+                   for j in (2, 3, 4)]
+            bnd = [sum(r[5][0] for r in lv if r[0] == name) for lv in rows.values()]
+            log(f"  {name}, its {per_step[name]} launches of one step by stage (ms, "
+                f"S1 / S2 / S3 / S4): kernel {' / '.join(f'{v:.3f}' for v in tot[0])} | "
+                f"plain {' / '.join(f'{v:.3f}' for v in tot[1])} | library "
+                f"{' / '.join(f'{v:.3f}' for v in tot[2])} | bound "
+                f"{' / '.join(f'{v:.3f}' for v in bnd)}")
+        out[backbone] = {"counts": counts, "rows": rows}
+
+    log("[PointMLP Segmenter train] Segmenter / PointMLPE / EMD, B=8 x 2048, bf16: "
+        "one train step")
+    spec = create_model("Segmenter", "PointMLPE", "Cube", device=dev, seed=seed)
+    classes = len(spec.scene.classes)
+    xs = x_raw[:8].contiguous()
+    labels = torch.randint(0, classes, (8, xs.shape[1], 1), generator=gen,
+                           device=dev).float()
+    step = make_train_step(spec, make_optimizer(spec))
+    zero_counts()
+    loss, logs = step(xs, torch.cat([xs[..., :3], labels], -1))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("Segmenter / PointMLPE train step", counts, fps=4, knn_group=4,
+                  scatter_rows=4, mm_stats=4, bnact_mm_stats=10, bn_pool=4,
+                  chain_bwd_pass=14, sinkhorn=1)
+    if not bool(torch.isfinite(loss)) or len(logs) != 4:
+        raise AssertionError(f"Segmenter / PointMLPE train: loss {loss}, logs {logs}")
+    log(f"  train step: loss {float(loss):.6f}; launches {counts}")
+    del spec, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def card_vs_cpu_pointmlp_train(seed, x_raw):
+    """The fp32 PointMLP autoencoder's train step (Chamfer) on the card and on
+    the CPU from the same weights, at B=2 clouds of 512 points (at 2048 a
+    stage's 1024 x 128 pools leave some within 1e-6) whose every stage keeps
+    each centroid's 24th and 25th distances 1e-5 apart (relative) and every
+    PreExtraction pool its best row 1e-6 above its runner-up (measured on
+    the CPU's plain chain): FPS and kNN indices equal at every stage; the
+    first loss 1e-5 relative; the first-step gradients within 2e-2 of the
+    model's largest entry and the first update as
+    tests/test_torch_pointmlp_train_slice.py holds it: every entry within 2
+    lr, 1e-3 relative wherever the gradient is above 1% of its tensor's
+    largest entry and 3e-2 of the model's (the final max over a stage-4
+    channel's groups has gaps below the two devices' forward difference, so
+    a few channels route their gradient to another group)."""
+    import copy
+    import dataclasses
+
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.ops import farthest_point_sample, knn_group
+    from pointcloud_tpu_torch.ops import preextract_fused as tpf
+    from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+
+    cfg.precision = "fp32"
+    try:
+        cpu = create_model("Autoencoder", "PointMLP", "Cube", loss_override="chamfer",
+                           device="cpu", seed=seed)
+    finally:
+        cfg.precision = "bf16-mixed"
+    init = copy.deepcopy(cpu.model)
+    gaps, plain_pool = [], tpf.bn_pool_reference
+
+    def recording_pool(h, sc, pen, pool, final_relu=True, res=None):
+        v = tpf._with_residual(tpf._bn_pre(h, sc), res).reshape(
+            h.shape[0], -1, pool, h.shape[2])
+        best = v.amax(dim=2, keepdim=True)
+        second = torch.where(v < best, v, -torch.inf).amax(dim=2, keepdim=True)
+        gaps.append(float((best - second).min()))
+        return plain_pool(h, sc, pen, pool, final_relu, res)
+
+    plain = tpf._PLAIN
+    tpf._PLAIN = (*plain[:2], recording_pool)
+    try:
+        for start in range(0, 16, 2):
+            xs = x_raw[start:start + 2, :512].contiguous()
+            margin = knn_margins(cpu.in_transform(xs.cpu())[0][..., :3])
+            gaps.clear()
+            with torch.no_grad():
+                copy.deepcopy(init)(cpu.in_transform(xs.cpu())[0], train=True)
+            if margin > 1e-5 and min(gaps) > 1e-6:
+                break
+        else:
+            raise AssertionError("no pair of clouds keeps its kNN sets 1e-5 apart and "
+                                 "its pools 1e-6 apart")
+    finally:
+        tpf._PLAIN = plain
+    pool_gap = min(gaps)
+    specs = [dataclasses.replace(cpu, model=copy.deepcopy(init).cuda()),
+             dataclasses.replace(cpu, model=copy.deepcopy(init))]
+    idx = []
+    for sp, d in zip(specs, ("cuda", "cpu")):
+        got = []
+        for xyz, feats, new_xyz in pointmlp_stage_inputs(
+                sp.model.encoder.backbone, sp.in_transform(xs.to(d))[0]):
+            got.append(farthest_point_sample(xyz, new_xyz.shape[1]))
+            got.append(knn_group(xyz, feats, new_xyz, None, K_MLP)[2])
+        idx.append(got)
+    if len(idx[0]) != 8 or not all(torch.equal(a.cpu(), b) for a, b in zip(*idx)):
+        raise AssertionError("PointMLP FPS or kNN indices differ, card vs CPU")
+    res = []
+    for sp, d in zip(specs, ("cuda", "cpu")):
+        before = {k: p.detach().cpu().clone() for k, p in sp.model.named_parameters()}
+        loss, _ = make_train_step(sp, make_optimizer(sp))(xs.to(d), xs.to(d))
+        res.append((float(loss), {k: p.grad.detach().cpu() for k, p in
+                                  sp.model.named_parameters()},
+                    {k: p.detach().cpu() - before[k] for k, p in
+                     sp.model.named_parameters()}))
+    (l_gpu, g_gpu, u_gpu), (l_cpu, g_cpu, u_cpu) = res
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    worst_g = max(float((g_gpu[k] - g).abs().max()) for k, g in g_cpu.items()) / top
+    worst_u, n_sig = 0.0, 0
+    for k, g in g_cpu.items():
+        du = (u_gpu[k] - u_cpu[k]).abs()
+        sig = (g.abs() > 1e-2 * g.abs().max()) & (g.abs() > 3e-2 * top)
+        n_sig += int(sig.sum())
+        # 2 lr plus the parameters' fp32 roundings
+        if float(du.max()) > 2 * cfg.vision_lr + 1e-6 or bool(
+                (du[sig] > 1e-3 * u_cpu[k].abs()[sig]).any()):
+            raise AssertionError(f"PointMLP card vs CPU first update of {k} differs")
+        if bool(sig.any()):
+            worst_u = max(worst_u, float((du[sig] / u_cpu[k].abs()[sig]).max()))
+    log(f"  PointMLP fp32 train step, card vs CPU, B=2 (clouds {start}, {start + 1}: "
+        f"kNN margin {margin:.2e}, pool gap {pool_gap:.2e}): FPS and kNN indices equal "
+        f"at all 4 stages; first loss {l_gpu:.7f} vs {l_cpu:.7f}; gradients max err "
+        f"{worst_g:.2e} of the largest entry; first update {worst_u:.2e} rel on the "
+        f"{n_sig} entries above the noise")
+    if abs(l_gpu - l_cpu) > 1e-5 * l_cpu or worst_g > 2e-2 or n_sig == 0:
+        raise AssertionError("fp32 PointMLP train step on the card disagrees with the "
+                             "CPU")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2626,6 +2921,14 @@ def main(argv=None) -> int:
     log("[card vs CPU, PointMLP]")
     card_vs_cpu_pointmlp(args.seed, x_raw, mlp.pop("spec"))
 
+    # ---- 11. the PointMLP train paths ----
+    log("[PointMLP train: the residual chain vs its plain versions]")
+    gen_mlpt = torch.Generator(device=dev).manual_seed(args.seed + 4)
+    pointmlp_train_kernel_checks(gen_mlpt, err)
+    mlpt = pointmlp_train_paths(args.seed, gen_mlpt, x_raw, smi, err)
+    log("[card vs CPU, PointMLP train]")
+    card_vs_cpu_pointmlp_train(args.seed, x_raw)
+
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""
         _, _, ms, plain, lib, bnd = next(
@@ -2633,6 +2936,15 @@ def main(argv=None) -> int:
         return entry(name, "mlp_chain.cu",
                      f"pointcloud_tpu/ops/preextract_fused.py:{line}",
                      pn2t["counts"][name], ms, plain, bnd, lib)
+
+    def residual_entry(name, line, layer):
+        """The residual pass at PointMLP's stage 1 (the most rows) on the
+        given layer; launches of the PointMLP train path's counted steps."""
+        _, _, ms, plain, lib, bnd = next(
+            r for r in mlpt["PointMLP"]["rows"]["S1"] if r[0] == name and r[1] == layer)
+        return entry(name + RES, "mlp_chain.cu",
+                     f"pointcloud_tpu/ops/preextract_fused.py:{line}",
+                     mlpt["PointMLP"]["counts"][name], ms, plain, bnd, lib)
 
     def entry(name, source, replaces, launches, ms, plain_ms, bnd, library_ms):
         return {"name": name, "route": "cuda",
@@ -2673,6 +2985,11 @@ def main(argv=None) -> int:
               mlp["PointMLP"]["knn_group"], mlp[("PointMLP", 1)][0],
               mlp[("PointMLP", 1)][1], mlp[("PointMLP", 1)][3],
               mlp[("PointMLP", 1)][2]),
+        # the residual chain: layer 3 adds relu(BN0(h0)) and stores r_1, the
+        # pool adds r_1, layer 3's backward pass takes the pooled skip share
+        residual_entry("bnact_mm_stats", 161, 3),
+        residual_entry("bn_pool", 221, 4),
+        residual_entry("chain_bwd_pass", 292, 3),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -84,6 +84,19 @@ def update_running_stats(module: nn.Module, mean, var):
         module.var.copy_(MOMENTUM * module.var + (1.0 - MOMENTUM) * var)
 
 
+def update_chain_stats(module: nn.Module, stats, n: int):
+    """The running-average update of a fused chain's layers (mean{i},
+    var{i} of `module`) from the batch's per-layer column sums (ssum, ssq)
+    over n rows: 0.9 old + 0.1 new, biased variance clamped at 0, in place
+    and outside autograd."""
+    with torch.no_grad():
+        for i, (ss, sq) in enumerate(stats):
+            mean = ss / n
+            var = torch.clamp(sq / n - mean * mean, min=0.0)
+            getattr(module, f"mean{i}").mul_(0.9).add_(mean, alpha=0.1)
+            getattr(module, f"var{i}").mul_(0.9).add_(var, alpha=0.1)
+
+
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm(use_running_average=not train, momentum=0.9,
     epsilon=1e-5) over the last axis: fp32 normalisation, result cast to

@@ -1,22 +1,27 @@
-"""PointMLP encoder (port of pointcloud_tpu/models/pointmlp.py), eval mode.
+"""PointMLP encoder (port of pointcloud_tpu/models/pointmlp.py), eval and
+train.
 
 Residual point MLP: a per-point embedding, then 4 stages of
 {LocalGrouper (FPS + kNN + learnable affine normalisation), PreExtraction
 (a shared residual MLP over each neighbourhood, max-pooled), PosExtraction
 (a residual MLP over the groups)}, finished by a global max-pool. FPS and the
-kNN grouping are the port's CUDA kernels (ops/fps.py, ops/knn_group.py);
-everything else is plain PyTorch, as the JAX package leaves it to XLA in
-eval. Only xyz drives the backbone: extra input dims are sliced off.
+kNN grouping are the port's CUDA kernels (ops/fps.py, ops/knn_group.py). In
+train mode PreExtraction runs the fused residual chain
+(`preextract_pool_fused`, ops/preextract_fused.py: CUDA kernels on the card,
+the plain chain on the CPU); everything else is plain PyTorch, as the JAX
+package leaves it to XLA (and to flax's BatchNorm in train mode). Only xyz
+drives the backbone: extra input dims are sliced off.
+
+In train mode the JAX package takes its fused chain only on a TPU above 1e7
+grouped elements (pointmlp.py:223-229), a threshold measured there. Here the
+device decides: CUDA tensors always run the kernels, CPU tensors the plain
+chain.
 
 `PointMLP` (embed 64, res_expansion 1.0, encoding 1024) and `PointMLPElite`
 (embed 32, res_expansion 0.25, encoding 256) are the JAX package's two
 configurations. Child modules carry the flax names (`DenseBNAct_0`,
 `LocalGrouper_0`, `PreExtraction_0`, `PosExtraction_0`, ...), so a
 state_dict key is the flax path of the same variable (interop.py).
-
-Train mode is not ported yet: its PreExtraction runs the residual mode of
-the fused chain kernels (ROADMAP Queue 1 item 11b), and a train-mode forward
-raises rather than fall back to plain PyTorch.
 """
 
 from __future__ import annotations
@@ -26,41 +31,23 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pointcloud_tpu_torch.models.layers import BatchNorm, Dense, lecun_normal_
+from pointcloud_tpu_torch.models.layers import (
+    BatchNorm,
+    Dense,
+    lecun_normal_,
+    update_chain_stats,
+)
 from pointcloud_tpu_torch.models.pointnet import check_train_mask_contract
 from pointcloud_tpu_torch.ops.fps import farthest_point_sample
 from pointcloud_tpu_torch.ops.geometry import group_neighbors, index_points
+from pointcloud_tpu_torch.ops.preextract_fused import (
+    RES_BNRELU,
+    RES_DENSE,
+    layer_res_cfg,
+    preextract_pool_fused,
+)
 
 EPS = 1e-5  # BatchNorm epsilon of PreExtraction's own layers
-RES_NONE, RES_BNRELU, RES_DENSE = 0, 1, 2
-
-
-def _train_not_ported():
-    raise NotImplementedError(
-        "PointMLP train mode is not ported yet: its PreExtraction runs the "
-        "residual mode of the fused chain kernels (ROADMAP Queue 1 item 11b, "
-        "Queue 2 #10); eval and encode are ported")
-
-
-def layer_res_cfg(u: int, L: int, residual: bool = True):
-    """Residual structure of layer u's input a_in(u) = relu(pre_{u-1}) (the
-    port's copy of pointcloud_tpu/ops/preextract_fused.py:_layer_res_cfg).
-
-    Returns (res_mode, aux): aux is None, 'h0' (RES_BNRELU source) or a
-    1-based index into the stored residuals (RES_DENSE). Layer layout: 0 =
-    embed, odd = block expand, even > 0 = block project; block j's input is
-    relu(BN0(h0)) for j = 1 and r_{j-1} for j > 1, with r_j =
-    relu(BN(h_proj_j) + input of block j).
-    """
-    del L  # the layout does not depend on the depth
-    if residual and u % 2 == 1:
-        j = (u + 1) // 2
-        if j == 1:
-            return RES_NONE, None
-        if j == 2:
-            return RES_BNRELU, "h0"
-        return RES_DENSE, j - 2
-    return RES_NONE, None
 
 
 class DenseBNAct(nn.Module):
@@ -224,13 +211,13 @@ class PreExtraction(nn.Module):
             getattr(self, f"offset{i}"))
 
     def forward(self, x, train: bool = False):
-        if train:
-            _train_not_ported()
         if self.use_bias:
-            h = self.DenseBNAct_0(x)
+            h = self.DenseBNAct_0(x, train=train)
             for i in range(self.blocks):
-                h = getattr(self, f"ResBlock_{i}")(h)
+                h = getattr(self, f"ResBlock_{i}")(h, train=train)
             return torch.amax(h, dim=2)
+        if train:
+            return self._forward_train(x)
 
         B, G, K, D = x.shape
         dt = self.dtype or x.dtype
@@ -256,6 +243,19 @@ class PreExtraction(nn.Module):
             pre = pre + rs[self.blocks - 2].float()
         C = pre.shape[-1]
         return torch.relu(torch.amax(pre.reshape(B, G, K, C), dim=2)).to(dt)
+
+    def _forward_train(self, x):
+        """The stack on the batch statistics through `preextract_pool_fused`,
+        then the running-statistics update."""
+        B, G, K, D = x.shape
+        dt = self.dtype or x.dtype
+        ws, scales, offsets = (
+            [getattr(self, f"{name}{i}") for i in range(self.n_layers)]
+            for name in ("w", "scale", "offset"))
+        out, stats = preextract_pool_fused(x.reshape(B, G * K, D).to(dt), ws,
+                                           scales, offsets, K)
+        update_chain_stats(self, stats, B * G * K)
+        return out
 
 
 class PosExtraction(nn.Module):
@@ -316,17 +316,15 @@ class PointMLPModel(nn.Module):
 
     def forward(self, x, train: bool = False, mask=None):
         check_train_mask_contract(train, mask)
-        if train:
-            _train_not_ported()
         xyz = x[..., :3].float().contiguous()
-        feats = self.DenseBNAct_0(x[..., :3])
+        feats = self.DenseBNAct_0(x[..., :3], train=train)
         anchor_points = xyz.shape[1]
         for i in range(self.n_stages):
             anchor_points //= self.reducers[i]
             xyz, grouped, mask = getattr(self, f"LocalGrouper_{i}")(
                 xyz, feats, anchor_points, mask=mask)
-            feats = getattr(self, f"PreExtraction_{i}")(grouped)
-            feats = getattr(self, f"PosExtraction_{i}")(feats)
+            feats = getattr(self, f"PreExtraction_{i}")(grouped, train=train)
+            feats = getattr(self, f"PosExtraction_{i}")(feats, train=train)
         return torch.amax(feats, dim=1)  # no mask, as in the JAX package
 
 

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointcloud_tpu_torch.models.layers import lecun_normal_
+from pointcloud_tpu_torch.models.layers import lecun_normal_, update_chain_stats
 from pointcloud_tpu_torch.models.pointnet import check_train_mask_contract
 from pointcloud_tpu_torch.ops.geometry import sample_and_group, sample_and_group_all
 from pointcloud_tpu_torch.ops.preextract_fused import mlp_pool_fused
@@ -109,13 +109,7 @@ class SetAbstraction(nn.Module):
             for name in ("w", "scale", "offset"))
         out, stats = mlp_pool_fused(grouped.reshape(B, S * K, cin).to(dt), ws,
                                     scales, offsets, pen, K)
-        n = B * S * K
-        with torch.no_grad():
-            for i, (ss, sq) in enumerate(stats):
-                mean = ss / n
-                var = torch.clamp(sq / n - mean * mean, min=0.0)
-                getattr(self, f"mean{i}").mul_(0.9).add_(mean, alpha=0.1)
-                getattr(self, f"var{i}").mul_(0.9).add_(var, alpha=0.1)
+        update_chain_stats(self, stats, B * S * K)
         return out.to(dt)
 
     def forward(self, xyz, features, train: bool = False, mask=None):

@@ -1,7 +1,8 @@
 """Point-cloud ops: pairwise distances, Chamfer distance and its kernels (the
 nearest-neighbour sweep, the fused backward, the segment-sum), the fused
 Dense -> BatchNorm-statistics -> max-pool kernels, the fused
-Dense-BatchNorm-ReLU chain with its group max-pool, farthest-point sampling,
+Dense-BatchNorm-ReLU chain with its group max-pool (plain and residual),
+farthest-point sampling,
 the ball and kNN groupings, and Earth Mover's Distance matching with its
 Sinkhorn kernel."""
 
@@ -65,6 +66,9 @@ from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
     mlp_pool_reference,
     mm_stats,
     mm_stats_reference,
+    preextract_pool_bwd_reference,
+    preextract_pool_fused,
+    preextract_pool_reference,
     up_scalars,
 )
 from pointcloud_tpu_torch.ops.scatter_rows import (  # noqa: F401

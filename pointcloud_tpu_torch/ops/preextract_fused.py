@@ -1,26 +1,31 @@
-"""The fused Dense -> BatchNorm -> ReLU chain with a masked group max-pool
-(the set-abstraction body), forward and backward: CUDA kernels, plain
-versions, wrappers.
+"""The fused Dense -> BatchNorm -> ReLU chain with a group max-pool, forward
+and backward: CUDA kernels, plain versions, wrappers.
 
-Port of pointcloud_tpu/ops/preextract_fused.py in its plain-chain mode
-(`mlp_pool_fused`, `mlp_pool_reference` and the Pallas kernels
-`_mm_stats_kernel`, `_bnact_mm_stats_kernel`, `_bn_respool_kernel`,
-`_bwd_pass_kernel`). The kernels are csrc/mlp_chain.cu; its note states the
-design and the bound. The residual mode (`preextract_pool_fused`, PointMLP's
-PreExtraction) is not ported yet.
+Port of pointcloud_tpu/ops/preextract_fused.py in both of its modes: the
+plain chain with a masked pool (`mlp_pool_fused`, `mlp_pool_reference`: the
+set-abstraction body) and the residual chain (`preextract_pool_fused`,
+`preextract_pool_reference`: PointMLP's PreExtraction), through the Pallas
+kernels `_mm_stats_kernel`, `_bnact_mm_stats_kernel`, `_bn_respool_kernel`
+and `_bwd_pass_kernel`. The kernels are csrc/mlp_chain.cu; its note states
+the design and the bound.
 
 Each pass has a wrapper (`mm_stats`, `bnact_mm_stats`, `bn_pool`,
 `chain_bwd_pass`) that launches its kernel for CUDA tensors and takes its
 plain version (`*_reference`) only for CPU tensors, and a launch counter
-(`<wrapper>.launches`). `mlp_pool_fused` chains them: on CUDA tensors it is a
-`torch.autograd.Function` whose backward runs `chain_bwd_pass` once per
-layer; on CPU tensors it is `mlp_pool_reference`, differentiated by
-autograd. `mlp_pool_bwd_reference` is the explicit backward out of the plain
+(`<wrapper>.launches`). `mlp_pool_fused` and `preextract_pool_fused` chain
+them: on CUDA tensors a `torch.autograd.Function` whose backward runs
+`chain_bwd_pass` once per layer; on CPU tensors the plain chain,
+differentiated by autograd. `mlp_pool_bwd_reference` and
+`preextract_pool_bwd_reference` are the explicit backwards out of the plain
 passes, with the kernels' rounding points.
 
 Scalars travel as (4, C) fp32 rows. For a BatchNorm (`affine_scalars`): mean,
 mul = gamma * rsig, beta, rsig. For a backward pass (`up_scalars`): c1, c4,
 c3, mean.
+
+A residual (`res=`) joins a pre-activation of the same shape: (h0, sc0) adds
+relu(BN0(h0)) (RES_BNRELU), a tensor r adds r itself (RES_DENSE); the layout
+of the residual chain is `layer_res_cfg`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,29 @@ _TILE_ROWS = 64
 _MAX_CHUNKS = 2048  # row chunks of the forward and da launches (gridDim.y)
 _DW_BLOCKS = 528  # blocks a dw launch aims for (4 per SM)
 _MAX_ROWS = 2**31 - 1
+RES_NONE, RES_BNRELU, RES_DENSE = 0, 1, 2
+
+
+def layer_res_cfg(u: int, L: int, residual: bool = True):
+    """Residual structure of layer u's input a_in(u) = relu(pre_{u-1}) (the
+    port's copy of pointcloud_tpu/ops/preextract_fused.py:_layer_res_cfg).
+
+    Returns (res_mode, aux): aux is None, 'h0' (RES_BNRELU source) or a
+    1-based index into the stored residuals (RES_DENSE). Layer layout: 0 =
+    embed, odd = block expand, even > 0 = block project; block j's input is
+    relu(BN0(h0)) for j = 1 and r_{j-1} for j > 1, with r_j =
+    relu(BN(h_proj_j) + input of block j). residual=False (the plain chain):
+    every layer's input is relu(BN(h_{u-1})).
+    """
+    del L  # the layout does not depend on the depth
+    if residual and u % 2 == 1:
+        j = (u + 1) // 2
+        if j == 1:
+            return RES_NONE, None
+        if j == 2:
+            return RES_BNRELU, "h0"
+        return RES_DENSE, j - 2
+    return RES_NONE, None
 
 
 # ---------------------------------------------------------------------------
@@ -71,6 +99,16 @@ def _relu(v):
     return torch.where(v > 0, v, 0.0)  # its gradient is exactly 1[v > 0]
 
 
+def _with_residual(pre, res):
+    """pre + relu(BN0(h0)) for res = (h0, sc0), pre + r for a tensor r, or
+    pre itself for None; fp32."""
+    if res is None:
+        return pre
+    if isinstance(res, tuple):
+        return pre + _relu(_bn_pre(*res))
+    return pre + res.float()
+
+
 # ---------------------------------------------------------------------------
 # plain versions of the four passes
 # ---------------------------------------------------------------------------
@@ -83,25 +121,30 @@ def mm_stats_reference(x, w):
     return h, hf.sum(dim=(0, 1)), (hf * hf).sum(dim=(0, 1))
 
 
-def bnact_mm_stats_reference(h_in, sc, w):
+def bnact_mm_stats_reference(h_in, sc, w, res=None, write_r=False):
     """Plain version of `bnact_mm_stats`."""
-    a = _relu(_bn_pre(h_in, sc)).to(h_in.dtype)
-    return mm_stats_reference(a, w)
+    a = _relu(_with_residual(_bn_pre(h_in, sc), res)).to(h_in.dtype)
+    out = mm_stats_reference(a, w)
+    return (*out, a) if write_r else out
 
 
-def bn_pool_reference(h, sc, pen, pool: int, final_relu: bool = True):
+def bn_pool_reference(h, sc, pen, pool: int, final_relu: bool = True, res=None):
     """Plain version of `bn_pool`. The pool goes through argmax (first
     occurrence) and take_along_dim, so autograd sends each pooled gradient
     to one row."""
     B, R, C = h.shape
     hf = h.float()
-    v = (_bn_pre(h, sc) - pen[..., None]).reshape(B, R // pool, pool, C)
+    v = _with_residual(_bn_pre(h, sc), res)
+    if pen is not None:
+        v = v - pen[..., None]
+    v = v.reshape(B, R // pool, pool, C)
     am = torch.argmax(v, dim=2, keepdim=True)
     mx = torch.take_along_dim(v, am, dim=2)[:, :, 0]
     hsel = torch.take_along_dim(hf.reshape(B, R // pool, pool, C), am, dim=2)[:, :, 0]
     out = _relu(mx) if final_relu else mx
-    out = torch.where(mx < 0.5 * _SENT, _SENT, out).to(h.dtype)
-    return out, mx, am[:, :, 0].int(), hsel
+    if pen is not None:
+        out = torch.where(mx < 0.5 * _SENT, _SENT, out)
+    return out.to(h.dtype), mx, am[:, :, 0].int(), hsel
 
 
 def _dense_dz(dosel, amax, pool: int):
@@ -114,10 +157,12 @@ def _dense_dz(dosel, amax, pool: int):
 
 def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
                              dosel=None, amax=None, pool: int = 1,
-                             need_dzd: bool = True):
+                             need_dzd: bool = True, res=None, skip_pool=None,
+                             skip_dense=None):
     """Plain version of `chain_bwd_pass`, with its rounding points: dh and
-    dzd rounded to the activation dtype, Sd and Se summed from the rounded
-    dzd, every product accumulated in fp32."""
+    dzd rounded to the activation dtype, the skip shares added to da in
+    fp32 (pool share first), Sd and Se summed from the rounded dzd, every
+    product accumulated in fp32."""
     dt = h_up.dtype
     Cd, Cu = w.shape
     dzf = _dense_dz(dosel, amax, pool) if dz is None else dz.float()
@@ -127,7 +172,11 @@ def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
     sd = se = dzd = None
     if sc_down is not None:
         hdf = a_in.float()
-        pre = _bn_pre(a_in, sc_down)
+        pre = _with_residual(_bn_pre(a_in, sc_down), res)
+        if skip_pool is not None:
+            da = da + _dense_dz(*skip_pool, pool)
+        if skip_dense is not None:
+            da = da + skip_dense.float()
         a_up = _relu(pre).to(dt).float()
         dzd = torch.where(pre > 0, da, 0.0).to(dt)
         dzdf = dzd.float()
@@ -148,15 +197,13 @@ def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
 @functools.cache
 def _launchers():
     lib = _build.load("mlp_chain")
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     mm = lib.mlp_mm_stats_launch
-    mm.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    mm.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
     pool = lib.mlp_bn_pool_launch
-    pool.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    pool.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
     bwd = lib.mlp_bwd_pass_launch
-    bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    bwd.argtypes = [vp] * 8 + [i32] + [vp] * 10 + [i64] + [i32] * 6 + [vp]
     for fn in (mm, pool, bwd):
         fn.restype = ctypes.c_int
     return mm, pool, bwd
@@ -197,6 +244,7 @@ def _device_of(name, *tensors):
 def _check_kernel(name, acts, f32s=(), i32s=()):
     """The kernels take contiguous tensors: activations and weights all fp32
     or all bf16, scalars and cotangents fp32, indices int32."""
+    acts, f32s, i32s = ([t for t in ts if t is not None] for ts in (acts, f32s, i32s))
     dt = acts[0].dtype
     if dt not in (torch.float32, torch.bfloat16) or any(t.dtype != dt for t in acts):
         raise TypeError(f"{name} kernel takes activations and weights all fp32 "
@@ -223,23 +271,49 @@ def _check_product(name, x, w, sc):
                          f"{tuple(sc.shape)}")
 
 
-def _mm_stats_kernel(x, sc, w):
+def _res_parts(res):
+    """(mode, source tensor, its scalars) of a residual argument."""
+    if res is None:
+        return RES_NONE, None, None
+    if isinstance(res, tuple):
+        return RES_BNRELU, res[0], res[1]
+    return RES_DENSE, res, None
+
+
+def _check_residual(name, res, like):
+    """A residual joins the pre-activation of `like` (B, R, C): h0 or r of
+    that shape, h0's scalars (>= 3, C)."""
+    _, src, sc = _res_parts(res)
+    if src is not None and src.shape != like.shape:
+        raise ValueError(f"{name}: the residual must be {tuple(like.shape)}; got "
+                         f"{tuple(src.shape)}")
+    if sc is not None and (sc.dim() != 2 or sc.shape[0] < 3
+                           or sc.shape[1] != like.shape[2]):
+        raise ValueError(f"{name}: the residual's scalars must be (4, "
+                         f"{like.shape[2]}); got {tuple(sc.shape)}")
+    return src, sc
+
+
+def _mm_stats_kernel(x, sc, w, res=None, write_r=False):
     B, R, Cd = x.shape
     Cu = w.shape[1]
     rows = B * R
     chunk = _chunk_rows(rows)
+    mode, src, rsc = _res_parts(res)
     h = torch.empty((B, R, Cu), dtype=x.dtype, device=x.device)
+    r = torch.empty_like(x) if write_r else None
     stats = torch.empty((2, Cu), dtype=torch.float32, device=x.device)
     part = torch.empty((-(-rows // chunk), 2, Cu), dtype=torch.float32,
                        device=x.device)
     launch, _, _ = _launchers()
     with torch.cuda.device(x.device):
-        err = launch(_ptr(x), _ptr(sc), _ptr(w), _ptr(h), _ptr(stats), _ptr(part),
-                     rows, Cd, Cu, chunk, int(x.dtype == torch.bfloat16),
+        err = launch(_ptr(x), _ptr(sc), mode, _ptr(src), _ptr(rsc), _ptr(w),
+                     _ptr(h), _ptr(r), _ptr(stats), _ptr(part), rows, Cd, Cu,
+                     chunk, int(x.dtype == torch.bfloat16),
                      torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlp_chain product kernel launch failed: CUDA error {err}")
-    return h, stats[0], stats[1]
+    return (h, stats[0], stats[1]) + ((r,) if write_r else ())
 
 
 def mm_stats(x, w):
@@ -262,17 +336,21 @@ def mm_stats(x, w):
 mm_stats.launches = 0
 
 
-def bnact_mm_stats(h_in, sc, w):
-    """a = dtype(relu((h_in - mean) * mul + beta)) from the scalars sc (4, Cd)
-    of `affine_scalars`, then `mm_stats(a, w)`; `a` is never stored.
+def bnact_mm_stats(h_in, sc, w, res=None, write_r=False):
+    """a = dtype(relu((h_in - mean) * mul + beta [+ res])) from the scalars
+    sc (4, Cd) of `affine_scalars`, then `mm_stats(a, w)`. `res` is None,
+    (h0, sc0) (adds relu(BN0(h0)), h0 of h_in's shape) or a stored r of
+    h_in's shape (adds r). `a` is stored only with write_r, and returned
+    last: (h, ssum, ssq[, a]).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (`bnact_mm_stats.launches` counts); anything else raises."""
     _check_product("bnact_mm_stats", h_in, w, sc)
-    if _device_of("bnact_mm_stats", h_in, sc, w).type == "cpu":
-        return bnact_mm_stats_reference(h_in, sc, w)
-    _check_kernel("bnact_mm_stats", (h_in, w), (sc,))
-    out = _mm_stats_kernel(h_in, sc, w)
+    src, rsc = _check_residual("bnact_mm_stats", res, h_in)
+    if _device_of("bnact_mm_stats", h_in, sc, w, src, rsc).type == "cpu":
+        return bnact_mm_stats_reference(h_in, sc, w, res, write_r)
+    _check_kernel("bnact_mm_stats", (h_in, w, src), (sc, rsc))
+    out = _mm_stats_kernel(h_in, sc, w, res, write_r)
     bnact_mm_stats.launches += 1
     return out
 
@@ -280,40 +358,43 @@ def bnact_mm_stats(h_in, sc, w):
 bnact_mm_stats.launches = 0
 
 
-def bn_pool(h, sc, pen, pool: int, final_relu: bool = True):
-    """The pool pass: v = (h - mean) * mul + beta - pen in fp32, and per
-    group of `pool` consecutive rows its max with the lowest row winning
-    ties.
+def bn_pool(h, sc, pen, pool: int, final_relu: bool = True, res=None):
+    """The pool pass: v = (h - mean) * mul + beta [+ res] [- pen] in fp32,
+    and per group of `pool` consecutive rows its max with the lowest row
+    winning ties.
 
-    h (B, R, C), sc (4, C) from `affine_scalars`, pen (B, R) fp32 (+1e9 on
-    rows kept out of the pool). Returns out (B, R/pool, C) in h.dtype
-    (relu(max), or the max itself without final_relu; -1e9 for a group
-    without a valid row), maxv fp32, amax int32 (row within the group) and
-    hsel fp32 (h at that row). CPU tensors take the plain version; CUDA
+    h (B, R, C), sc (4, C) from `affine_scalars`, res as `bnact_mm_stats`'s
+    (of h's shape), pen (B, R) fp32 (+1e9 on rows kept out of the pool) or
+    None (no mask: the residual chain). Returns out (B, R/pool, C) in h.dtype
+    (relu(max), or the max itself without final_relu; with pen, -1e9 for a
+    group without a valid row), maxv fp32, amax int32 (row within the group)
+    and hsel fp32 (h at that row). CPU tensors take the plain version; CUDA
     tensors launch the kernel (`bn_pool.launches` counts); anything else
     raises."""
     if h.dim() != 3 or sc.dim() != 2 or sc.shape[0] < 3 or sc.shape[1] != h.shape[2] \
-            or pen.shape != h.shape[:2]:
-        raise ValueError(f"bn_pool takes h (B, R, C), sc (4, C) and pen (B, R); "
-                         f"got {tuple(h.shape)}, {tuple(sc.shape)}, "
-                         f"{tuple(pen.shape)}")
+            or (pen is not None and pen.shape != h.shape[:2]):
+        raise ValueError(f"bn_pool takes h (B, R, C), sc (4, C) and pen (B, R) or "
+                         f"None; got {tuple(h.shape)}, {tuple(sc.shape)}, "
+                         f"{None if pen is None else tuple(pen.shape)}")
     B, R, C = h.shape
     if pool < 1 or R % pool:
         raise ValueError(f"pool must divide R = {R}; got {pool}")
-    device = _device_of("bn_pool", h, sc, pen)
+    src, rsc = _check_residual("bn_pool", res, h)
+    device = _device_of("bn_pool", h, sc, pen, src, rsc)
     if device.type == "cpu":
-        return bn_pool_reference(h, sc, pen, pool, final_relu)
-    _check_kernel("bn_pool", (h,), (sc, pen))
+        return bn_pool_reference(h, sc, pen, pool, final_relu, res)
+    _check_kernel("bn_pool", (h, src), (sc, pen, rsc))
     G = R // pool
     out = torch.empty((B, G, C), dtype=h.dtype, device=device)
     maxv = torch.empty((B, G, C), dtype=torch.float32, device=device)
     amax = torch.empty((B, G, C), dtype=torch.int32, device=device)
     hsel = torch.empty((B, G, C), dtype=torch.float32, device=device)
+    mode = _res_parts(res)[0]
     _, launch, _ = _launchers()
     with torch.cuda.device(device):
-        err = launch(_ptr(h), _ptr(sc), _ptr(pen), _ptr(out), _ptr(maxv),
-                     _ptr(amax), _ptr(hsel), B * G, C, pool, int(final_relu),
-                     int(h.dtype == torch.bfloat16),
+        err = launch(_ptr(h), _ptr(sc), mode, _ptr(src), _ptr(rsc), _ptr(pen),
+                     _ptr(out), _ptr(maxv), _ptr(amax), _ptr(hsel), B * G, C,
+                     pool, int(final_relu), int(h.dtype == torch.bfloat16),
                      torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bn_pool kernel launch failed: CUDA error {err}")
@@ -325,7 +406,8 @@ bn_pool.launches = 0
 
 
 def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
-                   amax=None, pool: int = 1, need_dzd: bool = True):
+                   amax=None, pool: int = 1, need_dzd: bool = True, res=None,
+                   skip_pool=None, skip_dense=None):
     """One backward pass of the chain, for the layer h_up = a @ w.
 
     h_up (B, R, Cu): the layer's stored output; uc (4, Cu): `up_scalars`;
@@ -334,9 +416,13 @@ def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
     None. The layer's cotangent is dz (B, R, Cu) or, at the pooled layer,
     dosel (B, R/pool, Cu) fp32 at row amax (int32) of each group of `pool`
     rows. With dh = dtype(c1 dz - c4 - c3 (h_up - mean)) and da = dh @ w^T:
-      below a BatchNorm: dzd = dtype(da * 1[pre > 0]) and the fp32 column
-        sums sd = sum dzd, se = sum dzd * zhat of the layer below, and
-        dw = dtype(relu(pre))^T @ dh;
+      below a BatchNorm: pre = BN(h_{u-1}) [+ res] (res as
+        `bnact_mm_stats`', of a_in's shape); da += the skip shares of a
+        block's input, skip_pool = (dosel', amax') (B, R/pool, Cd) at those
+        rows of each group, then skip_dense (B, R, Cd); dzd = dtype(da *
+        1[pre > 0]) and the fp32 column sums sd = sum dzd, se = sum dzd *
+        zhat of the layer below, and dw = dtype(relu(pre))^T @ dh. The
+        residual and the skip shares come with a dense dz only;
       at the input: dzd = dtype(da), the gradient of a_in (None when
         need_dzd is False), sd = se = None, dw = a_in^T @ dh.
     Returns (dzd, sd, se, dw (Cd, Cu) fp32). CPU tensors take the plain
@@ -352,21 +438,34 @@ def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
         raise ValueError("chain_bwd_pass takes either dz or dosel with amax")
     if dz is not None and dz.shape != (B, R, Cu):
         raise ValueError(f"dz must be {(B, R, Cu)}; got {tuple(dz.shape)}")
-    if dosel is not None and (pool < 1 or R % pool or dosel.shape != (B, R // pool, Cu)
-                              or amax.shape != dosel.shape):
-        raise ValueError(f"dosel and amax must be {(B, R // max(pool, 1), Cu)} "
-                         f"with pool dividing R = {R}")
+    pooled = [(t, Cu) for t in (dosel, amax) if t is not None]
+    if skip_pool is not None:
+        pooled += [(t, Cd) for t in skip_pool]
+    if pooled and (pool < 1 or R % pool or any(
+            t.shape != (B, R // pool, c) for t, c in pooled)):
+        raise ValueError(f"dosel and amax must be (B, R / pool, C) with pool "
+                         f"dividing R = {R}; got pool {pool} and "
+                         f"{[tuple(t.shape) for t, _ in pooled]}")
     if sc_down is not None and (sc_down.shape[0] != 4 or not need_dzd):
         raise ValueError("below a BatchNorm the pass takes sc_down (4, Cd) and "
                          "always forms dzd")
-    device = _device_of("chain_bwd_pass", h_up, uc, w, a_in, sc_down, dz, dosel, amax)
+    joins = res is not None or skip_pool is not None or skip_dense is not None
+    if joins and (sc_down is None or dz is None):
+        raise ValueError("the residual and the skip shares join a pass with a "
+                         "dense dz below a BatchNorm")
+    if skip_dense is not None and skip_dense.shape != a_in.shape:
+        raise ValueError(f"skip_dense must be {tuple(a_in.shape)}; got "
+                         f"{tuple(skip_dense.shape)}")
+    src, rsc = _check_residual("chain_bwd_pass", res, a_in)
+    skip_dosel, skip_amax = skip_pool if skip_pool is not None else (None, None)
+    device = _device_of("chain_bwd_pass", h_up, uc, w, a_in, sc_down, dz, dosel,
+                        amax, src, rsc, skip_dosel, skip_amax, skip_dense)
     if device.type == "cpu":
         return chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down, dz, dosel,
-                                        amax, pool, need_dzd)
-    _check_kernel("chain_bwd_pass",
-                  [t for t in (a_in, h_up, w, dz) if t is not None],
-                  [t for t in (uc, sc_down, dosel) if t is not None],
-                  [t for t in (amax,) if t is not None])
+                                        amax, pool, need_dzd, res, skip_pool,
+                                        skip_dense)
+    _check_kernel("chain_bwd_pass", (a_in, h_up, w, dz, src, skip_dense),
+                  (uc, sc_down, dosel, rsc, skip_dosel), (amax, skip_amax))
     rows = B * R
     chunk = _chunk_rows(rows)
     dw_chunk = _dw_chunk_rows(rows, Cd, Cu)
@@ -382,9 +481,11 @@ def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
     _, _, launch = _launchers()
     with torch.cuda.device(device):
         err = launch(_ptr(h_up), _ptr(dz), _ptr(dosel), _ptr(amax), _ptr(uc),
-                     _ptr(w), _ptr(a_in), _ptr(sc_down), _ptr(dzd), _ptr(sdse),
-                     _ptr(dw), _ptr(part), _ptr(dw_part), rows, Cd, Cu, pool,
-                     chunk, dw_chunk, int(a_in.dtype == torch.bfloat16),
+                     _ptr(w), _ptr(a_in), _ptr(sc_down), _res_parts(res)[0],
+                     _ptr(src), _ptr(rsc), _ptr(skip_dosel), _ptr(skip_amax),
+                     _ptr(skip_dense), _ptr(dzd), _ptr(sdse), _ptr(dw),
+                     _ptr(part), _ptr(dw_part), rows, Cd, Cu, pool, chunk,
+                     dw_chunk, int(a_in.dtype == torch.bfloat16),
                      torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"chain_bwd_pass kernel launch failed: CUDA error {err}")
@@ -401,66 +502,114 @@ chain_bwd_pass.launches = 0
 # the chain
 # ---------------------------------------------------------------------------
 
-def _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, passes):
+def _layer_residual(u, L, residual, hs, scs, rs):
+    """The residual of layer u's input (None, (h0, sc0) or a stored r)."""
+    mode, aux = layer_res_cfg(u, L, residual)
+    if mode == RES_BNRELU:
+        return hs[0], scs[0]
+    if mode == RES_DENSE:
+        return rs[aux - 1]
+    return None
+
+
+def _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, passes,
+                   residual=False):
     """The forward passes, each through `passes` = (mm_stats,
     bnact_mm_stats, bn_pool) or their plain versions. Returns the pooled
-    output, the per-layer (ssum, ssq) and what the backward reads."""
+    output, the per-layer (ssum, ssq) and what the backward reads: the
+    weights in x.dtype, every h and its scalars, the stored residuals r_j
+    and the pool's maxv, amax and hsel."""
     mm, bnact, pool_pass = passes
     n = x.shape[0] * x.shape[1]
+    L = len(ws)
+    blocks = (L - 1) // 2
     ws_c = [w.to(x.dtype).contiguous() for w in ws]
-    hs, stats, scs = [], [], []
-    for u in range(len(ws)):
-        h, ss, sq = bnact(hs[-1], scs[-1], ws_c[u]) if u else mm(x, ws_c[0])
+    hs, stats, scs, rs = [], [], [], []
+    for u in range(L):
+        if u:
+            # a block's input past the first is stored: a later residual
+            write_r = residual and u % 2 == 1 and (u + 1) // 2 >= 2
+            h, ss, sq, *r = bnact(hs[-1], scs[-1], ws_c[u], write_r=write_r,
+                                  res=_layer_residual(u, L, residual, hs, scs, rs))
+            rs += r
+        else:
+            h, ss, sq = mm(x, ws_c[0])
         hs.append(h)
         stats.append((ss, sq))
         scs.append(affine_scalars(ss, sq, gammas[u], betas[u], n))
-    out, maxv, amax, hsel = pool_pass(hs[-1], scs[-1], pen, pool, final_relu)
-    return out, tuple(stats), (ws_c, hs, scs, maxv, amax, hsel)
+    pool_res = None
+    if residual:  # the last block's input joins its output before the max
+        pool_res = (hs[0], scs[0]) if blocks == 1 else rs[blocks - 2]
+    out, maxv, amax, hsel = pool_pass(hs[-1], scs[-1], pen, pool, final_relu,
+                                      res=pool_res)
+    return out, tuple(stats), (ws_c, hs, scs, rs, maxv, amax, hsel)
 
 
 _KERNELS = (mm_stats, bnact_mm_stats, bn_pool)
 _PLAIN = (mm_stats_reference, bnact_mm_stats_reference, bn_pool_reference)
 
 
-def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass):
+def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass,
+                    residual=False):
     """The backward passes, top layer first, each through `bwd_pass`
-    (`chain_bwd_pass` or its plain version). Returns (dx or None, dws,
-    dgammas, dbetas), fp32 but dx."""
-    ws_c, hs, scs, maxv, amax, hsel = saved
+    (`chain_bwd_pass` or its plain version). `saved` as `_chain_forward`
+    returns it (the residual chain's backward reads only rs[:-1]). Returns
+    (dx or None, dws, dgammas, dbetas), fp32 but dx.
+
+    Residual chain: the input of block j (layer 2j - 1's input) feeds the
+    block's output too, so its cotangent takes a skip share: the pooled
+    cotangent for the last block, the project layer 2j's dz for the others.
+    Every dz is dropped right after its last pass reads it."""
+    ws_c, hs, scs, rs, maxv, amax, hsel = saved
     L = len(ws_c)
+    blocks = (L - 1) // 2
     n = x.shape[0] * x.shape[1]
     gate = 0.0 if final_relu else 0.5 * _SENT
     dosel = (dout.float() * (maxv > gate)).contiguous()
     sd = dosel.sum(dim=(0, 1))
     se = (dosel * ((hsel - scs[-1][0]) * scs[-1][3])).sum(dim=(0, 1))
     dws, dgs, dbs = [None] * L, [None] * L, [None] * L
-    dz = dx = None
+    dzs = {}  # the dense cotangents still to be read, by layer
+    dx = None
     for u in range(L - 1, -1, -1):
         dgs[u], dbs[u] = se, sd
         uc = up_scalars(scs[u], gammas[u], sd, se, n)
-        top = dict(dosel=dosel, amax=amax, pool=pool) if u == L - 1 else dict(dz=dz)
+        if u == L - 1:
+            kw = dict(dosel=dosel, amax=amax, pool=pool)
+        else:
+            # a project layer's dz below the top is read again as a skip share
+            keep = residual and u % 2 == 0 and u > 0
+            kw = dict(dz=dzs[u] if keep else dzs.pop(u), pool=pool)
         if u:
-            # rebinding dz frees the layer above's as soon as it was read
-            dz, sd, se, dws[u] = bwd_pass(hs[u], uc, ws_c[u], hs[u - 1],
-                                          scs[u - 1], **top)
+            kw["res"] = _layer_residual(u, L, residual, hs, scs, rs)
+            if residual and u % 2 == 1:
+                j = (u + 1) // 2
+                if j == blocks:
+                    kw["skip_pool"] = (dosel, amax)
+                else:
+                    kw["skip_dense"] = dzs.pop(2 * j)
+            dzs[u - 1], sd, se, dws[u] = bwd_pass(hs[u], uc, ws_c[u], hs[u - 1],
+                                                  scs[u - 1], **kw)
         else:
             dx, _, _, dws[0] = bwd_pass(hs[0], uc, ws_c[0], x, None,
-                                        need_dzd=need_dx, **top)
+                                        need_dzd=need_dx, **kw)
     return dx, dws, dgs, dbs
 
 
-class _MlpPoolFused(torch.autograd.Function):
-    """Inputs (pool, final_relu, L, x, pen, *ws, *gammas, *betas); outputs
-    (pooled, ssum_0, ssq_0, ..): the statistics are marked
+class _ChainFused(torch.autograd.Function):
+    """Inputs (pool, final_relu, residual, L, x, pen, *ws, *gammas, *betas);
+    outputs (pooled, ssum_0, ssq_0, ..): the statistics are marked
     non-differentiable."""
 
     @staticmethod
-    def forward(ctx, pool, final_relu, L, x, pen, *params):
+    def forward(ctx, pool, final_relu, residual, L, x, pen, *params):
         ws, gammas, betas = params[:L], params[L:2 * L], params[2 * L:]
-        out, stats, (ws_c, hs, scs, maxv, amax, hsel) = _chain_forward(
-            x, ws, gammas, betas, pen, pool, final_relu, _KERNELS)
-        ctx.save_for_backward(x, maxv, amax, hsel, *gammas, *ws_c, *hs, *scs)
-        ctx.pool, ctx.final_relu, ctx.L = pool, final_relu, L
+        out, stats, (ws_c, hs, scs, rs, maxv, amax, hsel) = _chain_forward(
+            x, ws, gammas, betas, pen, pool, final_relu, _KERNELS, residual)
+        # the last stored residual feeds the pool pass alone
+        ctx.save_for_backward(x, maxv, amax, hsel, *gammas, *ws_c, *hs, *scs,
+                              *rs[:-1])
+        ctx.pool, ctx.final_relu, ctx.residual, ctx.L = pool, final_relu, residual, L
         flat = [t for pair in stats for t in pair]
         ctx.mark_non_differentiable(*flat)
         return (out, *flat)
@@ -471,29 +620,65 @@ class _MlpPoolFused(torch.autograd.Function):
         L = ctx.L
         x, maxv, amax, hsel, *rest = ctx.saved_tensors
         gammas, ws_c, hs, scs = (rest[i * L:(i + 1) * L] for i in range(4))
+        rs = rest[4 * L:]
         dx, dws, dgs, dbs = _chain_backward(
-            x, gammas, (ws_c, hs, scs, maxv, amax, hsel), dout.contiguous(),
-            ctx.pool, ctx.final_relu, ctx.needs_input_grad[3], chain_bwd_pass)
+            x, gammas, (ws_c, hs, scs, rs, maxv, amax, hsel), dout.contiguous(),
+            ctx.pool, ctx.final_relu, ctx.needs_input_grad[4], chain_bwd_pass,
+            ctx.residual)
         # autograd casts each gradient to its input's dtype
-        return (None, None, None, dx, None, *dws, *dgs, *dbs)
+        return (None, None, None, None, dx, None, *dws, *dgs, *dbs)
 
 
-def _check_chain(x, ws, gammas, betas, pen, pool):
+def _check_chain(x, ws, gammas, betas, pen, pool, residual=False):
+    name = "preextract_pool" if residual else "mlp_pool"
     if x.dim() != 3 or not (len(ws) == len(gammas) == len(betas) >= 1):
-        raise ValueError("mlp_pool takes x (B, R, Cin) and L >= 1 weights, "
-                         "scales and offsets")
+        raise ValueError(f"{name} takes x (B, R, Cin) and L >= 1 weights, "
+                         f"scales and offsets")
     B, R, cin = x.shape
     for w, g, b in zip(ws, gammas, betas):
         if w.dim() != 2 or w.shape[0] != cin or g.shape != (w.shape[1],) \
                 or b.shape != g.shape:
-            raise ValueError(f"mlp_pool layer shapes do not chain: w "
+            raise ValueError(f"{name} layer shapes do not chain: w "
                              f"{tuple(w.shape)} after width {cin}, scale "
                              f"{tuple(g.shape)}, offset {tuple(b.shape)}")
         cin = w.shape[1]
-    if pen.shape != (B, R):
-        raise ValueError(f"pen must be {(B, R)}; got {tuple(pen.shape)}")
+    if residual:
+        if len(ws) < 3 or len(ws) % 2 != 1 or any(
+                ws[u].shape[1] != ws[0].shape[1] for u in range(2, len(ws), 2)):
+            raise ValueError("preextract_pool takes 1 + 2 * blocks layers (blocks "
+                             ">= 1), every block's output as wide as layer 0's")
+    elif pen is None or pen.shape != (B, R):
+        raise ValueError(f"pen must be {(B, R)}; got "
+                         f"{None if pen is None else tuple(pen.shape)}")
     if pool < 1 or R % pool:
         raise ValueError(f"pool must divide R = {R}; got {pool}")
+
+
+def _reference(x, ws, gammas, betas, pen, pool, final_relu, residual):
+    _check_chain(x, ws, gammas, betas, pen, pool, residual)
+    return _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, _PLAIN,
+                          residual)[:2]
+
+
+def _bwd_reference(x, ws, gammas, betas, pen, pool, dout, final_relu, residual):
+    _check_chain(x, ws, gammas, betas, pen, pool, residual)
+    with torch.no_grad():
+        saved = _chain_forward(x, ws, gammas, betas, pen, pool, final_relu,
+                               _PLAIN, residual)[2]
+        return _chain_backward(x, gammas, saved, dout, pool, final_relu, True,
+                               chain_bwd_pass_reference, residual)
+
+
+def _fused(x, ws, gammas, betas, pen, pool, final_relu, residual):
+    _check_chain(x, ws, gammas, betas, pen, pool, residual)
+    device = _device_of("preextract_pool_fused" if residual else "mlp_pool_fused",
+                        x, pen, *ws, *gammas, *betas)
+    if device.type == "cpu":
+        return _reference(x, ws, gammas, betas, pen, pool, final_relu, residual)
+    out, *flat = _ChainFused.apply(
+        pool, final_relu, residual, len(ws), x.contiguous(),
+        None if pen is None else pen.contiguous(), *ws, *gammas, *betas)
+    return out, tuple(zip(flat[0::2], flat[1::2]))
 
 
 def mlp_pool_reference(x, ws, gammas, betas, pen, pool: int,
@@ -503,8 +688,7 @@ def mlp_pool_reference(x, ws, gammas, betas, pen, pool: int,
     plain passes and differentiable by autograd: the pool routes its gradient
     to the first maximal row, ReLU's gradient is 1[pre > 0], and the batch
     statistics are differentiated through."""
-    _check_chain(x, ws, gammas, betas, pen, pool)
-    return _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, _PLAIN)[:2]
+    return _reference(x, ws, gammas, betas, pen, pool, final_relu, False)
 
 
 def mlp_pool_bwd_reference(x, ws, gammas, betas, pen, pool: int, dout,
@@ -515,12 +699,7 @@ def mlp_pool_bwd_reference(x, ws, gammas, betas, pen, pool: int, dout,
     `mlp_pool_reference` rounds elsewhere in bf16. Returns (dx, dws, dgammas,
     dbetas) for the cotangent dout of the pooled output; cotangents of the
     statistics are not taken."""
-    _check_chain(x, ws, gammas, betas, pen, pool)
-    with torch.no_grad():
-        saved = _chain_forward(x, ws, gammas, betas, pen, pool, final_relu,
-                               _PLAIN)[2]
-        return _chain_backward(x, gammas, saved, dout, pool, final_relu, True,
-                               chain_bwd_pass_reference)
+    return _bwd_reference(x, ws, gammas, betas, pen, pool, dout, final_relu, False)
 
 
 def mlp_pool_fused(x, ws, gammas, betas, pen, pool: int, final_relu: bool = True):
@@ -546,10 +725,39 @@ def mlp_pool_fused(x, ws, gammas, betas, pen, pool: int, final_relu: bool = True
     csrc/mlp_chain.cu through `mm_stats`, `bnact_mm_stats`, `bn_pool` and, in
     the backward, `chain_bwd_pass`; anything they do not take raises.
     """
-    _check_chain(x, ws, gammas, betas, pen, pool)
-    device = _device_of("mlp_pool_fused", x, pen, *ws, *gammas, *betas)
-    if device.type == "cpu":
-        return mlp_pool_reference(x, ws, gammas, betas, pen, pool, final_relu)
-    out, *flat = _MlpPoolFused.apply(pool, final_relu, len(ws), x.contiguous(),
-                                     pen.contiguous(), *ws, *gammas, *betas)
-    return out, tuple(zip(flat[0::2], flat[1::2]))
+    return _fused(x, ws, gammas, betas, pen, pool, final_relu, False)
+
+
+def preextract_pool_reference(x, ws, gammas, betas, pool: int):
+    """Plain PyTorch version of `preextract_pool_fused` (a port of
+    pointcloud_tpu/ops/preextract_fused.py:preextract_pool_reference), out
+    of the plain passes and differentiable by autograd, as
+    `mlp_pool_reference`."""
+    return _reference(x, ws, gammas, betas, None, pool, True, True)
+
+
+def preextract_pool_bwd_reference(x, ws, gammas, betas, pool: int, dout):
+    """The residual chain's explicit backward out of the plain passes, with
+    the kernels' rounding points (as `mlp_pool_bwd_reference`). Returns (dx,
+    dws, dgammas, dbetas) for the cotangent dout of the pooled output."""
+    return _bwd_reference(x, ws, gammas, betas, None, pool, dout, True, True)
+
+
+def preextract_pool_fused(x, ws, gammas, betas, pool: int):
+    """PointMLP's PreExtraction body as the fused residual chain: layer 0
+    (Cin -> C) and `blocks` residual blocks (C -> mid -> C), each a Dense +
+    train-mode BatchNorm (+ ReLU) over the grouped rows, the block's input
+    added before the block's last ReLU (`layer_res_cfg`), then the max-pool
+    over each group of `pool` rows and a ReLU. No mask.
+
+    x (B, R, Cin) with R = G * pool, fp32 or bf16; ws (1 + 2 blocks
+    weights), gammas, betas as `mlp_pool_fused`'s. Returns (pooled (B,
+    R / pool, C) in x.dtype, ((ssum, ssq), ...) per layer). Gradients and
+    statistics as `mlp_pool_fused`: on CUDA tensors the statistics are
+    non-differentiable.
+
+    CPU tensors take `preextract_pool_reference`; CUDA tensors run the
+    kernels of csrc/mlp_chain.cu in their residual mode; anything they do not
+    take raises.
+    """
+    return _fused(x, ws, gammas, betas, None, pool, True, True)

@@ -6,11 +6,9 @@ one device; `make_optimizer` and `make_train_step` give the training step
 (forward in train mode, loss, backward, Adam); `make_eval_step` returns the
 eval forward + loss. Ported: the Autoencoder (Earth Mover's Distance, its
 default loss, or Chamfer with loss_override="chamfer") and the Segmenter
-(EMD with class weights), on the PointNet and PointNet2 backbones, eval and
-train, and on the PointMLP and PointMLPE backbones, eval (their train-mode
-forward raises until its slice). The MultiSegmenter, the StatePredictor,
-datasets, the train() loop and checkpoints come in later slices and raise
-here.
+(EMD with class weights), on the PointNet, PointNet2, PointMLP and PointMLPE
+backbones, eval and train. The MultiSegmenter, the StatePredictor, datasets,
+the train() loop and checkpoints come in later slices and raise here.
 """
 
 from __future__ import annotations

@@ -45,8 +45,11 @@ from pointcloud_tpu_torch.ops import (
     sinkhorn,
     sinkhorn_match,
     sinkhorn_reference,
+    preextract_pool_fused,
+    preextract_pool_reference,
     up_scalars,
 )
+from pointcloud_tpu_torch.ops import preextract_fused as tpf
 
 pytestmark = pytest.mark.cuda
 
@@ -655,6 +658,179 @@ def test_chain_kernels_reject_what_they_do_not_take(dev):
                        dosel=torch.zeros(2, 12, 16, device=dev),
                        amax=torch.zeros(2, 12, 16, device=dev, dtype=torch.int64),
                        pool=4)
+
+
+# ---- the PointMLP train slice's kernels: the chain's residual mode ----
+
+# (B, R, layout, pool): PointMLP-Elite's mid width 16 with a pool of 24 over
+# 144 rows (a group straddles the 64-row tiles); two blocks; three blocks
+# (RES_DENSE inside the stack and in the backward); the first and last
+# stages' widths of PointMLP and Elite's first, with fewer rows
+RES_CHAINS = [(2, 72, [(12, 64), (64, 16), (16, 64)], 24),
+              (2, 48, [(10, 16)] + [(16, 16)] * 4, 4),
+              (1, 96, [(6, 8)] + [(8, 8)] * 6, 4),
+              (4, 24 * 40, [(128, 128)] + [(128, 128)] * 4, 24),
+              (2, 24 * 8, [(1024, 1024)] + [(1024, 1024)] * 4, 24),
+              (4, 24 * 40, [(64, 64), (64, 16), (16, 64)], 24)]
+
+
+def checked_passes(dtype):
+    """The chain's passes as kernel-vs-plain checks on the same inputs, each
+    kernel twice and bit-equal: h by `close_act`, sums as
+    test_chain_passes_match_plain_and_are_deterministic, the stored residual
+    r and the pool's four outputs exactly equal, dzd by `close_act`, dw
+    1e-4 / 1e-3 and sd / se 1e-4 / 5e-3 relative. They return the kernel's
+    results, so the kernel chain's own tensors feed the next pass."""
+    def twice(fn, *a, **kw):
+        got, again = fn(*a, **kw), fn(*a, **kw)
+        assert all((g is None and h is None) or torch.equal(g, h)
+                   for g, h in zip(got, again))
+        return got
+
+    def product(kernel, ref):
+        def run(*a, **kw):
+            got, want = twice(kernel, *a, **kw), ref(*a, **kw)
+            close_act(got[0], want[0])
+            close_sums(got[1], want[1], dtype)
+            close_sums(got[2], want[2], dtype)
+            if len(got) == 4:  # write_r: the staged layer input, bit for bit
+                assert torch.equal(got[3], want[3])
+            return got
+        return run
+
+    def pool(*a, **kw):
+        got, want = twice(bn_pool, *a, **kw), bn_pool_reference(*a, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        return got
+
+    def bwd(*a, **kw):
+        got, want = twice(chain_bwd_pass, *a, **kw), chain_bwd_pass_reference(*a, **kw)
+        if got[0] is not None:
+            close_act(got[0], want[0])
+        close_sums(got[3], want[3], dtype)
+        if got[1] is not None:
+            close_sums(got[1], want[1], dtype, bf16_tol=5e-3)
+            close_sums(got[2], want[2], dtype, bf16_tol=5e-3)
+        return got
+
+    return (product(mm_stats, mm_stats_reference),
+            product(bnact_mm_stats, bnact_mm_stats_reference), pool), bwd
+
+
+@pytest.mark.parametrize("case", RES_CHAINS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_chain_passes_match_plain_and_are_deterministic(dev, case, dtype):
+    """Every pass of the residual chain, forward and backward, against its
+    plain version on the same inputs (`checked_passes`), walked as the
+    chain walks them; planted ties (the last row of every group repeats its
+    first) go to the lower row."""
+    B, R, layout, pool = case
+    x, ws, gs, bs, _ = chain_case(dev, R + len(layout), B, R, layout, dtype, pool,
+                                  masked=False)
+    passes, bwd = checked_passes(dtype)
+    out, _, saved = tpf._chain_forward(x, ws, gs, bs, None, pool, True, passes,
+                                       residual=True)
+    amax = saved[5]
+    assert out.dtype == dtype and not (amax == pool - 1).any()
+    dout = torch.randn(out.shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(R)).to(dtype)
+    tpf._chain_backward(x, gs, saved, dout, pool, True, True, bwd, residual=True)
+
+
+@pytest.mark.parametrize("case", RES_CHAINS[:3])
+def test_preextract_pool_fused_fp32_matches_the_plain_chain(dev, case):
+    """The whole residual chain and its autograd against the plain version
+    and its autograd, fp32, 2e-4 of each tensor's largest entry; no planted
+    ties; two runs bit-equal; the statistics carry no gradient; one launch
+    of each forward pass per layer and one backward pass per layer."""
+    B, R, layout, pool = case
+    x, ws, gs, bs, _ = chain_case(dev, 11, B, R, layout, torch.float32, pool,
+                                  masked=False)
+    torch.manual_seed(R)
+    x = torch.randn_like(x)
+    cw = torch.randn((B, R // pool, layout[-1][1]), device=dev)
+    L = len(ws)
+    names = (mm_stats, bnact_mm_stats, bn_pool, chain_bwd_pass)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *gs, *bs)]
+        out, stats = fn(leaves[0], leaves[1:1 + L], leaves[1 + L:1 + 2 * L],
+                        leaves[1 + 2 * L:], pool)
+        return out, stats, torch.autograd.grad((out * cw).sum(), leaves)
+
+    before = [f.launches for f in names]
+    out, stats, grads = run(preextract_pool_fused)
+    assert [f.launches - b for f, b in zip(names, before)] == [1, L - 1, 1, L]
+    again = run(preextract_pool_fused)
+    assert torch.equal(out, again[0]) and all(
+        torch.equal(a, b) for a, b in zip(grads, again[2]))
+    rout, rstats, rgrads = run(preextract_pool_reference)
+    assert not stats[0][0].requires_grad and rstats[0][0].requires_grad
+    assert (out - rout).abs().max() <= 2e-4 * rout.abs().max()
+    for (a, b), (ra, rb) in zip(stats, rstats):
+        assert (a - ra).abs().max() <= 1e-4 * ra.abs().max()
+        assert (b - rb).abs().max() <= 1e-4 * rb.abs().max()
+    for g, r in zip(grads, rgrads):
+        assert (g - r).abs().max() <= 2e-4 * r.abs().max()
+
+
+@pytest.mark.parametrize("case", [RES_CHAINS[0], RES_CHAINS[3]])
+def test_preextract_pool_fused_bf16_follows_the_explicit_backward(dev, case):
+    """bf16: autograd through preextract_pool_fused against the explicit
+    backward (`chain_bwd_pass_reference` walked by `_chain_backward`, which
+    rounds where the kernels round) on the kernel chain's own forward
+    tensors, within 3e-2 of each tensor's largest entry; the pooled output
+    within 2e-2 of the plain chain's. (Against the plain forward's tensors
+    a pool may pick another row: a bf16 h differs by an ulp where the
+    summation order flips a rounding, and at PointMLP's stage-1 widths one
+    dx entry then moves by a whole pooled gradient, measured.)"""
+    B, R, layout, pool = case
+    x, ws, gs, bs, _ = chain_case(dev, 13, B, R, layout, torch.bfloat16, pool,
+                                  masked=False)
+    L = len(ws)
+    leaves = [t.clone().requires_grad_() for t in (x, *ws, *gs, *bs)]
+    out, _ = preextract_pool_fused(leaves[0], leaves[1:1 + L], leaves[1 + L:1 + 2 * L],
+                                   leaves[1 + 2 * L:], pool)
+    rout, _ = preextract_pool_reference(x, ws, gs, bs, pool)
+    assert out.dtype == torch.bfloat16
+    assert ((out.float() - rout.float()).abs() <= 2e-2 * (1 + rout.float().abs())).all()
+    torch.manual_seed(0)
+    dout = torch.randn(out.shape, device=dev).to(torch.bfloat16)
+    grads = torch.autograd.grad(out, leaves, dout)
+    saved = tpf._chain_forward(x, ws, gs, bs, None, pool, True, tpf._KERNELS,
+                               residual=True)[2]
+    dx, dws, dgs, dbs = tpf._chain_backward(x, gs, saved, dout, pool, True, True,
+                                            chain_bwd_pass_reference, residual=True)
+    assert grads[0].dtype == dx.dtype == torch.bfloat16
+    assert grads[1].dtype == torch.float32
+    for g, r in zip(grads, (dx, *dws, *dgs, *dbs)):
+        assert (g.float() - r.float()).abs().max() <= 3e-2 * r.float().abs().max()
+
+
+def test_residual_passes_reject_what_they_do_not_take(dev):
+    B, R, layout, pool = RES_CHAINS[1]
+    x, ws, gs, bs, _ = chain_case(dev, 3, B, R, layout, torch.float32, pool,
+                                  masked=False)
+    h, ss, sq = mm_stats(x, ws[0])
+    sc = affine_scalars(ss, sq, gs[0], bs[0], B * R)
+    with pytest.raises(TypeError):  # a residual of another dtype
+        bnact_mm_stats(h, sc, ws[1], res=h.bfloat16())
+    with pytest.raises(ValueError):  # its scalars on the CPU
+        bnact_mm_stats(h, sc, ws[1], res=(h, sc.cpu()))
+    with pytest.raises(ValueError):
+        bn_pool(h, sc, None, pool, res=h[:, :-4])
+    with pytest.raises(TypeError):
+        bn_pool(h, sc, None, pool, res=(h, sc.double()))
+    uc = up_scalars(sc, gs[1], ss, sq, B * R)
+    with pytest.raises(TypeError):  # pooled skip share with int64 rows
+        chain_bwd_pass(h, uc, ws[1], h, sc, dz=h, pool=pool,
+                       skip_pool=(torch.zeros(B, R // pool, 16, device=dev),
+                                  torch.zeros(B, R // pool, 16, device=dev,
+                                              dtype=torch.int64)))
+    before = chain_bwd_pass.launches
+    got = chain_bwd_pass(h, uc, ws[1], h, sc, dz=h, res=(h, sc), skip_dense=h)
+    assert chain_bwd_pass.launches == before + 1 and got[0].shape == h.shape
 
 
 # Sinkhorn matching. The kernel's potentials differ from the plain version's

@@ -5,8 +5,8 @@ on the CPU.
 
 The warning: under cfg.debug a train-mode forward with a validity mask warns
 (BatchNorm statistics include masked points), in PointNet, PointNet2 and
-PointMLP (whose train-mode forward then raises, train mode being a later
-slice); without cfg.debug, in eval or without a mask it stays silent.
+PointMLP, and the forward then runs; without cfg.debug, in eval or without a
+mask it stays silent.
 
 The configurations: PointNet and PointNet2 with feature_dims=0, PointNet
 with both STNs off, and PointNet's forward_all_features with a mask, each
@@ -41,17 +41,12 @@ ENCODERS = {
 
 
 def run(name, train, masked):
-    """One forward of a freshly initialised encoder on B=2 x 256 clouds;
-    PointMLP's train-mode forward raises after the check (its slice)."""
+    """One forward of a freshly initialised encoder on B=2 x 256 clouds."""
     model = ENCODERS[name]()
     init_flax_(model, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     x = torch.from_numpy(rng.random((2, 256, 6), dtype=np.float32))
     mask = torch.from_numpy(rng.random((2, 256)) > 0.1) if masked else None
-    if name == "PointMLP" and train:
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            model(x, train=True, mask=mask)
-        return
     out = model(x, train=train, mask=mask)
     assert out.shape[0] == 2 and bool(torch.isfinite(out).all())
 

@@ -2,8 +2,9 @@
 modules on the CPU, on the same interop-converted (randomised) variables:
 LocalGrouper (every `normalize` mode, `use_xyz` both ways, with a mask),
 PreExtraction (1 and 2 blocks, res_expansion 1.0 and 0.25, `use_bias` both
-ways), PosExtraction, ResBlock and DenseBNAct at narrow widths; and what
-raises in train mode.
+ways), PosExtraction, ResBlock and DenseBNAct at narrow widths; and the
+train-mode forwards of PreExtraction and the backbone (their gradients are
+held in tests/test_torch_pointmlp_train.py).
 
 Tolerances (fp32 on both sides): 1e-5 absolute and relative for a module,
 1e-4 for the whole backbone (four stages of that round-off). The products
@@ -26,7 +27,7 @@ import torch
 from torch_port_utils import fps_centroids, knn_margin, random_variables, to_np
 
 from pointcloud_tpu.models import pointmlp as jpm
-from pointcloud_tpu_torch.interop import load_flax_variables
+from pointcloud_tpu_torch.interop import flax_to_state_dict, load_flax_variables
 from pointcloud_tpu_torch.models import pointmlp as tpm
 from pointcloud_tpu_torch.ops.fps import fps_reference
 
@@ -109,8 +110,16 @@ def test_pre_extraction_eval_matches_flax(blocks, res_expansion, use_bias):
     np.testing.assert_allclose(to_np(got), want, **TOL)
     if not use_bias:  # mid width int(C * res_expansion), as the JAX package
         assert tm.w1.shape == (C, int(C * res_expansion))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tm(torch.from_numpy(x), train=True)
+    # train mode: the batch statistics, and the running ones move as flax's
+    want, mutated = apply(jm, v, x, train=True, mutable=["batch_stats"])
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), train=True)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), **TOL)
+    stats = flax_to_state_dict({"batch_stats": jax.tree_util.tree_map(
+        np.asarray, mutated["batch_stats"])})
+    assert set(stats) == {k for k, _ in tm.named_buffers()}
+    for k, b in tm.named_buffers():
+        np.testing.assert_allclose(to_np(b), stats[k], **TOL, err_msg=k)
 
 
 @pytest.mark.parametrize("blocks,res_expansion", [(1, 1.0), (2, 0.25)])
@@ -158,5 +167,9 @@ def test_backbone_matches_flax_with_a_mask(factory):
         got = tm(torch.from_numpy(x), mask=torch.from_numpy(mask))
     assert got.shape == (B, tm.encoding_dim) == want.shape
     np.testing.assert_allclose(to_np(got), want, atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tm(torch.from_numpy(x), train=True)
+    # train mode with the same mask (the BatchNorm statistics include the
+    # masked points, as in the JAX package)
+    want = apply(jm, v, x, train=True, mask=mask, mutable=["batch_stats"])[0]
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), train=True, mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-4, rtol=1e-4)

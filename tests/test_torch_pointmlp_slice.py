@@ -1,9 +1,10 @@
 """The PointMLP slice as a whole: `create_model("Autoencoder", "PointMLP" |
 "PointMLPE", "Cube", loss_override="chamfer")` + `make_eval_step` and
 `encode` against the JAX package's on the CPU, on the same
-interop-converted (randomised) weights; what raises in train mode. The
-Segmenter on PointMLPE and the interop of a PointMLP variables tree are in
-tests/test_torch_pointmlp_seg.py.
+interop-converted (randomised) weights; one train step of each through the
+default EMD loss. The Segmenter on PointMLPE and the interop of a PointMLP
+variables tree are in tests/test_torch_pointmlp_seg.py; the train steps
+against the JAX package's in tests/test_torch_pointmlp_train_slice.py.
 
 Tolerances as tests/test_torch_ae_slice.py: outputs and encodings 1e-4
 absolute and relative (fp32 on both sides), the Chamfer loss 1e-5 absolute.
@@ -69,14 +70,24 @@ def test_eval_step_and_encode_match_jax(backbone, width):
 
 
 def test_train_mode_raises_until_its_slice():
-    """The model builds and `make_train_step` returns a step, but a
-    train-mode forward raises, naming the slice that ports it (Queue 1
-    item 11b: PreExtraction through the chain kernels' residual mode)."""
+    """Train mode is ported (the name is the earlier slice's): for both
+    backbones with the default EMD loss, one step of `make_train_step`
+    gives a finite loss and its logs, every parameter a gradient, moves
+    every parameter but round-off ones and every running statistic; a
+    train-mode `encode` gives the latent."""
     for backbone in ("PointMLP", "PointMLPE"):
         spec = tharness.create_model("Autoencoder", backbone, "Cube", device="cpu")
         step = tharness.make_train_step(spec, tharness.make_optimizer(spec))
-        x = torch.rand(2, 256, 6)
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            step(x, x)
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            spec.model.encode(x, train=True)
+        x = torch.from_numpy(raw_clouds(np.random.default_rng(3), spec.scene, 2, 256))
+        params = {k: p.detach().clone() for k, p in spec.model.named_parameters()}
+        stats = {k: b.clone() for k, b in spec.model.named_buffers()}
+        loss, logs = step(x, x)
+        assert loss.shape == () and bool(torch.isfinite(loss))
+        assert set(logs) == {"train_loss/EMD", "train_loss/feature"}
+        assert all(p.grad is not None for p in spec.model.parameters())
+        moved = [k for k, p in spec.model.named_parameters()
+                 if not torch.equal(p, params[k])]
+        assert len(moved) >= len(params) - 2, sorted(set(params) - set(moved))
+        assert all(not torch.equal(b, stats[k]) for k, b in spec.model.named_buffers())
+        enc = spec.model.encode(spec.in_transform(x)[0], train=True)
+        assert enc.shape == (2, 13) and bool(torch.isfinite(enc).all())

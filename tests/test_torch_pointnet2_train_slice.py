@@ -53,11 +53,10 @@ from test_torch_train_slice import (
 )
 from torch_port_utils import ball_margin as margin
 from torch_port_utils import fps_centroids as centroids
-from torch_port_utils import raw_clouds, to_np
+from torch_port_utils import raw_clouds, record_pool_gaps, to_np
 
 from pointcloud_tpu.train import harness as jharness
 from pointcloud_tpu_torch.interop import flax_to_state_dict, load_flax_variables
-from pointcloud_tpu_torch.ops import preextract_fused as tpf
 from pointcloud_tpu_torch.train import harness as tharness
 from pointcloud_tpu_torch.train.harness import zero_gradient_bias
 
@@ -106,16 +105,7 @@ def jax_steps():
 def test_three_train_steps_match_jax(jax_steps, monkeypatch):
     j = jax_steps
     tspec = port_spec(j["v"])
-    gaps, plain_pool = [], tpf.bn_pool_reference
-
-    def recording_pool(h, sc, pen, pool, final_relu=True):
-        v = (tpf._bn_pre(h, sc) - pen[..., None]).reshape(
-            h.shape[0], -1, pool, h.shape[2])
-        top = torch.topk(v, 2, dim=2).values
-        gaps.append(float((top[:, :, 0] - top[:, :, 1]).detach().min()))
-        return plain_pool(h, sc, pen, pool, final_relu)
-
-    monkeypatch.setattr(tpf, "_PLAIN", (*tpf._PLAIN[:2], recording_pool))
+    gaps = record_pool_gaps(monkeypatch)
     xyz = to_np(tspec.in_transform(torch.from_numpy(j["x"]))[0])[..., :3].copy()
     c1 = centroids(xyz, 512)
     assert margin(xyz, c1, 0.2) > MARGIN

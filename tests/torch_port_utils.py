@@ -108,6 +108,37 @@ def fps_centroids(xyz, npoint, mask=None):
     return np.take_along_axis(xyz, idx.numpy()[..., None].astype(np.int64), 1)
 
 
+def record_pool_gaps(monkeypatch, distinct=False):
+    """Make every plain pool pass of the fused chain (mlp_pool_fused,
+    preextract_pool_fused on CPU tensors) record the smallest gap between a
+    group's best and second-best value, over all groups and channels, into
+    the returned list: where two rows lie within round-off the two packages
+    may send a pooled gradient to different rows. With `distinct`, the
+    second-best is the best value below the best: rows that tie exactly
+    (PointMLP's, whose every input channel a ReLU zeroed) compute the same
+    operations on the same values in either package, and both send the
+    gradient to the lowest of them."""
+    from pointcloud_tpu_torch.ops import preextract_fused as tpf
+
+    gaps, plain_pool = [], tpf.bn_pool_reference
+
+    def recording_pool(h, sc, pen, pool, final_relu=True, res=None):
+        v = tpf._with_residual(tpf._bn_pre(h, sc), res)
+        if pen is not None:
+            v = v - pen[..., None]
+        v = v.detach().reshape(h.shape[0], -1, pool, h.shape[2])
+        best = v.amax(dim=2, keepdim=True)
+        if distinct:
+            second = torch.where(v < best, v, -torch.inf).amax(dim=2, keepdim=True)
+        else:
+            second = torch.topk(v, 2, dim=2).values[:, :, 1:]
+        gaps.append(float((best - second).min()))
+        return plain_pool(h, sc, pen, pool, final_relu, res)
+
+    monkeypatch.setattr(tpf, "_PLAIN", (*tpf._PLAIN[:2], recording_pool))
+    return gaps
+
+
 def to_np(t):
     return np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t)
 
