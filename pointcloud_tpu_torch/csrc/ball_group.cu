@@ -11,11 +11,9 @@
 //     slots past the in-ball count repeating slot 0 (point 0 when the ball
 //     is empty);
 //   valid (B, S, k) bool: slot j < in-ball count.
-// A point is inside when ((pen + dx^2) + dy^2) + dz^2 <= r2, with d the
-// centroid minus the point, pen = 1e9 on masked points and 0 elsewhere, and
-// r2 = float32(radius * radius) taken in double by the caller: the TPU
-// kernel's formula and order, with rounded intrinsics so no FMA contraction
-// moves a point across the radius.
+// Membership and selection are ball_select.cuh's, shared with group_gather.cu:
+// a point is inside when ((pen + dx^2) + dy^2) + dz^2 <= r2 (the TPU kernel's
+// formula and order, in rounded intrinsics).
 //
 // Design: one warp per centroid, 16 centroids of one cloud per block. A
 // cloud of up to kMaxSharedPoints points is staged in shared memory as
@@ -35,22 +33,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ball_select.cuh"
+
 namespace {
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxSharedPoints = 3072;  // 48 KB of (x, y, z, pen)
-constexpr float kPen = 1e9f;
+using ball_select::kMaxSharedPoints;
 
 __device__ __forceinline__ float to_out(float v, float) { return v; }
 __device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float4 load_point(const float* xyz,
-                                             const uint8_t* mask, int64_t i) {
-  const float pen = (mask == nullptr || mask[i] != 0) ? 0.f : kPen;
-  return make_float4(xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2], pen);
 }
 
 template <typename T, bool kShared>
@@ -64,12 +57,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t b = blockIdx.y;
   const float* xb = xyz + b * n * 3;
   const uint8_t* mb = mask != nullptr ? mask + b * n : nullptr;
-  if (kShared) {
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      shared_points[i] = load_point(xb, mb, i);
-    }
-    __syncthreads();
-  }
+  if (kShared) ball_select::stage_points(shared_points, xb, mb, n);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + warp;
@@ -82,31 +70,9 @@ __global__ void __launch_bounds__(kThreads)
   // this centroid's slots; read back by other lanes after __syncwarp
   int* slots = idx + row * k;
 
-  int cnt = 0;
-  for (int base = 0; base < n && cnt < k; base += 32) {
-    const int i = base + lane;
-    bool in = false;
-    if (i < n) {
-      const float4 p = kShared ? shared_points[i] : load_point(xb, mb, i);
-      const float dx = __fsub_rn(cx, p.x);
-      const float dy = __fsub_rn(cy, p.y);
-      const float dz = __fsub_rn(cz, p.z);
-      float acc = __fadd_rn(p.w, __fmul_rn(dx, dx));
-      acc = __fadd_rn(acc, __fmul_rn(dy, dy));
-      acc = __fadd_rn(acc, __fmul_rn(dz, dz));
-      in = acc <= r2;
-    }
-    const unsigned ball = __ballot_sync(0xffffffffu, in);
-    const int rank = cnt + __popc(ball & ((1u << lane) - 1u));
-    if (in && rank < k) slots[rank] = i;
-    cnt += __popc(ball);
-  }
-  cnt = min(cnt, k);
-  __syncwarp();
-  const int slot0 = cnt > 0 ? slots[0] : 0;
-  for (int j = cnt + lane; j < k; j += 32) slots[j] = slot0;
+  const int cnt = ball_select::select_first_k<kShared>(
+      shared_points, xb, mb, n, cx, cy, cz, r2, k, slots, lane);
   for (int j = lane; j < k; j += 32) valid[row * k + j] = j < cnt;
-  __syncwarp();
 
   // k rows of c = 3 + f channels, element e = j * c + ch, lanes consecutive
   const int c = 3 + f;

@@ -1,4 +1,4 @@
-"""Models: the PointNet, PointNet2 and PointMLP encoders and the
+"""Models: the PointNet, PointNet2 (SSG and MSG) and PointMLP encoders and the
 autoencoder and segmenter heads."""
 
 from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
@@ -31,6 +31,8 @@ from pointcloud_tpu_torch.models.pointnet import (  # noqa: F401
 )
 from pointcloud_tpu_torch.models.pointnet2 import (  # noqa: F401
     PointNet2Encoder,
+    PointNet2MSGEncoder,
     PointNet2SSGEncoder,
     SetAbstraction,
+    SetAbstractionMsg,
 )

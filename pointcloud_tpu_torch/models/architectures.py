@@ -2,8 +2,9 @@
 
 `backbone_factory` maps backbone names to encoder constructors; `AE` and
 `SegAE` assemble backbone + bottleneck + decoder. Every backbone of the JAX
-package's factory is ported: PointNet, PointNet2, and PointMLP and
-PointMLP-Elite (eval only so far).
+package's factory is ported, eval and train: PointNet, PointNet2, PointMLP
+and PointMLP-Elite. The encoders outside it (PointNet2SSGEncoder,
+PointNet2MSGEncoder) are ported too and, as in the JAX package, not listed.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""PointNet++ encoders (port of pointcloud_tpu/models/pointnet2.py:38-176,
-:238-296).
+"""PointNet++ encoders (port of pointcloud_tpu/models/pointnet2.py:38-331).
 
 Three set-abstraction (SA) levels: FPS-downsample, ball-query group, a
 shared MLP over each neighbourhood, max-pool per group. FPS and the ball
@@ -18,6 +17,12 @@ the JAX package.
 Parameters carry the flax names: `w{i}` (cin, co) in flax's layout (not
 transposed), `scale{i}`, `offset{i}`, and buffers `mean{i}`, `var{i}`; the
 levels are `SetAbstraction_0..2`.
+
+The multi-scale-grouping (MSG) level, `SetAbstractionMsg`, runs one FPS and
+several ball groupings through `group_neighbors` (the `group_gather`
+kernel), each branch a Dense (with bias) + BatchNorm + ReLU stack of flax
+layers ending in a `DenseBNMaxPool` (the `dense_pool_stats` kernels in train
+mode); `PointNet2MSGEncoder` stacks two of them and a group-all level.
 """
 
 from __future__ import annotations
@@ -25,9 +30,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointcloud_tpu_torch.models.layers import lecun_normal_, update_chain_stats
-from pointcloud_tpu_torch.models.pointnet import check_train_mask_contract
-from pointcloud_tpu_torch.ops.geometry import sample_and_group, sample_and_group_all
+from pointcloud_tpu_torch.models.layers import (
+    BatchNorm,
+    Dense,
+    lecun_normal_,
+    update_chain_stats,
+)
+from pointcloud_tpu_torch.models.pointnet import (
+    DenseBNMaxPool,
+    check_train_mask_contract,
+)
+from pointcloud_tpu_torch.ops.fps import farthest_point_sample
+from pointcloud_tpu_torch.ops.geometry import (
+    group_neighbors,
+    index_points,
+    sample_and_group,
+    sample_and_group_all,
+)
 from pointcloud_tpu_torch.ops.preextract_fused import mlp_pool_fused
 
 _NEG = -1e9
@@ -162,3 +181,99 @@ class PointNet2SSGEncoder(PointNet2Encoder):
         if space_dims != 3:
             raise ValueError("PointNet2SSGEncoder reads xyz from the first 3 dims")
         super().__init__(3, feature_dims, dtype)
+
+
+class SetAbstractionMsg(nn.Module):
+    """Multi-scale-grouping SA level (port of pointcloud_tpu/models/
+    pointnet2.py:179-235): one FPS, then per (radius, nsample, mlp) branch a
+    ball grouping, [features | centred xyz] through Dense + BatchNorm + ReLU
+    layers and a last `DenseBNMaxPool` over each group; the branches' pooled
+    features concatenate. `in_features` is the width of the features (0
+    without). Children carry flax's compact names, numbered across the
+    branches: `Dense_{i}`, `BatchNorm_{i}` for the hidden layers,
+    `DenseBNMaxPool_{b}` for each branch's last."""
+
+    def __init__(self, npoint: int, radius_list, nsample_list, in_features: int,
+                 mlp_list, dtype=None):
+        super().__init__()
+        if not len(radius_list) == len(nsample_list) == len(mlp_list):
+            raise ValueError("one radius, nsample and mlp per branch")
+        self.npoint = npoint
+        self.radius_list, self.nsample_list = tuple(radius_list), tuple(nsample_list)
+        self.dtype = dtype
+        self.hidden = []  # per branch: its hidden layers' indices
+        i = 0
+        for b, mlp in enumerate(mlp_list):
+            cin = in_features + 3
+            layers = []
+            for f in mlp[:-1]:
+                self.add_module(f"Dense_{i}", Dense(cin, f, dtype=dtype))
+                self.add_module(f"BatchNorm_{i}", BatchNorm(f, dtype=dtype))
+                layers.append(i)
+                cin, i = f, i + 1
+            self.hidden.append(layers)
+            self.add_module(f"DenseBNMaxPool_{b}", DenseBNMaxPool(
+                cin, mlp[-1], final_relu=True, dtype=dtype))
+        self.out_features = sum(mlp[-1] for mlp in mlp_list)
+
+    def forward(self, xyz, features, train: bool = False, mask=None):
+        xyz = xyz.float().contiguous()
+        fps_idx = farthest_point_sample(xyz, self.npoint, mask=mask)
+        new_xyz = index_points(xyz, fps_idx)
+        new_mask = (torch.gather(mask, 1, fps_idx.long()) if mask is not None
+                    else torch.ones(fps_idx.shape, dtype=torch.bool,
+                                    device=xyz.device))
+        if features is not None:  # cast (as flax does) and laid out once
+            features = features.to(self.dtype or features.dtype).contiguous()
+        pooled = []
+        for b, (radius, nsample) in enumerate(zip(self.radius_list,
+                                                   self.nsample_list)):
+            gxyz, gfeat, _, in_ball = group_neighbors(
+                xyz, features, new_xyz, nsample, radius=radius, mask=mask)
+            h = gxyz - new_xyz[:, :, None, :]
+            if gfeat is not None:  # bf16 features meet fp32 xyz in fp32
+                h = torch.cat([gfeat, h], dim=-1)
+            for i in self.hidden[b]:
+                h = torch.relu(getattr(self, f"BatchNorm_{i}")(
+                    getattr(self, f"Dense_{i}")(h), train=train))
+            pooled.append(getattr(self, f"DenseBNMaxPool_{b}")(
+                h, train=train, mask=in_ball & new_mask[..., None]))
+        return new_xyz, torch.cat(pooled, dim=-1), new_mask
+
+
+class PointNet2MSGEncoder(nn.Module):
+    """Multi-scale-grouping classification encoder (port of
+    pointcloud_tpu/models/pointnet2.py:299-331): two MSG levels, then a
+    group-all SA level -> (B, 1024). xyz is the first three dims, the rest
+    (`feature_dims` of them) ride along as features. Like the JAX module it
+    does not check the train-mode mask contract, and it is not in
+    `backbone_factory`."""
+
+    ENCODING_DIM = 1024
+
+    def __init__(self, space_dims: int = 3, feature_dims: int = 3, dtype=None):
+        super().__init__()
+        if space_dims != 3:
+            raise ValueError("PointNet2MSGEncoder reads xyz from the first 3 dims")
+        self.feature_dims = feature_dims
+        self.SetAbstractionMsg_0 = SetAbstractionMsg(
+            512, (0.1, 0.2, 0.4), (16, 32, 128), feature_dims,
+            ((32, 32, 64), (64, 64, 128), (64, 96, 128)), dtype=dtype)
+        self.SetAbstractionMsg_1 = SetAbstractionMsg(
+            128, (0.2, 0.4, 0.8), (32, 64, 128),
+            self.SetAbstractionMsg_0.out_features,
+            ((64, 64, 128), (128, 128, 256), (128, 128, 256)), dtype=dtype)
+        self.SetAbstraction_0 = SetAbstraction(
+            None, None, None, 3 + self.SetAbstractionMsg_1.out_features,
+            (256, 512, 1024), group_all=True, dtype=dtype)
+
+    def forward(self, x, train: bool = False, mask=None):
+        if x.shape[-1] != 3 + self.feature_dims:
+            raise ValueError(f"PointNet2MSGEncoder takes 3 + {self.feature_dims} "
+                             f"dims a point; got {x.shape[-1]}")
+        xyz = x[..., :3]
+        feats = x[..., 3:] if x.shape[-1] > 3 else None
+        xyz, feats, mask = self.SetAbstractionMsg_0(xyz, feats, train=train, mask=mask)
+        xyz, feats, mask = self.SetAbstractionMsg_1(xyz, feats, train=train, mask=mask)
+        _, feats, _ = self.SetAbstraction_0(xyz, feats, train=train, mask=mask)
+        return feats[:, 0, :]  # (B, 1024)

@@ -3,8 +3,9 @@ nearest-neighbour sweep, the fused backward, the segment-sum), the fused
 Dense -> BatchNorm-statistics -> max-pool kernels, the fused
 Dense-BatchNorm-ReLU chain with its group max-pool (plain and residual),
 farthest-point sampling,
-the ball and kNN groupings, and Earth Mover's Distance matching with its
-Sinkhorn kernel."""
+the ball and kNN groupings (the set abstraction's centred ball grouping and
+the legacy grouping's uncentred one), and Earth Mover's Distance matching
+with its Sinkhorn kernel."""
 
 from pointcloud_tpu_torch.ops.ball_group import (  # noqa: F401
     ball_group,
@@ -41,9 +42,14 @@ from pointcloud_tpu_torch.ops.geometry import (  # noqa: F401
     index_points,
     knn,
     pairwise_sqdist,
+    penalised_sqdist,
     sample_and_group,
     sample_and_group_all,
     three_nn_interpolate,
+)
+from pointcloud_tpu_torch.ops.group_gather import (  # noqa: F401
+    group_gather,
+    group_gather_reference,
 )
 from pointcloud_tpu_torch.ops.knn_group import (  # noqa: F401
     knn_group,
@@ -72,6 +78,7 @@ from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
     up_scalars,
 )
 from pointcloud_tpu_torch.ops.scatter_rows import (  # noqa: F401
+    scatter_grouped,
     scatter_rows,
     scatter_rows_reference,
 )

@@ -23,10 +23,13 @@ import functools
 import torch
 
 from pointcloud_tpu_torch.ops import _build
-from pointcloud_tpu_torch.ops.geometry import first_k_in_ball, index_points
+from pointcloud_tpu_torch.ops.geometry import (
+    first_k_in_ball,
+    index_points,
+    penalised_sqdist,
+)
 from pointcloud_tpu_torch.ops.scatter_rows import scatter_rows
 
-_PEN = 1e9
 _MAX_BATCH = 65535  # gridDim.y
 
 
@@ -34,12 +37,7 @@ def ball_group_reference(xyz, feats, new_xyz, mask, k: int, radius: float):
     """Plain PyTorch version of the kernel; same arguments and results as
     `ball_group`. Differentiable through its gathers by autograd."""
     r2 = torch.tensor(radius * radius, dtype=torch.float32, device=xyz.device)
-    B, N, _ = xyz.shape
-    acc = (torch.zeros((B, 1, N), device=xyz.device) if mask is None
-           else torch.where(mask, 0.0, _PEN)[:, None, :])
-    for c in range(3):
-        dc = new_xyz[..., c, None] - xyz[:, None, :, c]  # (B, S, N)
-        acc = acc + dc * dc
+    acc = penalised_sqdist(xyz, new_xyz, mask)
     idx, valid = first_k_in_ball(acc <= r2, k)
     centred = index_points(xyz, idx) - new_xyz[:, :, None, :]
     if feats is None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 _BIG = 1e10  # used instead of +inf, as in the JAX package
+_PEN = 1e9  # the TPU kernels' distance penalty on masked points
 
 
 def pairwise_sqdist(
@@ -44,6 +45,20 @@ def index_points(points, idx):
     B, C = points.shape[0], points.shape[-1]
     flat = idx.reshape(B, -1, 1).long().expand(-1, -1, C)
     return torch.gather(points, 1, flat).reshape(*idx.shape, C)
+
+
+def penalised_sqdist(xyz, new_xyz, mask):
+    """(B, S, N): ((pen + dx^2) + dy^2) + dz^2 on direct differences
+    (centroid minus point), pen = 1e9 on masked points: the TPU grouping
+    kernels' distance, in their order. xyz (B, N, 3), new_xyz (B, S, 3),
+    mask (B, N) bool or None."""
+    B, N, _ = xyz.shape
+    acc = (torch.zeros((B, 1, N), device=xyz.device) if mask is None
+           else torch.where(mask, 0.0, _PEN)[:, None, :])
+    for c in range(3):
+        dc = new_xyz[..., c, None] - xyz[:, None, :, c]  # (B, S, N)
+        acc = acc + dc * dc
+    return acc
 
 
 def first_k_in_ball(in_ball, k: int):
@@ -113,33 +128,40 @@ def ball_query(radius: float, k: int, xyz, new_xyz, mask=None):
 
 def group_neighbors(xyz, feats, new_xyz, k: int, radius=None, mask=None,
                     with_xyz: bool = True):
-    """kNN grouping and gather in one step, through the `knn_group` kernel.
+    """Neighbourhood grouping and gather in one step: kNN through the
+    `knn_group` kernel, a ball (`radius` set) through the `group_gather`
+    kernel.
 
     xyz (B, N, 3), feats (B, N, F) or None, new_xyz (B, S, 3) queries, mask
     (B, N) bool or None. Returns (grouped_xyz (B, S, k, 3), not centred, or
     None when `with_xyz` is False; grouped_feats (B, S, k, F) or None;
-    idx (B, S, k) int32; valid (B, S, k) bool, all True in kNN mode).
+    idx (B, S, k) int32; valid (B, S, k) bool: all True in kNN mode, the
+    in-ball flag in ball mode).
 
-    Any k goes to the kernel: the JAX package's `k % 8` gate
-    (geometry.py:201-202) was the TPU kernel's store alignment. The
-    `radius=` mode goes, in the JAX package, through the legacy grouping
-    kernel (`_group_kernel`), which is ported with the MSG set abstraction.
+    kNN: slots in distance order, the lowest index first on ties. Ball: the
+    first k in-radius points by index order, slots past the in-ball count
+    repeating slot 0 (point 0 in an empty ball). Both select on direct
+    differences with masked points 1e9 away, as the TPU kernels do. Any k
+    goes to the kernels: the JAX package's `k % 8` gate (geometry.py:201-202)
+    and ball limits (k <= 256, N <= 16384) came from the TPU kernels' tiles
+    and bf16 index channels. `feats=None` also takes the kernel, with no
+    feature rows; on a TPU the JAX package sends that case to its XLA
+    `ball_query` (the matmul expansion of the distance), which can differ
+    for a point within a few ulps of the radius.
     """
-    if radius is not None:
-        raise NotImplementedError(
-            "group_neighbors(radius=...) is the legacy grouping kernel's ball "
-            "mode (pointcloud_tpu/ops/pallas_kernels.py:_group_kernel), to be "
-            "ported with the MSG set abstraction (ROADMAP Queue 2 #11, Queue 1 "
-            "item 9); sample_and_group groups balls through ball_group")
-    # imported here: the kernel module imports this one
+    # imported here: the kernel modules import this one
+    from pointcloud_tpu_torch.ops.group_gather import group_gather
     from pointcloud_tpu_torch.ops.knn_group import knn_group
 
-    gx, gf, idx = knn_group(
-        xyz[..., :3].float().contiguous(),
-        None if feats is None else feats.contiguous(),
-        new_xyz[..., :3].float().contiguous(),
-        None if mask is None else mask.contiguous(), k, with_xyz)
-    valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    args = (xyz[..., :3].float().contiguous(),
+            None if feats is None else feats.contiguous(),
+            new_xyz[..., :3].float().contiguous(),
+            None if mask is None else mask.contiguous(), k)
+    if radius is None:
+        gx, gf, idx = knn_group(*args, with_xyz)
+        valid = torch.ones(idx.shape, dtype=torch.bool, device=idx.device)
+    else:
+        gx, gf, idx, valid = group_gather(*args, float(radius), with_xyz)
     return None if gx is None else gx.to(xyz.dtype), gf, idx, valid
 
 

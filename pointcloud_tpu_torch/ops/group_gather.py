@@ -1,0 +1,186 @@
+"""Ball query + uncentred gather (the legacy grouping's ball mode): CUDA
+kernel, plain version, wrapper.
+
+Port of the ball mode of pointcloud_tpu/ops/pallas_kernels.py:_group_kernel
+(`grouped_gather` with a radius), which the JAX package's `group_neighbors`
+reaches for a ball grouping; its one caller is the multi-scale-grouping set
+abstraction. The kernel is csrc/group_gather.cu; its note states the design
+and the bound. `group_gather` launches it for CUDA tensors and takes the
+plain version `group_gather_reference` only for CPU tensors. Its gradient (a
+port of `_grouped_gather_bwd`) is one `scatter_rows` of the gathered rows'
+cotangents back onto the points, on either device.
+
+The outputs are in `group_neighbors`' public layout (B, S, k, .), where the
+TPU kernel writes (B, k, C, S) and the JAX package transposes. Membership
+follows the TPU kernel: ((pen + dx^2) + dy^2) + dz^2 <= r2 on direct
+differences, pen = 1e9 on masked points, r2 = float32(radius**2) taken in
+double. The TPU kernel's limits (k <= 256, N <= 16384: its bf16 rank tile
+and index channels) do not apply here, and xyz is gathered exactly where
+the TPU's bf16 path carries it as split-bf16 hi + lo: any k >= 1, any N.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from pointcloud_tpu_torch.ops import _build
+from pointcloud_tpu_torch.ops.geometry import (
+    first_k_in_ball,
+    index_points,
+    penalised_sqdist,
+)
+from pointcloud_tpu_torch.ops.scatter_rows import scatter_grouped
+
+_MAX_BATCH = 65535  # gridDim.y
+
+
+def group_gather_reference(xyz, feats, new_xyz, mask, k: int, radius: float,
+                           with_xyz: bool = True):
+    """Plain PyTorch version of the kernel; same arguments and results as
+    `group_gather`. Differentiable through its gathers by autograd."""
+    r2 = torch.tensor(radius * radius, dtype=torch.float32, device=xyz.device)
+    idx, valid = first_k_in_ball(penalised_sqdist(xyz, new_xyz, mask) <= r2, k)
+    gx = index_points(xyz, idx) if with_xyz else None
+    gf = None if feats is None else index_points(feats, idx)
+    return gx, gf, idx, valid
+
+
+@functools.cache
+def _launcher():
+    fn = _build.load("group_gather").group_gather_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _word_bytes(row_bytes: int, *tensors) -> int:
+    """The widest word (16, 8, 4 or 2 bytes) that divides a feature row and
+    the base address of every tensor: the kernel copies rows as such words."""
+    for w in (16, 8, 4, 2):
+        if row_bytes % w == 0 and all(t.data_ptr() % w == 0 for t in tensors):
+            return w
+    raise ValueError(f"group_gather: feature rows of {row_bytes} bytes are not "
+                     f"a whole number of 2-byte words")
+
+
+def _group(xyz, feats, new_xyz, mask, k: int, radius: float, with_xyz: bool):
+    """`group_gather` without its gradient: checks, then the kernel or the
+    plain version."""
+    if xyz.dim() != 3 or xyz.shape[2] != 3 or new_xyz.dim() != 3 \
+            or new_xyz.shape[2] != 3 or new_xyz.shape[0] != xyz.shape[0]:
+        raise ValueError(f"group_gather takes xyz (B, N, 3) and new_xyz (B, S, 3); "
+                         f"got {tuple(xyz.shape)} and {tuple(new_xyz.shape)}")
+    B, N, _ = xyz.shape
+    S = new_xyz.shape[1]
+    if feats is not None and (feats.dim() != 3 or feats.shape[:2] != (B, N)):
+        raise ValueError(f"feats must be (B, N, F) = ({B}, {N}, F); got "
+                         f"{tuple(feats.shape)}")
+    if mask is not None and (mask.dtype != torch.bool or mask.shape != (B, N)):
+        raise ValueError(f"mask must be bool of shape {(B, N)}; got "
+                         f"{mask.dtype} {tuple(mask.shape)}")
+    if k < 1 or not radius > 0:
+        raise ValueError(f"group_gather needs k >= 1 and radius > 0; got k={k}, "
+                         f"radius={radius}")
+    devices = {t.device for t in (xyz, feats, new_xyz, mask) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"group_gather inputs lie on several devices: {devices}")
+    device = devices.pop()
+    if device.type == "cpu":
+        return group_gather_reference(xyz, feats, new_xyz, mask, k, radius,
+                                      with_xyz)
+    if device.type != "cuda":
+        raise ValueError(f"group_gather runs on CPU or CUDA tensors, not {device}")
+    if xyz.dtype != torch.float32 or new_xyz.dtype != torch.float32 or (
+            feats is not None and feats.dtype not in (torch.float32, torch.bfloat16)):
+        raise TypeError(f"group_gather kernel takes fp32 xyz and centroids and "
+                        f"fp32/bf16 features; got {xyz.dtype}, {new_xyz.dtype}, "
+                        f"{None if feats is None else feats.dtype}")
+    if not all(t.is_contiguous() for t in (xyz, feats, new_xyz, mask)
+               if t is not None):
+        raise ValueError("group_gather kernel takes contiguous tensors")
+    if not (1 <= B <= _MAX_BATCH and N >= 1 and S >= 1):
+        raise ValueError(f"group_gather kernel bounds exceeded: B={B} N={N} S={S}")
+
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=device)
+    valid = torch.empty((B, S, k), dtype=torch.bool, device=device)
+    gx = (torch.empty((B, S, k, 3), dtype=torch.float32, device=device)
+          if with_xyz else None)
+    gf = (None if feats is None else
+          torch.empty((B, S, k, feats.shape[2]), dtype=feats.dtype, device=device))
+    row_bytes = 0 if feats is None else feats.shape[2] * feats.element_size()
+    word = _word_bytes(row_bytes, feats, gf) if row_bytes else 4
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))  # exact in fp32
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    launch = _launcher()
+    with torch.cuda.device(device):
+        err = launch(
+            xyz.data_ptr(), ptr(feats), word, row_bytes // word,
+            new_xyz.data_ptr(), ptr(mask), B, N, S, k, r2, ptr(gx), ptr(gf),
+            idx.data_ptr(), valid.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"group_gather kernel launch failed: CUDA error {err}")
+    group_gather.launches += 1
+    return gx, gf, idx, valid
+
+
+class _GroupGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xyz, feats, new_xyz, mask, k, radius, with_xyz):
+        gx, gf, idx, valid = _group(xyz, feats, new_xyz, mask, k, radius, with_xyz)
+        ctx.save_for_backward(idx)
+        ctx.n_points = xyz.shape[1]
+        ctx.with_xyz = with_xyz
+        ctx.feat_dtype = None if feats is None else feats.dtype
+        ctx.mark_non_differentiable(idx, valid)
+        return gx, gf, idx, valid
+
+    @staticmethod
+    def backward(ctx, dgx, dgf, didx, dvalid):
+        del didx, dvalid
+        (idx,) = ctx.saved_tensors
+        # new_xyz and the mask get none: the selection is not differentiable
+        with_xyz = ctx.with_xyz and ctx.needs_input_grad[0]
+        with_feats = ctx.feat_dtype is not None and ctx.needs_input_grad[1]
+        d_xyz, d_feats = scatter_grouped(idx, ctx.n_points,
+                                         dgx if with_xyz else None,
+                                         dgf if with_feats else None,
+                                         ctx.feat_dtype)
+        return d_xyz, d_feats, None, None, None, None, None
+
+
+def group_gather(xyz, feats, new_xyz, mask, k: int, radius: float,
+                 with_xyz: bool = True):
+    """Group the first k points within `radius` of each centroid, by index.
+
+    xyz (B, N, 3) fp32, feats (B, N, F) fp32 or bf16 or None, new_xyz
+    (B, S, 3) fp32 centroids, mask (B, N) bool (True = valid) or None.
+    Returns (grouped_xyz (B, S, k, 3) fp32, not centred, or None when
+    `with_xyz` is False; grouped_feats (B, S, k, F) in the features' dtype,
+    or None without features; idx (B, S, k) int32, slots past the in-ball
+    count repeating slot 0 and point 0 in an empty ball; valid (B, S, k)
+    bool, the slot inside the ball).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel,
+    which takes contiguous tensors; anything else raises.
+    `group_gather.launches` counts the kernel's launches.
+
+    Differentiable in xyz and feats (the selection is not; new_xyz and the
+    mask get no gradient): the cotangents of the gathered rows, padded slots
+    included, go back onto the points through one `scatter_rows`
+    (deterministic), as bf16 rows when the features are bf16; only the
+    gradients that are needed are formed.
+    """
+    return _GroupGather.apply(xyz, feats, new_xyz, mask, k, radius, with_xyz)
+
+
+group_gather.launches = 0

@@ -30,23 +30,12 @@ import functools
 import torch
 
 from pointcloud_tpu_torch.ops import _build
-from pointcloud_tpu_torch.ops.geometry import index_points
-from pointcloud_tpu_torch.ops.scatter_rows import scatter_rows
+from pointcloud_tpu_torch.ops.geometry import index_points, penalised_sqdist
+from pointcloud_tpu_torch.ops.scatter_rows import scatter_grouped
 
 _PEN = 1e9
 _MAX_BATCH = 65535  # gridDim.y
 _MAX_POINTS = 1 << 30  # N stays a C int with room for the chunk arithmetic
-
-
-def _penalised_sqdist(xyz, new_xyz, mask):
-    """(B, S, N): ((pen + dx^2) + dy^2) + dz^2, the kernel's order."""
-    B, N, _ = xyz.shape
-    acc = (torch.zeros((B, 1, N), device=xyz.device) if mask is None
-           else torch.where(mask, 0.0, _PEN)[:, None, :])
-    for c in range(3):
-        dc = new_xyz[..., c, None] - xyz[:, None, :, c]  # (B, S, N)
-        acc = acc + dc * dc
-    return acc
 
 
 def knn_select(d, k: int):
@@ -65,7 +54,7 @@ def knn_select(d, k: int):
 def knn_group_reference(xyz, feats, new_xyz, mask, k: int, with_xyz: bool = False):
     """Plain PyTorch version of the kernel; same arguments and results as
     `knn_group`. Differentiable through its gathers by autograd."""
-    idx = knn_select(_penalised_sqdist(xyz, new_xyz, mask), k)
+    idx = knn_select(penalised_sqdist(xyz, new_xyz, mask), k)
     gx = index_points(xyz, idx) if with_xyz else None
     gf = None if feats is None else index_points(feats, idx)
     return gx, gf, idx
@@ -162,18 +151,10 @@ class _KnnGroup(torch.autograd.Function):
         # output; new_xyz none: the selection is not differentiable
         with_xyz = ctx.with_xyz and ctx.needs_input_grad[0]
         with_feats = ctx.feat_dtype is not None and ctx.needs_input_grad[1]
-        parts = ([dgx.float()] if with_xyz else []) + (
-            [dgf.float()] if with_feats else [])
-        if not parts:
-            return None, None, None, None, None, None
-        # bf16 features: the cotangent rows are scattered as bf16 (fp32 sums),
-        # as the JAX package does
-        rows = torch.cat(parts, -1).reshape(B, S * k, -1).to(
-            torch.bfloat16 if ctx.feat_dtype == torch.bfloat16 else torch.float32)
-        scat = scatter_rows(rows.contiguous(), idx.reshape(B, S * k), ctx.n_points)
-        d_xyz = scat[..., :3] if with_xyz else None
-        d_feats = scat[..., 3 if with_xyz else 0:].to(ctx.feat_dtype) \
-            if with_feats else None
+        d_xyz, d_feats = scatter_grouped(idx, ctx.n_points,
+                                         dgx if with_xyz else None,
+                                         dgf if with_feats else None,
+                                         ctx.feat_dtype)
         return d_xyz, d_feats, None, None, None, None
 
 

@@ -98,3 +98,26 @@ def scatter_rows(g, idx, n: int, init=None):
 
 
 scatter_rows.launches = 0
+
+
+def scatter_grouped(idx, n: int, dgx, dgf, feat_dtype):
+    """The gradient of a grouping's gathers (the JAX package's
+    `_grouped_gather_bwd` and `_gg_knn_bwd`): the cotangents dgx
+    (B, S, k, 3) of the gathered xyz and dgf (B, S, k, F) of the gathered
+    features, either None where that gradient is not needed, concatenated
+    over the B x S*k rows idx (B, S, k) and sent back onto the n points by
+    one `scatter_rows`. The rows are bf16 when the features are bf16 (fp32
+    sums), as in the JAX package. Returns (d_xyz (B, n, 3) fp32 or None,
+    d_feats (B, n, F) in `feat_dtype` or None); no launch when both are
+    None."""
+    parts = [g.float() for g in (dgx, dgf) if g is not None]
+    if not parts:
+        return None, None
+    B, S, k = idx.shape
+    rows = torch.cat(parts, -1).reshape(B, S * k, -1).to(
+        torch.bfloat16 if feat_dtype == torch.bfloat16 else torch.float32)
+    scat = scatter_rows(rows.contiguous(), idx.reshape(B, S * k), n)
+    d_xyz = None if dgx is None else scat[..., :3]
+    d_feats = None if dgf is None else scat[..., 0 if dgx is None else 3:].to(
+        feat_dtype)
+    return d_xyz, d_feats

@@ -6,5 +6,5 @@ from pointcloud_tpu_torch.train.harness import (  # noqa: F401
     make_eval_step,
     make_optimizer,
     make_train_step,
-    zero_gradient_bias,
+    zero_gradient_biases,
 )

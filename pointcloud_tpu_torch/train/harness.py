@@ -27,7 +27,8 @@ from pointcloud_tpu_torch.losses import (
     _noop_log,
 )
 from pointcloud_tpu_torch.models.architectures import AE, SegAE, backbone_factory
-from pointcloud_tpu_torch.models.layers import init_flax_
+from pointcloud_tpu_torch.models.layers import BatchNorm, Dense, init_flax_
+from pointcloud_tpu_torch.models.pointnet import DenseBNMaxPool
 from pointcloud_tpu_torch.transforms import Normalize
 
 
@@ -152,18 +153,22 @@ def make_train_step(spec: TrainSpec, optimizer: torch.optim.Optimizer):
     return step
 
 
-def zero_gradient_bias(name: str) -> bool:
-    """True for the state_dict name of a Dense bias that feeds a train-mode
-    BatchNorm (the PointwiseMLP and STN Dense_0/Dense_1 biases, every
-    DenseBNMaxPool bias): the batch mean removes it, so its true gradient is
-    exactly 0 and a computed one is round-off. Checks of gradients and of
-    Adam's steps treat these apart."""
-    return name.endswith("bias") and (
-        ("PointwiseMLP" in name or name.startswith("encoder.backbone.mlp"))
-        and ".Dense_" in name
-        or ("DenseBNMaxPool" in name or "dbnpool" in name)
-        or (".stn." in name or ".fstn." in name)
-        and name.split(".")[-2] in ("Dense_0", "Dense_1"))
+def zero_gradient_biases(model: nn.Module) -> set[str]:
+    """The state_dict names of the Dense biases that feed a train-mode
+    BatchNorm: the bias of a Dense registered just before a BatchNorm in
+    the same module, and every DenseBNMaxPool's bias. The batch mean removes
+    such a bias, so its true gradient is exactly 0 and a computed one is
+    round-off. Checks of gradients and of Adam's steps treat these apart."""
+    names = set()
+    for prefix, mod in model.named_modules():
+        at = prefix + "." if prefix else ""
+        if isinstance(mod, DenseBNMaxPool):
+            names.add(at + "bias")
+        kids = list(mod.named_children())
+        for (name, a), (_, b) in zip(kids, kids[1:]):
+            if isinstance(a, Dense) and isinstance(b, BatchNorm) and a.bias is not None:
+                names.add(f"{at}{name}.bias")
+    return names
 
 
 def make_eval_step(spec: TrainSpec):

@@ -171,7 +171,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.ops.preextract_fused, "
         "pointcloud_tpu_torch.ops.sinkhorn, pointcloud_tpu_torch.ops.emd, "
         "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms, "
-        "pointcloud_tpu_torch.models.pointmlp, pointcloud_tpu_torch.ops.knn_group\n"
+        "pointcloud_tpu_torch.models.pointmlp, pointcloud_tpu_torch.ops.knn_group, "
+        "pointcloud_tpu_torch.ops.group_gather\n"
         "from pointcloud_tpu_torch.train import make_train_step\n"
         "from pointcloud_tpu_torch.losses import EarthMoverDistance\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "

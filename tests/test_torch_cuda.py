@@ -30,6 +30,8 @@ from pointcloud_tpu_torch.ops import (
     eps_schedule,
     farthest_point_sample,
     fps_reference,
+    group_gather,
+    group_gather_reference,
     knn_group,
     knn_group_reference,
     matching_difference,
@@ -1037,3 +1039,108 @@ def test_knn_group_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
         knn_group(xyz, feats, cents, mask.cpu(), 8)
     with pytest.raises(ValueError):
         knn_group(xyz, feats, cents, mask, 0)
+
+
+def legacy_ball_case(dev, seed, B, N, S, F, dtype, masked):
+    """Unit-cube clouds, centroids on every (N // S)-th point, the last one
+    far outside (an empty ball); with masks ~1/3 of the points masked and
+    cloud 2 without a valid point (every ball empty)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand((B, N, 3), generator=g, device=dev)
+    feats = (torch.randn((B, N, F), generator=g, device=dev).to(dtype)
+             if F else None)
+    cents = xyz[:, :: max(1, N // S)][:, :S].clone()
+    cents[:, -1] += 5.0
+    mask = None
+    if masked:
+        mask = torch.rand((B, N), generator=g, device=dev) > 0.33
+        mask[2] = False
+    return xyz, feats, cents.contiguous(), mask
+
+
+@pytest.mark.parametrize("N,S,k,F,radius,with_xyz", [(2048, 512, 16, 3, 0.1, True),
+                                                     (512, 128, 128, 320, 0.8, True),
+                                                     (300, 40, 5, 7, 0.3, False),
+                                                     (256, 16, 40, 0, 0.2, True),
+                                                     (20, 4, 32, 3, 0.5, True),
+                                                     (5000, 64, 24, 4, 0.1, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_group_gather_matches_plain_and_is_deterministic(dev, N, S, k, F, radius,
+                                                         with_xyz, dtype, masked):
+    """Bit-equal outputs: the same membership test (rounded intrinsics in the
+    plain version's order), the first k in index order, exact gathers; the
+    shared-memory and global paths, k above the in-ball count and above N,
+    no features, 2-, 4- and 16-byte feature words, with_xyz both ways."""
+    xyz, feats, cents, mask = legacy_ball_case(dev, N + k, 3, N, S, F, dtype,
+                                               masked)
+    got = group_gather(xyz, feats, cents, mask, k, radius, with_xyz)
+    again = group_gather(xyz, feats, cents, mask, k, radius, with_xyz)
+    torch.cuda.synchronize()
+    want = group_gather_reference(xyz, feats, cents, mask, k, radius, with_xyz)
+    for a, b, w in zip(got, again, want):
+        assert (a is None) == (b is None) == (w is None)
+        if w is not None:
+            assert torch.equal(a, b)
+            assert a.dtype == w.dtype and torch.equal(a, w)
+    idx, valid = got[2], got[3]
+    assert idx.shape == (3, S, k) and idx.dtype == torch.int32
+    assert (idx[:, -1] == 0).all() and not valid[:, -1].any()  # the empty ball
+    if masked:
+        assert (idx[2] == 0).all() and not valid[2].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_gather_gradient_matches_the_cpu_path(dev, dtype):
+    """One scatter_rows launch per backward, bit-equal over two runs; fp32
+    gradients 1e-5 relative to the largest (summation order), bf16 feature
+    gradients within one bf16 ulp; in fp32 also against autograd through the
+    plain version on the card."""
+    xyz, feats, cents, mask = legacy_ball_case(dev, 6, 3, 512, 64, 6, dtype, True)
+    torch.manual_seed(0)
+    cws = [torch.randn((3, 64, 16, c), device=dev) for c in (3, 6)]
+
+    def grads(fn, d):
+        leaves = [t.to(d).clone().requires_grad_() for t in (xyz, feats)]
+        gx, gf, _, _ = fn(*leaves, cents.to(d), mask.to(d), 16, 0.3)
+        loss = sum((o.float() * cw.to(d)).sum() for o, cw in zip((gx, gf), cws))
+        return [g.to(dev) for g in torch.autograd.grad(loss, leaves)]
+
+    before = (group_gather.launches, scatter_rows.launches)
+    got = grads(group_gather, dev)
+    assert (group_gather.launches, scatter_rows.launches) == (before[0] + 1,
+                                                              before[1] + 1)
+    again = grads(group_gather, dev)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    refs = [grads(group_gather, "cpu")]
+    if dtype == torch.float32:
+        refs.append(grads(group_gather_reference, dev))
+    for want in refs:
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            if w.dtype == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    w.float().abs().clamp_min(1e-30))) - 7)
+                assert ((g.float() - w.float()).abs() <= ulp + 1e-6).all()
+            else:
+                assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def test_group_gather_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
+    xyz, feats, cents, mask = legacy_ball_case(dev, 7, 3, 256, 16, 3, torch.float32,
+                                               True)
+    before = group_gather.launches
+    group_gather(xyz, feats, cents, mask, 8, 0.3)
+    group_gather(xyz.cpu(), feats.cpu(), cents.cpu(), mask.cpu(), 8, 0.3)
+    assert group_gather.launches == before + 1
+    with pytest.raises(TypeError):
+        group_gather(xyz, feats.half(), cents, mask, 8, 0.3)
+    with pytest.raises(TypeError):
+        group_gather(xyz.bfloat16(), feats, cents, mask, 8, 0.3)
+    with pytest.raises(ValueError):
+        group_gather(xyz, feats.transpose(0, 1).contiguous().transpose(0, 1), cents,
+                     mask, 8, 0.3)
+    with pytest.raises(ValueError):
+        group_gather(xyz, feats, cents, mask.cpu(), 8, 0.3)
+    with pytest.raises(ValueError):
+        group_gather(xyz, feats, cents, mask, 0, 0.3)

@@ -60,6 +60,7 @@ from pointcloud_tpu_torch.ops import (
     sinkhorn_reference,
 )
 from pointcloud_tpu_torch.train import harness as tharness
+from pointcloud_tpu_torch.train.harness import zero_gradient_biases
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 LOSS_TOL = 1e-5
@@ -221,7 +222,7 @@ def first_steps(slice_pair):
             "jafter1": params_np(params), "init": init, "tout": to_np(tout),
             "tloss": tloss, "tlogs": tlogs,
             "tgrads": {k: to_np(g.grad) for k, g in tspec.model.named_parameters()},
-            "tafter1": port_params(tspec)}
+            "tafter1": port_params(tspec), "zero": zero_gradient_biases(tspec.model)}
 
 
 def test_first_train_step_loss_matches_jax(first_steps):
@@ -238,7 +239,8 @@ def test_first_train_step_loss_matches_jax(first_steps):
 
 def test_first_train_step_gradients_match_jax(first_steps):
     s = first_steps
-    check_first_step_grads(s["tgrads"], s["jgrads"], 1e-3, head_weights_frac=0.98)
+    check_first_step_grads(s["tgrads"], s["jgrads"], 1e-3, s["zero"],
+                           head_weights_frac=0.98)
     # the decoder's last layer sees the loss's gradient directly
     k = "decoder.MLP_0.Dense_3.bias"
     assert np.abs(s["jgrads"][k]).max() > 0
@@ -254,7 +256,7 @@ def check_update(after1, s):
     head = [k for k in s["jgrads"] if k.endswith("stn.Dense_2.weight")]
     assert len(head) == 2
     check_first_update(after1, s["jafter1"], s["init"],
-                       {k: g for k, g in s["jgrads"].items() if k not in head})
+                       {k: g for k, g in s["jgrads"].items() if k not in head}, s["zero"])
     for k in head:
         g = s["jgrads"][k]
         ut, uj = after1[k] - s["init"][k], s["jafter1"][k] - s["init"][k]

@@ -202,7 +202,9 @@ def test_knn_rejects_what_it_cannot_do():
 @pytest.mark.parametrize("with_xyz", [False, True])
 def test_group_neighbors_matches_both_jax_routes(with_xyz):
     """The TPU route (interpret mode) exactly; the XLA route (knn +
-    index_points) as sets, on an input with a margin; radius mode raises."""
+    index_points) as sets, on an input with a margin; radius mode is the
+    legacy kernel's ball mode (tests/test_torch_group_gather.py), equal to
+    the TPU route's."""
     xyz, feats, cents, mask = case(80, 2, 128, 16, 5)
     k = 16
     args = [torch.from_numpy(a) for a in (xyz, feats, cents)]
@@ -224,8 +226,14 @@ def test_group_neighbors_matches_both_jax_routes(with_xyz):
                                            impl="xla", with_xyz=with_xyz)
     np.testing.assert_array_equal(np.sort(to_np(idx), -1),
                                   np.sort(np.asarray(xidx), -1))
-    with pytest.raises(NotImplementedError, match="Queue 2 #11"):
-        tgeo.group_neighbors(*args, k, radius=0.2)
+    ball = tgeo.group_neighbors(*args, k, radius=0.2, mask=torch.from_numpy(mask),
+                                with_xyz=with_xyz)
+    jball = jgeo.group_neighbors(*jargs, k, radius=0.2, mask=jnp.asarray(mask),
+                                 impl="pallas", interpret=True, with_xyz=with_xyz)
+    for got, want in zip(ball, jball):
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(to_np(got), np.asarray(want))
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -58,7 +58,7 @@ from torch_port_utils import raw_clouds, record_pool_gaps, to_np
 from pointcloud_tpu.train import harness as jharness
 from pointcloud_tpu_torch.interop import flax_to_state_dict, load_flax_variables
 from pointcloud_tpu_torch.train import harness as tharness
-from pointcloud_tpu_torch.train.harness import zero_gradient_bias
+from pointcloud_tpu_torch.train.harness import zero_gradient_biases
 
 MARGIN = 1e-5
 POOL_GAP = 3e-6
@@ -110,7 +110,7 @@ def test_three_train_steps_match_jax(jax_steps, monkeypatch):
     c1 = centroids(xyz, 512)
     assert margin(xyz, c1, 0.2) > MARGIN
     assert margin(c1, centroids(c1, 128), 0.4) > MARGIN
-    assert not any(zero_gradient_bias(k) for k in j["grads"])
+    assert not zero_gradient_biases(tspec.model)
 
     x, y = torch.from_numpy(j["x"]), torch.from_numpy(j["y"])
     step = tharness.make_train_step(tspec, tharness.make_optimizer(tspec))
@@ -128,7 +128,7 @@ def test_three_train_steps_match_jax(jax_steps, monkeypatch):
             for k, w in j["grads"].items():
                 close_grads(tgrads[k], w, k, top)
             check_first_update(port_params(tspec), j["after1"], j["init"],
-                               j["grads"])
+                               j["grads"], set())
     assert abs(tlosses[0] - j["losses"][0]) <= 1e-5 * j["losses"][0]
     np.testing.assert_allclose(tlosses, j["losses"], rtol=3e-3)
     assert all(np.isfinite(tlosses))
@@ -166,4 +166,4 @@ def test_first_update_rejects_planted_fault(jax_steps, fault):
     for k, w in after1.items():  # within the three-step bound all the same
         assert np.abs(w - j["after1"][k]).max() <= 2 * STEPS * LR, k
     with pytest.raises(AssertionError):
-        check_first_update(after1, j["after1"], j["init"], j["grads"])
+        check_first_update(after1, j["after1"], j["init"], j["grads"], set())

@@ -21,7 +21,7 @@ different orders. These effects set the tolerances:
     4096 rows that can cancel to 1% of their size);
     tests/test_torch_pointnet_train.py holds the heads at B=8 and B=16.
   * The trap: the bias of a Dense layer that feeds a train-mode BatchNorm
-    (`zero_gradient_bias`) has a true gradient of exactly 0, as the batch
+    (`zero_gradient_biases`) has a true gradient of exactly 0, as the batch
     mean removes it. Both packages leave round-off there; the tests check
     that it is round-off (below 1e-4 of the largest gradient).
   * Adam's first step moves an entry by lr * g / (|g| + eps): -lr * sign(g)
@@ -54,7 +54,7 @@ from torch_port_utils import to_np
 from pointcloud_tpu.train import harness as jharness
 from pointcloud_tpu_torch.interop import flax_to_state_dict, load_flax_variables
 from pointcloud_tpu_torch.train import harness as tharness
-from pointcloud_tpu_torch.train.harness import zero_gradient_bias
+from pointcloud_tpu_torch.train.harness import zero_gradient_biases
 
 LR = 1e-3
 STEPS = 3
@@ -105,12 +105,12 @@ def jax_first_step(jspec, v, x, y):
     return float(loss), params_np(grads)
 
 
-def check_first_step_grads(got, want, rel, head_weights_frac=None):
+def check_first_step_grads(got, want, rel, zero, head_weights_frac=None):
     assert set(got) == set(want)
     top = max(float(np.abs(a).max()) for a in want.values())
     for k, w in want.items():
         g = got[k]
-        if zero_gradient_bias(k):
+        if k in zero:
             assert np.abs(g).max() <= 1e-4 * top, k
             assert np.abs(w).max() <= 1e-4 * top, k
             continue
@@ -122,7 +122,7 @@ def check_first_step_grads(got, want, rel, head_weights_frac=None):
         np.testing.assert_allclose(g, w, rtol=rel, atol=atol, err_msg=k)
 
 
-def check_first_update(got, want, init, grads):
+def check_first_update(got, want, init, grads, zero):
     """The first step's update (parameter after minus before) of the port,
     `got`, against JAX's, `want`: 1e-3 relative wherever the first-step
     gradient is above noise (see the module docstring), at most 2 lr apart
@@ -131,7 +131,7 @@ def check_first_update(got, want, init, grads):
     for k, g in grads.items():
         ut, uj = got[k] - init[k], want[k] - init[k]
         assert np.abs(ut - uj).max() <= 2 * LR, k
-        if zero_gradient_bias(k):
+        if k in zero:
             continue
         sig = (np.abs(g) > 1e-2 * np.abs(g).max()) & (np.abs(g) > 1e-6)
         assert sig.any() or np.abs(g).max() <= 1e-6, k
@@ -179,7 +179,8 @@ def test_first_train_step_matches_jax():
     assert logs == {} and loss.shape == ()
     assert abs(loss.item() - jloss) <= 1e-5 * jloss
     tgrads = {k: to_np(p.grad) for k, p in tspec.model.named_parameters()}
-    check_first_step_grads(tgrads, jgrads, 1e-3, head_weights_frac=0.98)
+    check_first_step_grads(tgrads, jgrads, 1e-3, zero_gradient_biases(tspec.model),
+                           head_weights_frac=0.98)
 
 
 def test_three_train_steps_match_jax(jax_steps):
@@ -189,15 +190,16 @@ def test_three_train_steps_match_jax(jax_steps):
     x, y = torch.from_numpy(j["x"]), torch.from_numpy(j["y"])
     tspec = port_spec(j["v"])
     step = tharness.make_train_step(tspec, tharness.make_optimizer(tspec))
+    zero = zero_gradient_biases(tspec.model)
     tlosses = []
     for i in range(STEPS):
         tlosses.append(step(x, y)[0].item())
         if i == 0:
             check_first_step_grads(
                 {k: to_np(p.grad) for k, p in tspec.model.named_parameters()},
-                j["grads"], 1e-3)
+                j["grads"], 1e-3, zero)
             check_first_update(port_params(tspec), j["after1"], j["init"],
-                               j["grads"])
+                               j["grads"], zero)
     jlosses = j["losses"]
     assert abs(tlosses[0] - jlosses[0]) <= 1e-5 * jlosses[0]
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-3)
@@ -234,4 +236,5 @@ def test_first_update_rejects_planted_fault(jax_steps, fault):
     for k, w in after1.items():  # within the three-step bound all the same
         assert np.abs(w - j["after1"][k]).max() <= 2 * STEPS * LR, k
     with pytest.raises(AssertionError):
-        check_first_update(after1, j["after1"], j["init"], j["grads"])
+        check_first_update(after1, j["after1"], j["init"], j["grads"],
+                           zero_gradient_biases(tspec.model))

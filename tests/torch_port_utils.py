@@ -189,3 +189,115 @@ def train_mode_pair(jmod, tmod, variables, x, seed, jtrain=None, **kw):
     tstats = {k: to_np(b) for k, b in tmod.named_buffers()}
     return {"jax": (np.asarray(jout), jgr, jstats, np.asarray(jdx)),
             "port": (to_np(tout), tgr, tstats, to_np(tx.grad))}
+
+
+MSG_RADII = ((0.1, 0.2, 0.4), (0.2, 0.4, 0.8))  # PointNet2MSGEncoder's levels
+
+
+def msg_spec(device="cpu", seed=0):
+    """The port's TrainSpec of the multi-scale-grouping PointNet2
+    autoencoder, wired as `create_model("Autoencoder", ..., "Cube",
+    loss_override="chamfer")` wires the factory's backbones (the factory has
+    no MSG entry, as the JAX package's has none)."""
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.envs.scenes import scene_config
+    from pointcloud_tpu_torch.losses import ChamferDistance
+    from pointcloud_tpu_torch.models import AE, PointNet2MSGEncoder
+    from pointcloud_tpu_torch.models.layers import init_flax_
+    from pointcloud_tpu_torch.train.harness import TrainSpec
+    from pointcloud_tpu_torch.transforms import Normalize
+
+    device = torch.device(device)
+    sc = scene_config("Cube")
+    dtype = cfg.compute_dtype(device)
+    model = AE(PointNet2MSGEncoder(feature_dims=3, dtype=dtype),
+               out_points=sc.sample_points, out_dim=6,
+               bottleneck=sum(sc.class_latent_dim), dtype=dtype)
+    init_flax_(model, torch.Generator().manual_seed(seed))
+    return TrainSpec(model=model.to(device).eval(), loss=ChamferDistance(),
+                     in_transform=Normalize(sc.bbox),
+                     out_transform=Normalize(sc.bbox), model_type="Autoencoder",
+                     backbone="PointNet2MSG", scene_name="Cube", scene=sc)
+
+
+def jax_msg_spec():
+    """The JAX package's TrainSpec of the same model, from its own classes."""
+    from pointcloud_tpu import cfg
+    from pointcloud_tpu.envs.scenes import scene_config
+    from pointcloud_tpu.losses import ChamferDistance
+    from pointcloud_tpu.models import AE, PointNet2MSGEncoder
+    from pointcloud_tpu.train.harness import TrainSpec
+    from pointcloud_tpu.transforms import Normalize
+
+    sc = scene_config("Cube")
+    dtype = cfg.compute_dtype()
+    model = AE(PointNet2MSGEncoder(feature_dims=3, dtype=dtype),
+               out_points=sc.sample_points, out_dim=6,
+               bottleneck=sum(sc.class_latent_dim), dtype=dtype)
+    return TrainSpec(model=model, loss=ChamferDistance(), open_dataset=None,
+                     in_transform=Normalize(sc.bbox),
+                     out_transform=Normalize(sc.bbox), model_type="Autoencoder",
+                     backbone="PointNet2MSG", scene_name="Cube", scene=sc)
+
+
+def msg_flips(xyz):
+    """For each of PointNet2MSGEncoder's six (level, radius) pairs (level
+    1's FPS centroids (512) among the points, level 2's (128) among level
+    1's), the number of (centroid, point) pairs whose ball membership
+    differs between the JAX package's XLA `ball_query` (the fp32 matmul
+    expansion of the distance) and the port's direct differences. A float64
+    margin of 1e-5 of r^2 cannot be had at 1024 points a cloud (level 1's
+    r = 0.4 tests a million pairs; over 40 seeds its median margin is
+    2.5e-6), so the tests assert this count instead: 0 at every level."""
+    import jax.numpy as jnp
+
+    from pointcloud_tpu.ops.geometry import pairwise_sqdist
+    from pointcloud_tpu_torch.ops.geometry import penalised_sqdist
+
+    c1 = fps_centroids(xyz, 512)
+    c2 = fps_centroids(c1, 128)
+    out = []
+    for pts, cents, radii in ((xyz, c1, MSG_RADII[0]), (c1, c2, MSG_RADII[1])):
+        jd = np.asarray(pairwise_sqdist(jnp.asarray(cents), jnp.asarray(pts)))
+        td = to_np(penalised_sqdist(torch.from_numpy(pts), torch.from_numpy(cents),
+                                    None))
+        for r in radii:
+            r2 = np.float32(r * r)
+            out.append(int(((jd <= r2) != (td <= r2)).sum()))
+    return out
+
+
+def msg_clouds(seed, sc, n=1024):
+    """Inputs x and targets y (B=2 clouds of n points, numpy) for the MSG
+    slice tests, asserting that the seed's normalised clouds have no
+    membership flip (`msg_flips`)."""
+    from pointcloud_tpu_torch.transforms import Normalize
+
+    x = raw_clouds(np.random.default_rng(seed), sc, 2, n)
+    y = raw_clouds(np.random.default_rng(seed + 100), sc, 2, n)
+    xyz = to_np(Normalize(sc.bbox)(torch.from_numpy(x))[0])[..., :3].copy()
+    assert msg_flips(xyz) == [0] * 6
+    return x, y
+
+
+def record_dense_pool_gaps(monkeypatch):
+    """Make every plain `dense_pool_stats` (DenseBNMaxPool in train mode on
+    CPU tensors) record the smallest gap between a block's best and
+    second-best value of sign * z - pen, over all blocks and channels, into
+    the returned list (see record_pool_gaps)."""
+    from pointcloud_tpu_torch.ops import dense_bn_pool as tdp
+
+    gaps, plain = [], tdp.dense_pool_stats_reference
+
+    def recording(x, w, bias, sign, pen, pool):
+        out = plain(x, w, bias, sign, pen, pool)
+        z = (torch.matmul(x.float(), w.float()) + bias.float()).to(x.dtype).float()
+        zs = z.detach() * sign
+        if pen is not None:
+            zs = zs - pen[..., None]
+        top2 = torch.topk(zs.reshape(x.shape[0], -1, pool, w.shape[1]), 2, dim=2).values
+        gaps.append(float((top2[:, :, 0] - top2[:, :, 1]).min()))
+        return out
+
+    monkeypatch.setattr(tdp, "dense_pool_stats_reference", recording)
+    return gaps
