@@ -6,13 +6,15 @@
 Phases; any failure raises and the script exits non-zero without its result
 lines:
   1. build every kernel in pointcloud_tpu_torch/csrc/ (one nvcc each, in
-     parallel) into build/, or reuse the build;
+     parallel) into build/, or reuse the build; print the registers and
+     spills of the chain backward's kernels (ptxas -v);
   2. hold each kernel against its plain PyTorch version on the card (masks,
      fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
      equal indices, empty balls, k not a multiple of 8, the shared-memory
      and global paths; for the four passes of the Dense-BN-ReLU-pool chain
      depths 6 / 131 / 259, ragged widths, pools of 4 / 32 / 128, a fully
-     masked group, planted ties, final_relu both ways; ball_group's
+     masked group, planted ties, final_relu both ways, and each stage of
+     the backward pass (dh, da, dw) against its plain stage; ball_group's
      gradient; for the Sinkhorn matching N != M, N not a multiple of 64,
      6-dim inputs, identical clouds, constant and annealed eps, one
      iteration) and run each kernel twice on the same inputs: the results
@@ -1053,6 +1055,73 @@ def close_sums(name, got, want, tol):
     return e
 
 
+# the kernels of one chain backward pass (csrc/mlp_chain.cu), by name
+BWD_KERNELS = ("bwd_dh_kernel", "bwd_da_wgmma_kernel", "bwd_dw_wgmma_kernel",
+               "bwd_da_f32_kernel", "bwd_dw_f32_kernel")
+
+
+def bwd_stages(a, kw):
+    """The plan of one `chain_bwd_pass(*a, **kw)` and its three stage
+    launches as thunks: dh(), da(dh) -> (dzd, sdse, a_up), dw(dh, a_up)."""
+    from pointcloud_tpu_torch.ops import preextract_fused as tpf
+
+    h_up, uc, w, a_in, sc_down = a
+    (B, R, cd), cu = a_in.shape, w.shape[1]
+    pool = kw.get("pool", 1)
+    plan = tpf.bwd_plan(B * R, cd, cu, a_in.dtype == torch.bfloat16, sc_down is None,
+                        tpf._sm_count(a_in.device.index))
+    cot = {k: kw.get(k) for k in ("dz", "dosel", "amax")}
+    joins = {k: kw.get(k) for k in ("res", "skip_pool", "skip_dense")}
+    return (plan,
+            lambda: tpf._bwd_dh(plan, h_up, uc, pool=pool, **cot),
+            lambda dh: tpf._bwd_da(plan, dh, w, a_in, sc_down, kw.get("need_dzd", True),
+                                   pool=pool, **joins),
+            lambda dh, a_up: tpf._bwd_dw(plan, dh, a_up))
+
+
+def check_bwd_stages(a, kw, what):
+    """Each stage kernel of one backward pass against its plain stage on the
+    same inputs, each twice and bit-equal: dh bit-equal (its pad 0), dzd by
+    `close_act` (one bf16 ulp), a_up bit-equal, sd / se 1e-4 (fp32) or 5e-3
+    (bf16) relative, dw 1e-4 / 1e-3 relative (summation order only: both
+    sides read the same dh and a_up bits). Returns the largest dzd error and
+    relative sums error."""
+    from pointcloud_tpu_torch.ops import (
+        chain_da_reference,
+        chain_dh_reference,
+        chain_dw_reference,
+    )
+
+    h_up, uc, w, a_in, sc_down = a
+    dt, cu, cd = a_in.dtype, w.shape[1], w.shape[0]
+    tol = 1e-4 if dt == torch.float32 else 1e-3
+    plan, dh_run, da_run, dw_run = bwd_stages(a, kw)
+    dh = twice_equal(f"{what} dh stage", lambda: (dh_run(),))[0]
+    want_dh = chain_dh_reference(h_up, uc, kw.get("dz"), kw.get("dosel"),
+                                 kw.get("amax"), kw.get("pool", 1))
+    if not torch.equal(dh[:, :cu].reshape(want_dh.shape), want_dh) \
+            or bool(dh[:, cu:].float().abs().sum()):
+        raise AssertionError(f"{what}: the dh stage differs from its plain stage")
+    dzd, sdse, a_up = twice_equal(f"{what} da stage", lambda: da_run(dh))
+    need = kw.get("need_dzd", True)
+    w_dzd, w_sd, w_se, w_aup = chain_da_reference(
+        want_dh, w, a_in, sc_down, need, kw.get("res"), kw.get("skip_pool"),
+        kw.get("skip_dense"), kw.get("pool", 1))
+    e_dz = close_act(f"{what} da stage dzd", dzd, w_dzd) if need else 0.0
+    if not torch.equal(a_up[:, :cd].reshape(w_aup.shape), w_aup):
+        raise AssertionError(f"{what}: the da stage's a_up differs from its plain "
+                             f"stage's")
+    e_sums = 0.0
+    if sc_down is not None:
+        stol = 1e-4 if dt == torch.float32 else 5e-3
+        e_sums = max(close_sums(f"{what} da stage sd", sdse[0], w_sd, stol),
+                     close_sums(f"{what} da stage se", sdse[1], w_se, stol))
+    dw = twice_equal(f"{what} dw stage", lambda: (dw_run(dh, a_up),))[0]
+    e_sums = max(e_sums, close_sums(f"{what} dw stage", dw,
+                                    chain_dw_reference(w_aup, want_dh), tol))
+    return e_dz, e_sums
+
+
 def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
                   need_dx=True, planted=False, residual=False, tag=""):
     """Each pass of the chain against its plain version ON THE SAME INPUTS
@@ -1061,7 +1130,8 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
     bit-equal. mm_stats / bnact_mm_stats: h by `close_act`, ssum and ssq 1e-4
     (fp32) or 1e-3 (bf16) relative, a stored residual r (write_r) exactly
     equal. bn_pool: out, maxv, amax and hsel exactly equal (the same rounded
-    operations, lowest row on ties). chain_bwd_pass: dzd by `close_act`; dw
+    operations, lowest row on ties). chain_bwd_pass (and each of its three
+    stages against its plain stage, `check_bwd_stages`): dzd by `close_act`; dw
     1e-4 / 1e-3 relative (dh is bit-equal on both sides, so dw differs by
     summation order only); sd and se 1e-4 (fp32) or 5e-3 (bf16) relative:
     they sum the rounded dzd, whose entries differ by a bf16 ulp where the
@@ -1129,6 +1199,8 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
                     f"{what} sd/se", g, w, 1e-4 if dt == torch.float32 else 5e-3))
         worst["sums"] = max(worst["sums"], close_sums(f"{what} dw", got[3], want[3], tol))
         note("chain_bwd_pass", float((got[3] - want[3]).abs().max()))
+        e_dz, e_sums = check_bwd_stages(a, kw, what)
+        worst["dz"], worst["sums"] = max(worst["dz"], e_dz), max(worst["sums"], e_sums)
         return got
 
     passes = (product("mm_stats", mm_stats, mm_stats_reference),
@@ -1150,9 +1222,9 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
     log(f"  chain {label} {str(dt)[6:]} B={B} R={R} pool={pool} layers "
         f"{[tuple(w.shape) for w in ws]} {'residual' if residual else 'plain'}, "
         f"final_relu={final_relu}: h within tolerance, ssum/ssq rel "
-        f"{worst['stats']:.1e}; bn_pool equal; backward dzd max |err| "
-        f"{worst['dz']:.1e}, sd/se/dw rel {worst['sums']:.1e}; every kernel twice "
-        f"bit-equal")
+        f"{worst['stats']:.1e}; bn_pool equal; backward (whole passes and each "
+        f"stage: dh and a_up bit-equal) dzd max |err| {worst['dz']:.1e}, sd/se/dw "
+        f"rel {worst['sums']:.1e}; every kernel twice bit-equal")
     return saved, out
 
 
@@ -1270,14 +1342,36 @@ def chain_bounds(rows, groups, cd, cu, es, sparse, down_bn, need_dzd=True,
     return fwd, pool, bwd
 
 
+def bwd_stage_bounds(rows, groups, cd, cu, es, sparse, down_bn, need_dzd):
+    """Bounds of one backward pass's three stages, each reading its inputs
+    and writing its outputs once (dh and a_up between them): dh (5 fp32
+    operations an element), da (2 rows cd cu at the dense bf16 rate; below a
+    BatchNorm it reads h_{u-1} and writes dzd and a_up, the residual and
+    skip shares not counted), dw (2 rows cd cu)."""
+    dz = groups * cu * 8 if sparse else rows * cu * es
+    dh = bound(5 * rows * cu, 2 * rows * cu * es + dz + 16 * cu, PEAK_FP32_FLOPS)
+    if down_bn:
+        da = bound(2 * rows * cd * cu, rows * (cu + 3 * cd) * es + cd * cu * es,
+                   PEAK_BF16_FLOPS)
+    elif need_dzd:
+        da = bound(2 * rows * cd * cu, rows * (cu + cd) * es + cd * cu * es,
+                   PEAK_BF16_FLOPS)
+    else:
+        da = (0.0, "bytes")
+    dw = bound(2 * rows * cd * cu, rows * (cd + cu) * es + cd * cu * 4, PEAK_BF16_FLOPS)
+    return dh, da, dw
+
+
 def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
     """Each launch of one level's (or stage's) chain at the path's own tensors
     (`fwd` from compare_chain), walked as the chain walks them: kernel,
     plain version, a library yardstick (bf16 matmul +
     F.batch_norm(training=True) + ReLU [+ the residual add] + amax, and
     autograd through them; timed here, never called by the port) and the
-    bound. Returns rows of (kernel name, layer, ms, plain ms, library ms,
-    (bound ms, by))."""
+    bound (each backward pass and its library yardstick over 10 calls after
+    2 warm-ups); each backward pass also as its three stages alone (dh, da,
+    dw, 10 calls each), beside their bounds. Returns rows of (kernel name,
+    layer, ms, plain ms, library ms, (bound ms, by))."""
     import torch.nn.functional as F
 
     from pointcloud_tpu_torch.ops import (
@@ -1348,15 +1442,23 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
         rows, groups, 1, cl, es, False, True, res=residual, pen=pen is not None)[1]))
 
     layer = [L]
+    splits = {}
 
     def timed_bwd(*a, **kw):
-        """One backward pass, timed three ways; returns the kernel's result."""
+        """One backward pass, timed three ways, and its three stages alone;
+        returns the kernel's result."""
         layer[0] -= 1
         u = layer[0]
         h_up, _, w, a_in, sc_down = a
         cd, cu = w.shape
         res = chain_bwd_pass(*a, **kw)
-        ms = cuda_ms(lambda: chain_bwd_pass(*a, **kw), iters=3, warmup=1)
+        ms = cuda_ms(lambda: chain_bwd_pass(*a, **kw), iters=10, warmup=2)
+        _, dh_run, da_run, dw_run = bwd_stages(a, kw)
+        dh = dh_run()
+        a_up = da_run(dh)[2]
+        splits[u] = [cuda_ms(fn, iters=10, warmup=2) for fn in (
+            dh_run, lambda: da_run(dh), lambda: dw_run(dh, a_up))]
+        del dh, a_up
         plain = cuda_ms(lambda: chain_bwd_pass_reference(*a, **kw), iters=1, warmup=1)
         # library: autograd through relu(bn + res) -> matmul -> batch_norm for
         # the same cotangent, to the tensor below and to w
@@ -1376,7 +1478,7 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
             cot = kw["dz"]
         wrt = (leaf, wl) if need else (wl,)
         lib = cuda_ms(lambda: torch.autograd.grad(y, wrt, cot, retain_graph=True),
-                      iters=2, warmup=1)
+                      iters=10, warmup=2)
         del y, leaf, cot
         skip = ("pool" if "skip_pool" in kw else "dense" if "skip_dense" in kw
                 else None)
@@ -1390,9 +1492,15 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
     for name, u, ms, plain, lib, bnd in out_rows:
         cd, cu = ws[u].shape
         shape = f"C={cu} pool={pool}" if name == "bn_pool" else f"{cd}->{cu}"
+        split = ""
+        if name == "chain_bwd_pass":
+            sb = bwd_stage_bounds(rows, groups, cd, cu, es, u == L - 1, u > 0,
+                                  u > 0 or need_dx)
+            split = " | stages dh / da / dw " + " / ".join(
+                f"{t:.3f} ms (bound {b[0]:.3f})" for t, b in zip(splits[u], sb))
         log(f"  {level} {name} layer {u} rows={rows} {shape}: kernel {ms:.3f} ms | "
             f"plain {plain:.3f} ms | library {lib:.3f} ms | bound {bnd[0]:.3f} ms "
-            f"({bnd[1]})")
+            f"({bnd[1]}){split}")
     return out_rows
 
 
@@ -3176,6 +3284,11 @@ def main(argv=None) -> int:
     secs = _build.build()
     log(f"[build] {_build.sources()} -> {_build.BUILD_DIR}: {secs:.1f} s "
         f"({'built' if secs else 'reused'})")
+    for kernel, regs, st, ld in _build.ptxas_report("mlp_chain"):
+        name = next((k for k in BWD_KERNELS if k in kernel), None)
+        if name:
+            log(f"  ptxas {name} {kernel[kernel.index(name) + len(name):][:40]}: "
+                f"{regs} registers, spills {st} B stored / {ld} B loaded")
 
     # ---- 2. kernels vs plain versions ----
     log("[kernels vs plain versions]")
@@ -3223,7 +3336,8 @@ def main(argv=None) -> int:
     check_chain(gen_chain, 3, 1280, [(131, 128), (128, 200), (200, 72)], 128, f32, False, False, err)
     check_chain(gen_chain, 4, 128, [(259, 256), (256, 512), (512, 1024)], 128, bf, False, True, err)
     check_chain(gen_chain, 2, 96, [(259, 40)], 32, f32, True, True, err)
-    check_chain(gen_chain, 2, 96, [(6, 24), (24, 130)], 4, bf, True, True, err)
+    # (a ragged hidden width: 130 channels below a BatchNorm, w padded at 24 -> 130)
+    check_chain(gen_chain, 2, 96, [(6, 24), (24, 130), (130, 40)], 4, bf, True, True, err)
     err["scatter_rows"] = max(
         err["scatter_rows"],
         check_ball_group_grad(gen_chain, 3, 512, 64, 16, 5, f32, 0.3),

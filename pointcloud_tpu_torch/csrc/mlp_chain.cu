@@ -7,8 +7,9 @@
 //   _mm_stats_kernel        -> mm_stats_kernel<T, false, kResNone>
 //   _bnact_mm_stats_kernel  -> mm_stats_kernel<T, true, RES> (+ write_r)
 //   _bn_respool_kernel      -> bn_pool_kernel<T, RES>
-//   _bwd_pass_kernel        -> bwd_da_kernel + bwd_dw_kernel (one pass;
-//                              res_mode, skip_pool, skip_dense)
+//   _bwd_pass_kernel        -> one pass: bwd_dh_kernel, then bwd_da and bwd_dw
+//                              (bf16: *_wgmma_kernel; fp32: *_f32_kernel);
+//                              res_mode, skip_pool, skip_dense
 //
 // With rows = B * R flattened rows, T the activation type (fp32 or bf16) and
 // every statistic, scalar and sum in fp32:
@@ -30,35 +31,31 @@
 //   backward pass of layer u: dh = T(c1 dz_u - c4 - c3 (h_u - mu)) where dz_u
 //            is a dense tensor or, at the pooled layer, `dosel` at row `amax`
 //            of each group and 0 elsewhere; da = dh @ w_u^T;
-//            dw_u = in^T @ dh with in = a_u (recomputed from h_{u-1} with its
-//            residual) or x;
 //            below a BatchNorm: da += the skip shares of a block's input (the
 //            pooled cotangent's `dosel` at its rows, skip_pool; a stored dz,
 //            skip_dense), in that order; dz_{u-1} = T(da 1[pre_{u-1} > 0])
-//            with pre_{u-1} including its residual, and the column sums
+//            with pre_{u-1} including its residual, the column sums
 //            Sd = sum dz_{u-1}, Se = sum dz_{u-1} zhat_{u-1} of the rounded
-//            values; at the input layer dx = T(da).
+//            values, and a_up = T(relu(pre_{u-1})); at the input layer
+//            dx = T(da) and a_up = x; dw_u = a_up^T @ dh.
 // pre is formed with separately rounded operations (__fsub_rn, __fmul_rn,
 // __fadd_rn, then __fadd_rn of the residual), da's shares with __fadd_rn, dh
 // too, so that they equal the plain PyTorch version's bits and the ReLU masks
 // and bf16 roundings of the two agree.
 //
-// Design. The TPU kernels walk the batch in a sequential grid and carry the
-// sums and dw in VMEM from step to step; CUDA blocks run in parallel with no
-// carry. Every product runs on the 64 x 128 tiles of tile_mma.cuh (bf16:
-// wmma tensor-core tiles with fp32 accumulators; fp32: CUDA cores), staged
-// through shared memory in depth chunks of 32 with zero padding, so a depth
-// of 6, 131 or 259 and ragged widths need no special path; PointMLP-Elite's
-// mid widths of 16, 32 and 64 fill part of a tile. The prologue (BatchNorm +
-// residual + ReLU, or the dh formula) is applied while an operand tile is
-// staged, the epilogue (rounding, statistics, skip shares, the ReLU mask)
-// while the accumulator tile sits in shared memory. A thread stages one
-// channel of a tile and keeps that channel's scalars (and the residual's) in
-// registers. The kernels are bound by memory latency (scalar loads, two
-// barriers a chunk), so resident blocks count: mm_stats and bwd_da are held
-// to 80 registers (three blocks an SM), bwd_dw with its two accumulators to
-// 128 (two). Measured on an H100: one block more each spills and is slower,
-// and so is a 128-deep chunk, whose shared memory halves the resident blocks.
+// Design, forward. The TPU kernels walk the batch in a sequential grid and
+// carry the sums and dw in VMEM from step to step; CUDA blocks run in
+// parallel with no carry. The forward products run on the 64 x 128 tiles of
+// tile_mma.cuh (bf16: wmma tensor-core tiles with fp32 accumulators; fp32:
+// CUDA cores), staged through shared memory in depth chunks of 32 with zero
+// padding, so a depth of 6, 131 or 259 and ragged widths need no special
+// path. The prologue (BatchNorm + residual + ReLU) is applied while an
+// operand tile is staged, the epilogue (rounding, statistics) while the
+// accumulator tile sits in shared memory. A thread stages one channel of a
+// tile and keeps that channel's scalars (and the residual's) in registers.
+// These kernels are bound by memory latency (scalar loads, two barriers a
+// chunk), so resident blocks count: they are held to 80 registers (three
+// blocks an SM).
 //   mm_stats: a block owns 128 output channels and a chunk of rows; per
 //            64-row tile it forms the product, rounds, stores h and adds to
 //            per-thread column sums; per-chunk partials, then colsum_kernel
@@ -69,36 +66,72 @@
 //   bn_pool: no product. One thread per (group, channel) walks its group's
 //            rows in order with a strict >, so the lowest row wins ties and
 //            no merge between blocks is needed.
-//   backward pass: two products with different reduction dimensions, so two
-//            launches. bwd_da: a block owns a chunk of rows and 128 input
-//            channels and reduces over the output channels; it writes
-//            dz_{u-1} (or dx) and per-chunk partials of Sd and Se. bwd_dw: a
-//            block owns a 128 x 128 tile of dw and a chunk of rows and
-//            reduces over the rows; per-chunk partials, summed by
-//            colsum_kernel. dh is recomputed in both (one read of h_u).
-//            K = 24 rows a group do not divide the 64-row tile, so a group
-//            straddles tiles and chunks: the sparse cotangent and the pooled
-//            skip share test each row's own `row % pool` against amax.
+// Design, backward: three launches, each tensor formed once.
+//   bwd_dh:  elementwise; dh goes to a scratch (rows, ldh) in T (ldh = cu
+//            rounded up to 8). A thread owns 8 channels (16-byte loads and
+//            stores, neighbouring threads on neighbouring strips) over a run
+//            of rows: at the pooled layer one group, whose dosel and amax it
+//            reads once; a group of K = 24 rows then needs no division.
+//   bwd_da:  da = dh @ w^T, M = rows, N = cd, K = cu. bf16: a producer
+//            warpgroup whose one thread issues TMA loads (128-byte swizzle)
+//            of the dh and w tiles into a ring of 4 stages with full / empty
+//            mbarriers; two consumer warpgroups issue wgmma m64n128k16 on
+//            them (both operands K-major), fp32 accumulators in registers,
+//            one group in flight while the next stage arrives. A block owns
+//            128 input channels and a chunk of 128-row tiles; the consumers
+//            take the tiles in turn (ping-pong, their product loops ordered
+//            by two more mbarriers), so one's epilogue runs while the other's
+//            products do. The epilogue (a tile's accumulators through shared
+//            memory, 8 channels of a row a thread, 16-byte accesses, 8 rows'
+//            loads in flight) forms dzd, the sums and a_up = T(relu(pre))
+//            once; the pooled skip share is added to the accumulator tile
+//            by (group, channel), its loads issued before the products. The
+//            producer gives its registers to the consumers (setmaxnreg: 40
+//            and 232), which hold two 64-row accumulators and the loads.
+//   bwd_dw:  dw^T = dh^T @ a_up, M = cu, N = cd (tiles of 128, or 192 from
+//            cd = 512: fewer re-reads of dh), K = rows: the same ring and
+//            roles, both operands MN-major (wgmma's transpose bits; TMA boxes
+//            of 64 rows x 64 channels), split over chunks of rows into
+//            per-chunk partials that colsum_kernel adds in a fixed order. The
+//            tensor cores' fp32 sums are not rounded to nearest, so a chain of
+//            thousands of wgmma adds drifts (a 1.5e-3 relative dw error over
+//            16K rows of PointNet2's SA1): each 4 stages (256 rows) are summed
+//            by the tensor cores, then added into fp32 registers.
+//   Launch geometry (ops/preextract_fused.py bwd_plan): one block resident an
+//            SM, chunk counts that fill whole waves.
+//   Ragged widths: TMA wants 16-byte row strides. dh and a_up are written
+//            with rows padded to 8 channels, and the wrapper hands a padded
+//            copy of the chain's input (cd of 6, 131, 259, 643, 2C + 3) to
+//            bwd_dw and of w to bwd_da where cu is no multiple of 8; the maps
+//            declare the true widths, so the pad is never read (boxes past
+//            the edge fill with zeros). dzd is written unpadded; rows of a
+//            ragged width take the epilogue's one-channel path.
+//   fp32 reaches the backward only in the card-vs-CPU checks: the same dh
+//            and a_up, then CUDA-core tiles (Mma<float>; no TF32) for da and
+//            dw, as the forward's.
 // Switches. The residual mode RES is a template argument: it adds loads to
-// the staging loop of mm_stats and bwd_dw and to bwd_da's epilogue. r_out,
-// pen, skip_pool and skip_dense are run-time pointers (NULL when absent):
-// each adds one uniform branch and one access per element outside the
-// product's inner loop, and as templates they would multiply the
-// instantiations (T x RES x write_r x skip_pool x skip_dense). The chain
+// the staging loop of mm_stats and to da's epilogue. r_out, pen, skip_pool
+// and skip_dense are run-time pointers (NULL when absent): each adds one
+// uniform branch and one access per element outside the product's inner
+// loop, and as templates they would multiply the instantiations. The chain
 // never puts a residual below its sparse top layer or the input layer, so
-// bwd_pass instantiates RES only with a dense dz and a BatchNorm below.
-// No fp32 atomics anywhere: the same inputs give the same bits on every run.
+// bwd_da instantiates RES only below a BatchNorm. No fp32 atomics anywhere:
+// the same inputs give the same bits on every run.
 //
-// Bound on the card: bytes. At the set-abstraction shapes (4.2M rows of
-// 64..128 channels, 2.1M of 128..256) and PointMLP's (786K rows of 128
-// channels at its first stage) a layer's product is 2 rows Cd Cu operations,
-// a few tenths of a millisecond at 989 TFLOP/s dense bf16, while reading and
-// writing the (rows, C) tensors once takes 0.1 to 0.5 ms at 3.35 TB/s; a
-// residual adds one more (rows, C) read. This design stages with scalar
-// loads and re-reads an input once per 128-channel output tile; vector
-// loads, a resident w, cp.async / TMA pipelines and wgmma are left to a
-// later change.
+// Bound on the card. Forward: bytes. At the set-abstraction shapes (4.2M
+// rows of 64..128 channels, 2.1M of 128..256) and PointMLP's (786K rows of
+// 128 channels at its first stage) a layer's product is 2 rows cd cu
+// operations, a few tenths of a millisecond at 989 TFLOP/s dense bf16, while
+// reading and writing the (rows, C) tensors once takes 0.1 to 0.5 ms at 3.35
+// TB/s. Backward: bytes at PointNet2's levels and PointMLP's stages 1-2
+// (dh's pass reads h_u and dz and writes dh; da reads dh, h_{u-1} and the
+// residual and writes dzd and a_up; dw reads a_up and dh: ~8 (rows, C)
+// tensors), operations at stage 4's 1024-wide layers (4 rows cd cu, 0.42 ms
+// a pass at the dense bf16 rate). The design moves each tensor the least
+// number of times the three products allow and keeps the tensor cores fed
+// from a TMA ring; the forward's staging is left to a later change.
 
+#include "hopper.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -145,8 +178,8 @@ __device__ __forceinline__ float bn_pre(float h, float mean, float mul,
   return __fadd_rn(__fmul_rn(__fsub_rn(h, mean), mul), beta);
 }
 
-// A channel's scalars, loaded once per thread and staged chunk: sc rows
-// mean, mul, beta (a BatchNorm); uc rows c1, c4, c3, mu (a backward pass).
+// A channel's BatchNorm scalars (sc rows mean, mul, beta), loaded once per
+// thread and staged chunk.
 struct Sc3 {
   float mean, mul, beta;
   __device__ __forceinline__ Sc3(const float* __restrict__ sc, int ch, int width,
@@ -154,16 +187,6 @@ struct Sc3 {
     mean = ok ? sc[ch] : 0.f;
     mul = ok ? sc[width + ch] : 0.f;
     beta = ok ? sc[2 * width + ch] : 0.f;
-  }
-};
-struct Uc4 {
-  float c1, c4, c3, mu;
-  __device__ __forceinline__ Uc4(const float* __restrict__ uc, int c, int width,
-                                 bool ok) {
-    c1 = ok ? uc[c] : 0.f;
-    c4 = ok ? uc[width + c] : 0.f;
-    c3 = ok ? uc[2 * width + c] : 0.f;
-    mu = ok ? uc[3 * width + c] : 0.f;
   }
 };
 
@@ -200,40 +223,6 @@ __device__ __forceinline__ T act(const T* __restrict__ in, int64_t i,
   } else {
     return in[i];
   }
-}
-
-// The pooled cotangent at (row, c) of a tensor of width `width`: dosel[group,
-// c] at row amax[group, c] of its group of `pool` rows, else 0 (rows < 2^31:
-// 32-bit division). A group may straddle tiles: each row tests its own
-// position in its group.
-__device__ __forceinline__ float pooled_at(const float* __restrict__ dosel,
-                                           const int* __restrict__ amax,
-                                           int64_t row, int c, int width,
-                                           int pool) {
-  const int g = static_cast<int>(row) / pool;
-  const int within = static_cast<int>(row) - g * pool;
-  const int64_t ge = static_cast<int64_t>(g) * width + c;
-  return (amax[ge] == within) ? dosel[ge] : 0.f;
-}
-
-// dh[row, c] = T(c1 dz - c4 - c3 (h_u - mu)). SPARSE: dz is the pooled
-// cotangent (pooled_at), else the dense dz.
-template <typename T, bool SPARSE>
-__device__ __forceinline__ T dh_at(const T* __restrict__ hu,
-                                   const T* __restrict__ dz,
-                                   const float* __restrict__ dosel,
-                                   const int* __restrict__ amax, const Uc4& u,
-                                   int64_t row, int c, int cu, int pool) {
-  float d;
-  if constexpr (SPARSE) {
-    d = pooled_at(dosel, amax, row, c, cu, pool);
-  } else {
-    d = Ty<T>::to_f(dz[row * cu + c]);
-  }
-  const float hv = Ty<T>::to_f(hu[row * cu + c]);
-  const float v = __fsub_rn(__fsub_rn(__fmul_rn(u.c1, d), u.c4),
-                            __fmul_rn(u.c3, __fsub_rn(hv, u.mu)));
-  return Ty<T>::from_f(v);
 }
 
 // Adds the second half's two per-thread column sums to the first half's and
@@ -390,26 +379,690 @@ __global__ void __launch_bounds__(1024) colsum_kernel(
 
 // ---------------- backward ----------------
 
-// da = dh @ w^T for a chunk of rows and 128 input channels i0..; then
-// DOWN_BN: da += the skip shares (skip_dosel at row skip_amax of each group,
-//          then skip_dz; either may be NULL), dzd = T(da 1[pre > 0]) with
-//          pre from hd = h_{u-1} (scd rows: mean, mul, beta, rsig) and its
-//          residual, and the chunk's partials of Sd and Se;
-// else:    dzd = T(da), the gradient of the chain's input.
-template <typename T, bool SPARSE, bool DOWN_BN, int RES>
-__global__ void __launch_bounds__(kThreads, 3) bwd_da_kernel(
+constexpr int kStrip = 8;      // channels a thread owns in the elementwise parts
+constexpr int kDenseRun = 16;  // rows a dh thread walks with a dense dz
+
+// 8 consecutive values at p as fp32 (p 16-byte aligned for bf16, 32 for fp32
+// and int32).
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
+  unpack8(ldg16(p), f);
+}
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+__device__ __forceinline__ void load8(const int* p, int (&f)[8]) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(p) + 1);
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+// p[i] = T(f[i]), i < 8, rounded to nearest even
+__device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+__device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
+}
+
+// The n (1..8) channels of a strip at p, zero beyond n: one vector access when
+// the strip is whole and its rows aligned (vec: the row width is a multiple of
+// 8), else one access a channel.
+template <typename E, typename V>
+__device__ __forceinline__ void load_strip(const E* p, int n, bool vec, V (&f)[8]) {
+  if (vec && n == kStrip) {
+    load8(p, f);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i) {
+    if constexpr (sizeof(E) == 2) {
+      f[i] = i < n ? Ty<bf16>::to_f(p[i]) : 0.f;
+    } else {
+      f[i] = i < n ? p[i] : V(0);
+    }
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_strip(T* p, int n, bool vec,
+                                            const float (&f)[8]) {
+  if (vec && n == kStrip) {
+    store8(p, f);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kStrip; ++i)
+    if (i < n) p[i] = Ty<T>::from_f(f[i]);
+}
+
+// v rounded to T and back
+template <typename T>
+__device__ __forceinline__ float round_t(float v) {
+  return Ty<T>::to_f(Ty<T>::from_f(v));
+}
+
+// dh (rows, ldh) = T(c1 dz - c4 - c3 (h_u - mu)) for the cu channels of every
+// row; the ldh - cu pad channels get 0. A thread owns a strip of 8 channels
+// over a run of rows: SPARSE, one group of `run` = pool rows, whose dosel and
+// amax it reads once (dz is dosel at row amax, 0 elsewhere: a row's place in
+// its group is its step in the walk, so a group straddling any tile needs no
+// division); dense, kDenseRun rows of dz.
+template <typename T, bool SPARSE>
+__global__ void __launch_bounds__(kThreads) bwd_dh_kernel(
     const T* __restrict__ hu, const T* __restrict__ dz,
     const float* __restrict__ dosel, const int* __restrict__ amax,
-    const float* __restrict__ uc, const T* __restrict__ w,
-    const T* __restrict__ hd, const float* __restrict__ scd,
-    const T* __restrict__ res_src, const float* __restrict__ res_sc,
-    const float* __restrict__ skip_dosel, const int* __restrict__ skip_amax,
-    const T* __restrict__ skip_dz, T* __restrict__ dzd, float* __restrict__ part,
-    int64_t rows, int cd, int cu, int pool, int chunk_rows) {
+    const float* __restrict__ uc, T* __restrict__ dh, int64_t rows, int cu,
+    int ldh, int run) {
+  const int strips = ldh / kStrip;
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t runs = (rows + run - 1) / run;
+  if (e >= runs * strips) return;
+  const int64_t q = e / strips;
+  const int c0 = static_cast<int>(e - q * strips) * kStrip;
+  const int n = min(kStrip, cu - c0);
+  const bool vec = cu % kStrip == 0;
+  float c1[8], c4[8], c3[8], mu[8], sel[8];
+  int am[8];
+  load_strip(uc + c0, n, vec, c1);
+  load_strip(uc + cu + c0, n, vec, c4);
+  load_strip(uc + 2 * cu + c0, n, vec, c3);
+  load_strip(uc + 3 * cu + c0, n, vec, mu);
+  if constexpr (SPARSE) {
+    load_strip(dosel + q * cu + c0, n, vec, sel);
+    load_strip(amax + q * cu + c0, n, vec, am);
+  }
+  const int64_t r0 = q * run;
+  const int len = static_cast<int>(rows - r0 < run ? rows - r0 : run);
+#pragma unroll 4
+  for (int i = 0; i < len; ++i) {
+    const int64_t row = r0 + i;
+    float h[8], d[8], o[8];
+    load_strip(hu + row * cu + c0, n, vec, h);
+    if constexpr (SPARSE) {
+#pragma unroll
+      for (int j = 0; j < kStrip; ++j) d[j] = am[j] == i ? sel[j] : 0.f;
+    } else {
+      load_strip(dz + row * cu + c0, n, vec, d);
+    }
+#pragma unroll
+    for (int j = 0; j < kStrip; ++j) {
+      o[j] = __fsub_rn(__fsub_rn(__fmul_rn(c1[j], d[j]), c4[j]),
+                       __fmul_rn(c3[j], __fsub_rn(h[j], mu[j])));
+    }
+    store8(dh + row * ldh + c0, o);
+  }
+}
+
+// The da epilogue of one row's W channels ch0.. (n <= W of them inside cd;
+// W = 8, a strip, in the bf16 kernel, 1 in the fp32 one), da in `a`: below a
+// BatchNorm (DOWN_BN) the skip shares join da (pool share, then dense), dzd =
+// T(da 1[pre > 0]) with pre = BN(hd) [+ residual], a_up = T(relu(pre)) (dw's
+// operand), and the channels' sums Sd, Se of the rounded dzd grow; at the
+// input layer dzd = T(da). sc: the channels' scalars (rows mean, mul, beta,
+// rsig, then the residual's mean, mul, beta; STRIDE floats apart).
+template <typename T, bool DOWN_BN, int RES>
+struct DaEpilogue {
+  const T* hd;
+  const T* res_src;
+  const float* skip_dosel;
+  const int* skip_amax;
+  const T* skip_dz;
+  T* dzd;
+  T* a_up;
+  int lda, cd, pool;
+
+  template <int W, int STRIDE>
+  __device__ __forceinline__ void row(int64_t row, int ch0, int n, bool vec,
+                                      float (&a)[8], const float* sc,
+                                      float (&sd)[8], float (&se)[8]) const {
+    const int64_t at = row * cd + ch0;
+    if constexpr (!DOWN_BN) {
+      store_strip(dzd + at, n, vec, a);
+    } else {
+      float hv[8], rv[8], sk[8];
+      load_strip(hd + at, n, vec, hv);
+      if constexpr (RES != kResNone) load_strip(res_src + at, n, vec, rv);
+      if (skip_dosel != nullptr) {
+        const int64_t g = row / pool;
+        const int within = static_cast<int>(row - g * pool);
+        float sel[8];
+        int am[8];
+        load_strip(skip_dosel + g * cd + ch0, n, vec, sel);
+        load_strip(skip_amax + g * cd + ch0, n, vec, am);
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          a[j] = __fadd_rn(a[j], am[j] == within ? sel[j] : 0.f);
+      }
+      if (skip_dz != nullptr) {
+        load_strip(skip_dz + at, n, vec, sk);
+#pragma unroll
+        for (int j = 0; j < W; ++j) a[j] = __fadd_rn(a[j], sk[j]);
+      }
+      float dv[8], av[8];
+      finish<W, STRIDE>(n, a, hv, rv, sc, sc + 4 * STRIDE, dv, av, sd, se);
+      store_strip(dzd + at, n, vec, dv);
+      if constexpr (W == kStrip) {
+        store8(a_up + row * lda + ch0, av);  // lda: a multiple of 8; the pad gets 0
+      } else {
+        store_strip(a_up + row * lda + ch0, n, false, av);
+      }
+    }
+  }
+
+  // Below a BatchNorm, from da (its skip shares added), h_{u-1} and the
+  // residual's value: dv = dzd, av = a_up, and the sums of the n channels.
+  // sc: the BatchNorm's rows mean, mul, beta, rsig, STRIDE floats apart (the
+  // caller's registers where it can: `rs` the residual's mean, mul, beta).
+  template <int W, int STRIDE>
+  static __device__ __forceinline__ void finish(int n, const float (&a)[8],
+                                                const float (&hv)[8],
+                                                const float (&rv)[8], const float* sc,
+                                                const float* rs, float (&dv)[8],
+                                                float (&av)[8], float (&sd)[8],
+                                                float (&se)[8]) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      const float hc = __fsub_rn(hv[j], sc[j]);  // h - mean, as bn_pre rounds it
+      float pre = __fadd_rn(__fmul_rn(hc, sc[STRIDE + j]), sc[2 * STRIDE + j]);
+      if constexpr (RES == kResBnRelu) {
+        const float r = bn_pre(rv[j], rs[j], rs[STRIDE + j], rs[2 * STRIDE + j]);
+        pre = __fadd_rn(pre, fmaxf(r, 0.f));
+      } else if constexpr (RES == kResDense) {
+        pre = __fadd_rn(pre, rv[j]);
+      }
+      dv[j] = round_t<T>(pre > 0.f ? a[j] : 0.f);
+      av[j] = pre > 0.f ? pre : 0.f;
+      const float ds = j < n ? dv[j] : 0.f;  // channels past n add nothing
+      sd[j] += ds;
+      se[j] += ds * (hc * sc[3 * STRIDE + j]);
+    }
+  }
+};
+
+// ---- bf16: TMA + wgmma ----
+//
+// A block is one producer warpgroup (a single thread issues the TMA loads)
+// and two consumer warpgroups that issue wgmma on the tiles that have
+// arrived, through a ring of kStages shared-memory stages with a full and an
+// empty mbarrier each. Its tiles walk a chunk of rows.
+
+constexpr int kStages = 4;
+constexpr int kWg = 128;                // threads of a warpgroup
+constexpr int kTmaThreads = 3 * kWg;    // producer + 2 consumers
+constexpr int kBT = 128;                // tile rows and channels
+constexpr int kBK = 64;                 // depth of a stage: 128 bytes of bf16
+constexpr int kZ = kBT + 8;             // epilogue tile stride (floats)
+constexpr int kAtom = 64 * kBK;         // an MN-major 64 x 64 atom (elements)
+constexpr int kPromote = 4;             // dw stages a tensor-core sum spans
+
+// The bf16 epilogue below a BatchNorm of 64 rows whose da sits in z (stride
+// kZ) and whose rows are whole 8-channel strips: thread (cg, ro) takes rows
+// ro, ro + 8, .. in batches of BATCH, every load of a batch (h_{u-1}, the
+// residual, the dense skip share with SKIP_DZ) issued before its stores. bn:
+// the strip's BatchNorm scalars in registers (rows mean, mul, beta, rsig of 8).
+template <int BATCH, int RES, bool SKIP_DZ>
+__device__ __forceinline__ void bn_rows(const DaEpilogue<bf16, true, RES>& ep,
+                                        const float* z, int kz, int64_t base,
+                                        int64_t top, int64_t r_begin, int ro, int cg,
+                                        int ch0, const float (&bn)[32],
+                                        const float* res_sc, float (&sd)[8],
+                                        float (&se)[8]) {
+  const int cd = ep.cd;
+  // the residual's scalars of the strip, in registers for the call (res_sc:
+  // its rows mean, mul, beta, kBT-float rows in shared memory)
+  float rs[24];
+  if constexpr (RES == kResBnRelu) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+#pragma unroll
+      for (int j = 0; j < kStrip; ++j) rs[k * 8 + j] = res_sc[k * kBT + j];
+  }
+#pragma unroll 1
+  for (int b0 = 0; b0 < 8; b0 += BATCH) {
+    uint4 hw[BATCH], rw[BATCH], kw[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int64_t row = base + ro + 8 * (b0 + i);
+      // rows past the chunk load a row that exists and store nothing
+      const int64_t at = (row < top ? row : r_begin) * cd + ch0;
+      hw[i] = ldg16(ep.hd + at);
+      if constexpr (RES != kResNone) rw[i] = ldg16(ep.res_src + at);
+      if constexpr (SKIP_DZ) kw[i] = ldg16(ep.skip_dz + at);
+    }
+    // branch-free over the batch, so that its rows' arithmetic interleaves:
+    // a row past the chunk adds 0 to the sums and stores nothing
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int lr = ro + 8 * (b0 + i);
+      const int64_t row = base + lr;
+      const float4 z0 = *reinterpret_cast<const float4*>(z + lr * kz + cg * kStrip);
+      const float4 z1 = *reinterpret_cast<const float4*>(z + lr * kz + cg * kStrip + 4);
+      float a[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
+      float hv[8], rv[8], dv[8], av[8];
+      unpack8(hw[i], hv);
+      if constexpr (RES != kResNone) unpack8(rw[i], rv);
+      if constexpr (SKIP_DZ) {
+        float sk[8];
+        unpack8(kw[i], sk);
+#pragma unroll
+        for (int j = 0; j < kStrip; ++j) a[j] = __fadd_rn(a[j], sk[j]);
+      }
+      DaEpilogue<bf16, true, RES>::template finish<kStrip, 8>(row < top ? kStrip : 0, a,
+                                                              hv, rv, bn, rs, dv, av,
+                                                              sd, se);
+      if (row < top) {
+        store8(ep.dzd + row * cd + ch0, dv);
+        store8(ep.a_up + row * ep.lda + ch0, av);
+      }
+    }
+  }
+}
+
+
+// Items e0 + i kWg + tid (i < 4) of the pooled skip share over the groups g0..
+// that meet a 64-row half: item e is group g0 + e / kBT, channel c0 + e % kBT;
+// am = its row within the group (-1 past `items` or cd) and sel its dosel.
+template <bool DOWN_BN, int RES>
+__device__ __forceinline__ void skip_items(const DaEpilogue<bf16, DOWN_BN, RES>& ep,
+                                           int64_t g0, int items, int e0, int tid,
+                                           int c0, int (&am)[4], float (&sel)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int e = e0 + i * kWg + tid, c = e % kBT;
+    const bool ok = e < items && c0 + c < ep.cd;
+    const int64_t at = (g0 + e / kBT) * ep.cd + c0 + c;
+    am[i] = ok ? ep.skip_amax[at] : -1;
+    sel[i] = ok ? ep.skip_dosel[at] : 0.f;
+  }
+}
+
+// da = dh @ w^T: M = rows, N = cd, K = cu, both operands K-major.
+struct DaSmem {
+  bf16 a[kStages][kBT * kBK];  // dh: 128 rows x 64 channels
+  bf16 b[kStages][kBT * kBK];  // w: 128 input channels x 64
+  float z[2][64 * kZ];         // a consumer's 64 x 128 accumulators
+  float sc[7][kBT];            // the block's channel scalars
+  uint64_t full[kStages], empty[kStages];
+  uint64_t turn[2];  // consumer g's product loops done (the other waits on it)
+};
+
+// dw^T = dh^T @ a_up: M = cu, N = cd, K = rows, both operands MN-major.
+// BN: the tile's input channels (128, or 192 for wide layers: fewer re-reads
+// of dh across the tiles of cd).
+template <int BN>
+struct DwSmem {
+  bf16 a[kStages][2][kAtom];       // dh: 64 rows x (2 x 64 output channels)
+  bf16 b[kStages][BN / 64][kAtom];  // a_up: 64 rows x (BN / 64 x 64 input channels)
+  uint64_t full[kStages], empty[kStages];
+};
+
+constexpr int kDaSmemBytes = sizeof(DaSmem) + 1024;
+template <int BN>
+constexpr int kDwSmemBytes = sizeof(DwSmem<BN>) + 1024;
+
+// da for a chunk of rows and 128 input channels (c0..), then the epilogue;
+// per-chunk partials of Sd and Se in part (DOWN_BN). The consumers take the
+// chunk's 128-row tiles in turn (ping-pong): one runs its products while the
+// other, its accumulators done, runs the epilogue, so the epilogue's memory
+// traffic overlaps the tensor cores' work. Their product loops alternate
+// strictly (the `turn` barriers): a consumer waits on a stage's full barrier
+// only for the phase in flight or the one just completed, which is all that
+// a parity wait can tell apart.
+template <bool DOWN_BN, int RES>
+__global__ void __launch_bounds__(kTmaThreads, 1) bwd_da_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_dh,
+    const __grid_constant__ CUtensorMap map_w, DaEpilogue<bf16, DOWN_BN, RES> ep,
+    const float* __restrict__ scd, const float* __restrict__ res_sc,
+    float* __restrict__ part, int64_t rows, int cu, int chunk_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  DaSmem& sm = *reinterpret_cast<DaSmem*>(hopper::align1024(smem_raw));
+  const int cd = ep.cd;
+  const int c0 = blockIdx.x * kBT;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.y) * chunk_rows;
+  const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
+  const int tiles = static_cast<int>((r_end - r_begin + kBT - 1) / kBT);
+  const int ksteps = (cu + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], 4);  // the four warps of one consumer
+    }
+    hopper::mbar_init(&sm.turn[0], 4);
+    hopper::mbar_init(&sm.turn[1], 4);
+    hopper::fence_barrier_init();
+  }
+  for (int e = threadIdx.x; e < 7 * kBT; e += kTmaThreads) {
+    const int k = e / kBT, c = c0 + e % kBT;
+    float v = 0.f;
+    if (DOWN_BN && c < cd) {
+      if (k < 4) {
+        v = scd[k * cd + c];
+      } else if (RES == kResBnRelu) {
+        v = res_sc[(k - 4) * cd + c];
+      }
+    }
+    sm.sc[k][e % kBT] = v;
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer: tile t's stages are ring positions t ksteps + k
+    hopper::regs_release<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        const int row0 = static_cast<int>(r_begin) + t * kBT;
+        for (int k = 0; k < ksteps; ++k) {
+          hopper::mbar_wait(&sm.empty[stage], phase ^ 1);
+          hopper::mbar_expect_tx(&sm.full[stage], 2 * kBT * kBK * 2);
+          hopper::tma_load_2d(sm.a[stage], &map_dh, &sm.full[stage], k * kBK, row0);
+          hopper::tma_load_2d(sm.b[stage], &map_w, &sm.full[stage], k * kBK, c0);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer g: tiles g, g + 2, ..; its 128 rows as two 64-row halves
+  hopper::regs_claim<232>();  // 40 x 128 + 232 x 256 = the block's 168 x 384
+  const int g = threadIdx.x / kWg - 1;
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  // epilogue: thread (cg, ro) owns channels 8 cg .. 8 cg + 7 at rows ro, ro + 8, ..
+  const int cg = tid % 16, ro = tid / 16;
+  const int ch0 = c0 + cg * kStrip;
+  const int n = min(kStrip, cd - ch0);
+  const bool whole = cd % kStrip == 0;  // 16-byte rows
+  const float* sc = &sm.sc[0][cg * kStrip];
+  // the strip's BatchNorm scalars, in registers for the kernel (shared-memory
+  // loads between the epilogue's global stores would be repeated: the
+  // compiler cannot tell the two apart through generic pointers)
+  float bn[32];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int j = 0; j < kStrip; ++j) bn[k * 8 + j] = sc[k * kBT + j];
+  DaEpilogue<bf16, DOWN_BN, RES> ep_rows = ep;  // the ragged path's; the pool
+  ep_rows.skip_dosel = nullptr;                  // share joins da in z first
+  float* z = sm.z[g];
+  float sd[8] = {}, se[8] = {};
+  for (int t = g; t < tiles; t += 2) {
+    // tile t - 1's products (the other consumer's) are done: every stage's
+    // full barrier has completed its phases up to tile t's
+    if (t > 0) hopper::mbar_wait(&sm.turn[1 - g], ((t - 1) / 2) & 1);
+    // the pooled skip share's first items of both halves, loaded while the
+    // products run (one batch of 4 (group, channel) items a thread and half)
+    int pam[2][4];
+    float psel[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t base = r_begin + static_cast<int64_t>(t) * kBT + h * 64;
+      const int64_t top = r_end < base + 64 ? r_end : base + 64;
+      const bool any = ep.skip_dosel != nullptr && base < top;
+      const int64_t g0 = any ? base / ep.pool : 0;
+      const int items = any ? static_cast<int>((top - 1) / ep.pool - g0 + 1) * kBT : 0;
+      skip_items(ep, g0, items, 0, tid, c0, pam[h], psel[h]);
+    }
+    float d[2][64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[0][i] = d[1][i] = 0.f;
+    // the depth (cu) is one chain; one group stays in flight while the next
+    // stage's arrives, then the previous stage is released
+    int prev = 0;
+    for (int k = 0; k < ksteps; ++k) {
+      const int pos = t * ksteps + k, stage = pos % kStages;
+      hopper::mbar_wait(&sm.full[stage], (pos / kStages) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t db = hopper::desc_sw128(sm.b[stage] + kk * 16, 16, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          hopper::wgmma_m64n128k16<0, 0>(
+              d[h], hopper::desc_sw128(sm.a[stage] + h * 64 * kBK + kk * 16, 16, 1024),
+              db, 1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      if (k > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[prev]);
+      prev = stage;
+    }
+    hopper::wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) {
+      hopper::mbar_arrive(&sm.empty[prev]);
+      hopper::mbar_arrive(&sm.turn[g]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int r = warp * 16 + lane / 4, c = j * 8 + (lane % 4) * 2;
+        *reinterpret_cast<float2*>(z + r * kZ + c) =
+            make_float2(d[h][4 * j], d[h][4 * j + 1]);
+        *reinterpret_cast<float2*>(z + (r + 8) * kZ + c) =
+            make_float2(d[h][4 * j + 2], d[h][4 * j + 3]);
+      }
+      hopper::named_sync(1 + g, kWg);
+      const int64_t base = r_begin + static_cast<int64_t>(t) * kBT + h * 64;
+      const int64_t top = r_end < base + 64 ? r_end : base + 64;
+      if (ep.skip_dosel != nullptr && base < top) {
+        // the pooled skip share: dosel at the row amax of each group, added to
+        // that row's da (one (group, channel) a thread; other rows get none)
+        // (batches of 4 items a thread, the first loaded before the products)
+        const int64_t g0 = base / ep.pool;
+        const int items = static_cast<int>((top - 1) / ep.pool - g0 + 1) * kBT;
+        for (int e0 = 0; e0 < items; e0 += 4 * kWg) {
+          int am[4];
+          float sel[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) am[i] = pam[h][i], sel[i] = psel[h][i];
+          if (e0 > 0) skip_items(ep, g0, items, e0, tid, c0, am, sel);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int e = e0 + i * kWg + tid;
+            const int64_t row = (g0 + e / kBT) * ep.pool + am[i];
+            if (am[i] >= 0 && row >= base && row < top) {
+              float& v = z[(row - base) * kZ + e % kBT];
+              v = __fadd_rn(v, sel[i]);
+            }
+          }
+        }
+        hopper::named_sync(1 + g, kWg);
+      }
+      if constexpr (DOWN_BN) {
+        // (smaller batches where another operand or the residual's scalars
+        // take registers)
+        if (whole && n > 0 && ep.skip_dz != nullptr) {
+          bn_rows<4, RES, true>(ep, z, kZ, base, top, r_begin, ro, cg, ch0, bn,
+                                sc + 4 * kBT, sd, se);
+        } else if (whole && n > 0) {
+          constexpr int kBatch = RES == kResBnRelu ? 4 : 8;
+          bn_rows<kBatch, RES, false>(ep, z, kZ, base, top, r_begin, ro, cg, ch0, bn,
+                                      sc + 4 * kBT, sd, se);
+        }
+      }
+      if (!DOWN_BN && whole) {  // dzd = T(da), 16 bytes a store
+        if (n > 0) {
+          for (int i = 0; i < 8; ++i) {
+            const int lr = ro + 8 * i;
+            if (base + lr >= top) break;
+            const float4 z0 =
+                *reinterpret_cast<const float4*>(z + lr * kZ + cg * kStrip);
+            const float4 z1 =
+                *reinterpret_cast<const float4*>(z + lr * kZ + cg * kStrip + 4);
+            const float a[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
+            store8(ep.dzd + (base + lr) * cd + ch0, a);
+          }
+        }
+      } else if (!DOWN_BN) {  // ragged rows: neighbouring threads, neighbouring channels
+        const int width = min(kBT, cd - c0);
+        for (int e = tid; e < 64 * kBT; e += kWg) {
+          const int lr = e / kBT, c = e % kBT;
+          if (base + lr < top && c < width)
+            ep.dzd[(base + lr) * cd + c0 + c] = Ty<bf16>::from_f(z[lr * kZ + c]);
+        }
+      } else if (DOWN_BN && !whole && n > 0) {  // ragged rows: loads a row
+        for (int i = 0; i < 8; ++i) {
+          const int lr = ro + 8 * i;
+          if (base + lr >= top) break;
+          const float4 z0 = *reinterpret_cast<const float4*>(z + lr * kZ + cg * kStrip);
+          const float4 z1 =
+              *reinterpret_cast<const float4*>(z + lr * kZ + cg * kStrip + 4);
+          float a[8] = {z0.x, z0.y, z0.z, z0.w, z1.x, z1.y, z1.z, z1.w};
+          ep_rows.template row<kStrip, kBT>(base + lr, ch0, n, false, a, sc, sd, se);
+        }
+      }
+      hopper::named_sync(1 + g, kWg);  // z is rewritten by the next half
+    }
+  }
+  if constexpr (DOWN_BN) {
+    // the sums of both consumers' rows, in a fixed order, through z
+    hopper::named_sync(3, 2 * kWg);
+    float* red = sm.z[0];  // [consumer][ro][sd, se][128 channels]
+#pragma unroll
+    for (int j = 0; j < kStrip; ++j) {
+      red[((g * 8 + ro) * 2 + 0) * kBT + cg * kStrip + j] = sd[j];
+      red[((g * 8 + ro) * 2 + 1) * kBT + cg * kStrip + j] = se[j];
+    }
+    hopper::named_sync(3, 2 * kWg);
+    const int t2 = threadIdx.x - kWg, col = t2 % kBT, which = t2 / kBT;
+    if (c0 + col < cd) {
+      float s = 0.f;
+      for (int r = 0; r < 16; ++r) s += red[(r * 2 + which) * kBT + col];
+      part[(static_cast<int64_t>(blockIdx.y) * 2 + which) * cd + c0 + col] = s;
+    }
+  }
+}
+
+// dw partial of a chunk of rows for output channels m0.. (128 of cu) and
+// input channels n0.. (BN of cd): dw_part[chunk, n, m] = sum over the rows
+// of a_up[row, n] dh[row, m]. Atoms wholly past cu or cd are not loaded; a
+// consumer with no channel of cu stops; an unloaded atom of a_up feeds only
+// columns past cd, which are not stored. The consumers take the producer's
+// registers (fp32 sums of a 64 x BN tile twice: the tensor cores' and the
+// promoted).
+template <int BN>
+__global__ void __launch_bounds__(kTmaThreads, 1) bwd_dw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_dh,
+    const __grid_constant__ CUtensorMap map_a, float* __restrict__ dw_part,
+    int64_t rows, int cd, int cu, int chunk_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  DwSmem<BN>& sm = *reinterpret_cast<DwSmem<BN>*>(hopper::align1024(smem_raw));
+  const int m0 = blockIdx.x * kBT, n0 = blockIdx.y * BN;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.z) * chunk_rows;
+  const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
+  const int steps = static_cast<int>((r_end - r_begin + kBK - 1) / kBK);
+  const int m_atoms = min(2, (cu - m0 + 63) / 64);
+  const int n_atoms = min(BN / 64, (cd - n0 + 63) / 64);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&sm.full[s], 1);
+      hopper::mbar_init(&sm.empty[s], 4 * m_atoms);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer
+    hopper::regs_release<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < steps; ++s) {
+        const int row = static_cast<int>(r_begin) + s * kBK;
+        hopper::mbar_wait(&sm.empty[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&sm.full[stage], (m_atoms + n_atoms) * kAtom * 2);
+        for (int a = 0; a < m_atoms; ++a)
+          hopper::tma_load_2d(sm.a[stage][a], &map_dh, &sm.full[stage], m0 + 64 * a, row);
+        for (int b = 0; b < n_atoms; ++b)
+          hopper::tma_load_2d(sm.b[stage][b], &map_a, &sm.full[stage], n0 + 64 * b, row);
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hopper::regs_claim<232>();  // 40 x 128 + 232 x 256 = the block's 168 x 384
+  const int g = threadIdx.x / kWg - 1;  // output channels m0 + 64 g ..
+  if (g >= m_atoms) return;
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  // kPromote stages' rows (256) summed by the tensor cores (d), those sums
+  // added in fp32 (acc); one group in flight while the next stage arrives
+  float d[BN / 2], acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = acc[i] = 0.f;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int s = 0; s < steps; ++s) {
+    hopper::mbar_wait(&sm.full[stage], phase);
+    hopper::wgmma_fence();
+    const int fresh = s % kPromote == 0;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      hopper::wgmma_m64nNk16<BN, 1, 1>(
+          d, hopper::desc_sw128(sm.a[stage][g] + kk * 16 * 64, kAtom * 2, 1024),
+          hopper::desc_sw128(sm.b[stage][0] + kk * 16 * 64, kAtom * 2, 1024),
+          kk > 0 || !fresh);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (s > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[prev]);
+    prev = stage;
+    if (++stage == kStages) stage = 0, phase ^= 1;
+    if ((s + 1) % kPromote == 0 || s + 1 == steps) {
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += d[i];
+    }
+  }
+  if (steps > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[prev]);
+  float* out = dw_part + static_cast<int64_t>(blockIdx.z) * cd * cu;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int m = m0 + g * 64 + warp * 16 + lane / 4 + 8 * (q >> 1);
+      const int nn = n0 + j * 8 + (lane % 4) * 2 + (q & 1);
+      if (m < cu && nn < cd) out[static_cast<int64_t>(nn) * cu + m] = acc[4 * j + q];
+    }
+  }
+}
+
+// ---- fp32: CUDA-core tiles (tile_mma.cuh's Mma<float>), no TF32 ----
+
+// da = dh @ w^T for a chunk of rows and 128 input channels i0.., then the
+// epilogue of DaEpilogue one channel a thread (as bwd_da_wgmma_kernel).
+template <bool DOWN_BN, int RES>
+__global__ void __launch_bounds__(kThreads, 3) bwd_da_f32_kernel(
+    const float* __restrict__ dh, int ldh, const float* __restrict__ w,
+    DaEpilogue<float, DOWN_BN, RES> ep, const float* __restrict__ scd,
+    const float* __restrict__ res_sc, float* __restrict__ part, int64_t rows,
+    int cu, int chunk_rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  using L = Lds<T, TM>;
-  const Smem<T, TM> sm(smem_raw);
-  const T zero = Ty<T>::from_f(0.f);
+  using L = Lds<float, TM>;
+  const Smem<float, TM> sm(smem_raw);
+  const int cd = ep.cd;
   const int i0 = blockIdx.x * TN;
   const int64_t r_begin = static_cast<int64_t>(blockIdx.y) * chunk_rows;
   const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
@@ -417,38 +1070,30 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_da_kernel(
   const int half = threadIdx.x / TN;
   const int ch = i0 + col;
   const bool col_ok = ch < cd;
-  float mean = 0.f, mul = 0.f, beta = 0.f, rsig = 0.f;
+  // this thread's channel scalars, laid out as DaEpilogue reads them
+  float sc[7] = {};
   if (DOWN_BN && col_ok) {
-    mean = scd[ch];
-    mul = scd[cd + ch];
-    beta = scd[2 * cd + ch];
-    rsig = scd[3 * cd + ch];
+    for (int k = 0; k < 4; ++k) sc[k] = scd[k * cd + ch];
+    if (RES == kResBnRelu)
+      for (int k = 0; k < 3; ++k) sc[4 + k] = res_sc[k * cd + ch];
   }
-  const Residual<T, RES> res(res_src, res_sc, ch, cd, col_ok);
-
-  float sd = 0.f, se = 0.f;
+  float sd[8] = {}, se[8] = {};
   for (int64_t r0 = r_begin; r0 < r_end; r0 += TM) {
-    Mma<T> mma;
+    Mma<float> mma;
     mma.zero();
     for (int k0 = 0; k0 < cu; k0 += KC) {
       {  // dh chunk: a thread stages one channel k of it, 8 rows
         const int k = threadIdx.x % KC, kk = k0 + k;
-        const bool k_ok = kk < cu;
-        const Uc4 u4(uc, kk, cu, k_ok);
         for (int r = threadIdx.x / KC; r < TM; r += kThreads / KC) {
           const int64_t row = r0 + r;
-          sm.a[r * L::A + k] =
-              (row < r_end && k_ok)
-                  ? dh_at<T, SPARSE>(hu, dz, dosel, amax, u4, row, kk, cu, pool)
-                  : zero;
+          sm.a[r * L::A + k] = (row < r_end && kk < cu) ? dh[row * ldh + kk] : 0.f;
         }
       }
       for (int e = threadIdx.x; e < KC * TN; e += kThreads) {  // w^T chunk
         const int i = e / KC, k = e % KC;
-        sm.b[k * L::B + i] =
-            (i0 + i < cd && k0 + k < cu)
-                ? w[static_cast<int64_t>(i0 + i) * cu + k0 + k]
-                : zero;
+        sm.b[k * L::B + i] = (i0 + i < cd && k0 + k < cu)
+                                 ? w[static_cast<int64_t>(i0 + i) * cu + k0 + k]
+                                 : 0.f;
       }
       __syncthreads();
       mma.run(sm.a, L::A, sm.b, L::B, KC);
@@ -461,52 +1106,30 @@ __global__ void __launch_bounds__(kThreads, 3) bwd_da_kernel(
         const int rr = half * (TM / 2) + i;
         const int64_t row = r0 + rr;
         if (row >= r_end) break;
-        float da = sm.z[rr * L::Z + col];
-        if constexpr (DOWN_BN) {
-          const int64_t at = row * cd + ch;
-          const float hv = Ty<T>::to_f(hd[at]);
-          const float pre = res.add(bn_pre(hv, mean, mul, beta), at);
-          if (skip_dosel != nullptr) {
-            da = __fadd_rn(da, pooled_at(skip_dosel, skip_amax, row, ch, cd, pool));
-          }
-          if (skip_dz != nullptr) da = __fadd_rn(da, Ty<T>::to_f(skip_dz[at]));
-          const T dv = Ty<T>::from_f(pre > 0.f ? da : 0.f);
-          dzd[at] = dv;
-          const float f = Ty<T>::to_f(dv);
-          sd += f;
-          se += f * ((hv - mean) * rsig);
-        } else {
-          dzd[row * cd + ch] = Ty<T>::from_f(da);
-        }
+        float a[8] = {sm.z[rr * L::Z + col]};
+        ep.template row<1, 1>(row, ch, 1, false, a, sc, sd, se);
       }
     }
     __syncthreads();
   }
   if constexpr (DOWN_BN) {
-    write_partials(sm.z, part, blockIdx.y, cd, ch, col_ok, sd, se);
+    write_partials(sm.z, part, blockIdx.y, cd, ch, col_ok, sd[0], se[0]);
   }
 }
 
-// dw partial of a chunk of rows: in^T @ dh for input channels i0 .. i0+127
-// and output channels c0 .. c0+127, in = act(ain) with its residual
-// (DOWN_BN: ain = h_{u-1}) or ain itself (the chain's input).
-template <typename T, bool SPARSE, bool DOWN_BN, int RES>
-__global__ void __launch_bounds__(kThreads, 2) bwd_dw_kernel(
-    const T* __restrict__ hu, const T* __restrict__ dz,
-    const float* __restrict__ dosel, const int* __restrict__ amax,
-    const float* __restrict__ uc, const T* __restrict__ ain,
-    const float* __restrict__ scd, const T* __restrict__ res_src,
-    const float* __restrict__ res_sc, float* __restrict__ dw_part, int64_t rows,
-    int cd, int cu, int pool, int chunk_rows) {
+// dw partial of a chunk of rows: ain^T @ dh for input channels i0 .. i0+127
+// and output channels c0 .. c0+127 (ain = a_up or the chain's input).
+__global__ void __launch_bounds__(kThreads, 2) bwd_dw_f32_kernel(
+    const float* __restrict__ dh, int ldh, const float* __restrict__ ain, int lda,
+    float* __restrict__ dw_part, int64_t rows, int cd, int cu, int chunk_rows) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  using L = Lds<T, kARows>;
-  const Smem<T, kARows> sm(smem_raw);
-  const T zero = Ty<T>::from_f(0.f);
+  using L = Lds<float, kARows>;
+  const Smem<float, kARows> sm(smem_raw);
   const int c0 = blockIdx.x * TN;
   const int i0 = blockIdx.y * kARows;
   const int64_t r_begin = static_cast<int64_t>(blockIdx.z) * chunk_rows;
   const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
-  Mma<T> acc_lo, acc_hi;  // input channels i0 .. i0+63 and i0+64 .. i0+127
+  Mma<float> acc_lo, acc_hi;  // input channels i0 .. i0+63 and i0+64 .. i0+127
   acc_lo.zero();
   acc_hi.zero();
   // kARows == TN == kThreads / 2: a thread stages one input channel and one
@@ -514,19 +1137,12 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dw_kernel(
   const int lane = threadIdx.x % TN, r_first = threadIdx.x / TN;
   const int ci = i0 + lane, cj = c0 + lane;
   const bool i_ok = ci < cd, j_ok = cj < cu;
-  const Sc3 s3(scd, ci, cd, DOWN_BN && i_ok);
-  const Residual<T, RES> res(res_src, res_sc, ci, cd, i_ok);
-  const Uc4 u4(uc, cj, cu, j_ok);
   for (int64_t r0 = r_begin; r0 < r_end; r0 += KC) {
     for (int r = r_first; r < KC; r += kThreads / TN) {
       const int64_t row = r0 + r;
       const bool row_ok = row < r_end;
-      sm.a[lane * L::A + r] =  // in^T chunk
-          (row_ok && i_ok) ? act<T, DOWN_BN, RES>(ain, row * cd + ci, s3, res) : zero;
-      sm.b[r * L::B + lane] =  // dh chunk
-          (row_ok && j_ok)
-              ? dh_at<T, SPARSE>(hu, dz, dosel, amax, u4, row, cj, cu, pool)
-              : zero;
+      sm.a[lane * L::A + r] = (row_ok && i_ok) ? ain[row * lda + ci] : 0.f;
+      sm.b[r * L::B + lane] = (row_ok && j_ok) ? dh[row * ldh + cj] : 0.f;
     }
     __syncthreads();
     acc_lo.run(sm.a, L::A, sm.b, L::B, KC);
@@ -643,95 +1259,147 @@ int bn_pool_any(const void* h, const float* sc, int res_mode, const void* res_sr
   return kBadArgs;
 }
 
-// Pointers of one backward pass, typed.
-template <typename T>
-struct BwdArgs {
-  const T* hu;
-  const T* dz;
-  const float* dosel;
-  const int* amax;
-  const float* uc;
-  const T* w;
-  const T* ain;
+// The arguments of a da launch, untyped (the C entry's).
+struct DaArgs {
+  const void* dh;
+  int ldh;
+  const void* w;
+  int ldw;
+  const void* hd;
   const float* scd;
-  const T* res_src;
+  const void* res_src;
   const float* res_sc;
   const float* skip_dosel;
   const int* skip_amax;
-  const T* skip_dz;
-  T* dzd;
+  const void* skip_dz;
+  void* dzd;
+  void* a_up;
+  int lda;
   float* sdse;
-  float* dw;
   float* part;
-  float* dw_part;
+  int64_t rows;
+  int cd, cu, pool, chunk_rows;
 };
 
-template <typename T, bool SPARSE, bool DOWN_BN, int RES>
-int bwd_pass(const BwdArgs<T>& a, int64_t rows, int cd, int cu, int pool,
-             int chunk_rows, int dw_chunk_rows, cudaStream_t s) {
-  cudaError_t err;
-  if (a.dzd != nullptr) {
-    const int n_chunks = chunks_of(rows, chunk_rows);
-    using L = Lds<T, TM>;
-    err = set_smem<L>(
-        reinterpret_cast<const void*>(&bwd_da_kernel<T, SPARSE, DOWN_BN, RES>));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    bwd_da_kernel<T, SPARSE, DOWN_BN, RES>
-        <<<dim3((cd + TN - 1) / TN, n_chunks), kThreads, L::total, s>>>(
-            a.hu, a.dz, a.dosel, a.amax, a.uc, a.w, a.ain, a.scd, a.res_src,
-            a.res_sc, a.skip_dosel, a.skip_amax, a.skip_dz, a.dzd, a.part, rows,
-            cd, cu, pool, chunk_rows);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    if (DOWN_BN) {
-      const int rc = colsum(a.part, a.sdse, n_chunks, 2 * static_cast<int64_t>(cd), s);
-      if (rc != 0) return rc;
-    }
-  }
-  const int dw_chunks = chunks_of(rows, dw_chunk_rows);
-  using L = Lds<T, kARows>;
-  err = set_smem<L>(
-      reinterpret_cast<const void*>(&bwd_dw_kernel<T, SPARSE, DOWN_BN, RES>));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dw_kernel<T, SPARSE, DOWN_BN, RES>
-      <<<dim3((cu + TN - 1) / TN, (cd + kARows - 1) / kARows, dw_chunks),
-         kThreads, L::total, s>>>(a.hu, a.dz, a.dosel, a.amax, a.uc, a.ain,
-                                  a.scd, a.res_src, a.res_sc, a.dw_part, rows,
-                                  cd, cu, pool, dw_chunk_rows);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  return colsum(a.dw_part, a.dw, dw_chunks, static_cast<int64_t>(cd) * cu, s);
+template <typename T, bool DOWN_BN, int RES>
+DaEpilogue<T, DOWN_BN, RES> epilogue_of(const DaArgs& a) {
+  return {static_cast<const T*>(a.hd),    static_cast<const T*>(a.res_src),
+          a.skip_dosel,                   a.skip_amax,
+          static_cast<const T*>(a.skip_dz), static_cast<T*>(a.dzd),
+          static_cast<T*>(a.a_up),        a.lda,
+          a.cd,                           a.pool};
 }
 
 template <typename T>
-int bwd_pass_any(const BwdArgs<T>& a, int res_mode, int64_t rows, int cd,
-                 int cu, int pool, int chunk_rows, int dw_chunk_rows,
-                 cudaStream_t s) {
-  const bool sparse = a.dz == nullptr, down_bn = a.scd != nullptr;
+int bwd_dh(const void* hu, const void* dz, const float* dosel, const int* amax,
+           const float* uc, void* dh, int64_t rows, int cu, int ldh, int pool,
+           cudaStream_t s) {
+  const bool sparse = dz == nullptr;
+  const int run = sparse ? pool : kDenseRun;
+  if (ldh % kStrip != 0 || ldh < cu || run < 1 || (sparse && rows % pool != 0))
+    return kBadArgs;
+  const int64_t n = (rows + run - 1) / run * (ldh / kStrip);
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  const T* h = static_cast<const T*>(hu);
+  T* out = static_cast<T*>(dh);
+  if (sparse) {
+    bwd_dh_kernel<T, true><<<blocks, kThreads, 0, s>>>(h, nullptr, dosel, amax, uc,
+                                                       out, rows, cu, ldh, run);
+  } else {
+    bwd_dh_kernel<T, false><<<blocks, kThreads, 0, s>>>(
+        h, static_cast<const T*>(dz), nullptr, nullptr, uc, out, rows, cu, ldh, run);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DOWN_BN, int RES>
+int da_bf16(const DaArgs& a, cudaStream_t s) {
+  if (a.chunk_rows % kBT != 0 || a.ldh % 8 != 0 || a.ldw % 8 != 0 || a.lda % 8 != 0)
+    return kBadArgs;
+  CUtensorMap map_dh, map_w;
+  if (!hopper::bf16_map(&map_dh, a.dh, a.cu, a.rows, a.ldh, kBK, kBT) ||
+      !hopper::bf16_map(&map_w, a.w, a.cu, a.cd, a.ldw, kBK, kBT))
+    return kBadArgs;
+  const void* kernel = reinterpret_cast<const void*>(&bwd_da_wgmma_kernel<DOWN_BN, RES>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDaSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = chunks_of(a.rows, a.chunk_rows);
+  bwd_da_wgmma_kernel<DOWN_BN, RES>
+      <<<dim3((a.cd + kBT - 1) / kBT, chunks), kTmaThreads, kDaSmemBytes, s>>>(
+          map_dh, map_w, epilogue_of<bf16, DOWN_BN, RES>(a), a.scd, a.res_sc, a.part,
+          a.rows, a.cu, a.chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return DOWN_BN ? colsum(a.part, a.sdse, chunks, 2 * static_cast<int64_t>(a.cd), s)
+                 : 0;
+}
+
+template <bool DOWN_BN, int RES>
+int da_f32(const DaArgs& a, cudaStream_t s) {
+  if (a.chunk_rows % TM != 0 || a.ldw != a.cu) return kBadArgs;
+  using L = Lds<float, TM>;
+  cudaError_t err =
+      set_smem<L>(reinterpret_cast<const void*>(&bwd_da_f32_kernel<DOWN_BN, RES>));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = chunks_of(a.rows, a.chunk_rows);
+  bwd_da_f32_kernel<DOWN_BN, RES>
+      <<<dim3((a.cd + TN - 1) / TN, chunks), kThreads, L::total, s>>>(
+          static_cast<const float*>(a.dh), a.ldh, static_cast<const float*>(a.w),
+          epilogue_of<float, DOWN_BN, RES>(a), a.scd, a.res_sc, a.part, a.rows, a.cu,
+          a.chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return DOWN_BN ? colsum(a.part, a.sdse, chunks, 2 * static_cast<int64_t>(a.cd), s)
+                 : 0;
+}
+
+template <bool BF16>
+int bwd_da(const DaArgs& a, int res_mode, cudaStream_t s) {
+  const bool down_bn = a.scd != nullptr;
   const bool skips = a.skip_dosel != nullptr || a.skip_dz != nullptr;
-  if ((res_mode != kResNone || skips) && (sparse || !down_bn)) return kBadArgs;
-#define MLP_CHAIN_PASS(S, D, R) \
-  return bwd_pass<T, S, D, R>(a, rows, cd, cu, pool, chunk_rows, dw_chunk_rows, s)
-  if (sparse && down_bn) MLP_CHAIN_PASS(true, true, kResNone);
-  if (sparse) MLP_CHAIN_PASS(true, false, kResNone);
-  if (!down_bn) MLP_CHAIN_PASS(false, false, kResNone);
-  if (res_mode == kResNone) MLP_CHAIN_PASS(false, true, kResNone);
-  if (res_mode == kResBnRelu) MLP_CHAIN_PASS(false, true, kResBnRelu);
-  if (res_mode == kResDense) MLP_CHAIN_PASS(false, true, kResDense);
-#undef MLP_CHAIN_PASS
+  if ((res_mode != kResNone || skips) && !down_bn) return kBadArgs;
+#define MLP_CHAIN_DA(D, R) return BF16 ? da_bf16<D, R>(a, s) : da_f32<D, R>(a, s)
+  if (!down_bn) MLP_CHAIN_DA(false, kResNone);
+  if (res_mode == kResNone) MLP_CHAIN_DA(true, kResNone);
+  if (res_mode == kResBnRelu) MLP_CHAIN_DA(true, kResBnRelu);
+  if (res_mode == kResDense) MLP_CHAIN_DA(true, kResDense);
+#undef MLP_CHAIN_DA
   return kBadArgs;
 }
 
-template <typename T>
-BwdArgs<T> bwd_args(const void* hu, const void* dz, const float* dosel,
-                    const int* amax, const float* uc, const void* w,
-                    const void* ain, const float* scd, const void* res_src,
-                    const float* res_sc, const float* skip_dosel,
-                    const int* skip_amax, const void* skip_dz, void* dzd,
-                    float* sdse, float* dw, float* part, float* dw_part) {
-  return {static_cast<const T*>(hu), static_cast<const T*>(dz), dosel, amax, uc,
-          static_cast<const T*>(w), static_cast<const T*>(ain), scd,
-          static_cast<const T*>(res_src), res_sc, skip_dosel, skip_amax,
-          static_cast<const T*>(skip_dz), static_cast<T*>(dzd), sdse, dw, part,
-          dw_part};
+template <int BN>
+int dw_bf16(const void* dh, int ldh, const void* ain, int lda, float* dw,
+            float* dw_part, int64_t rows, int cd, int cu, int chunk_rows,
+            cudaStream_t s) {
+  if (chunk_rows % kBK != 0 || ldh % 8 != 0 || lda % 8 != 0) return kBadArgs;
+  CUtensorMap map_dh, map_a;
+  if (!hopper::bf16_map(&map_dh, dh, cu, rows, ldh, kBK, kBK) ||
+      !hopper::bf16_map(&map_a, ain, cd, rows, lda, kBK, kBK))
+    return kBadArgs;
+  cudaError_t err = cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(&bwd_dw_wgmma_kernel<BN>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kDwSmemBytes<BN>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = chunks_of(rows, chunk_rows);
+  bwd_dw_wgmma_kernel<BN>
+      <<<dim3((cu + kBT - 1) / kBT, (cd + BN - 1) / BN, chunks), kTmaThreads,
+         kDwSmemBytes<BN>, s>>>(map_dh, map_a, dw_part, rows, cd, cu, chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return colsum(dw_part, dw, chunks, static_cast<int64_t>(cd) * cu, s);
+}
+
+int dw_f32(const float* dh, int ldh, const float* ain, int lda, float* dw,
+           float* dw_part, int64_t rows, int cd, int cu, int chunk_rows,
+           cudaStream_t s) {
+  if (chunk_rows % KC != 0) return kBadArgs;
+  using L = Lds<float, kARows>;
+  cudaError_t err = set_smem<L>(reinterpret_cast<const void*>(&bwd_dw_f32_kernel));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = chunks_of(rows, chunk_rows);
+  bwd_dw_f32_kernel<<<dim3((cu + TN - 1) / TN, (cd + kARows - 1) / kARows, chunks),
+                      kThreads, L::total, s>>>(dh, ldh, ain, lda, dw_part, rows, cd,
+                                               cu, chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return colsum(dw_part, dw, chunks, static_cast<int64_t>(cd) * cu, s);
 }
 
 }  // namespace
@@ -783,34 +1451,62 @@ extern "C" int mlp_bn_pool_launch(const void* h, const float* sc, int res_mode,
                             amax, hsel, groups, c, pool, final_relu, s);
 }
 
-// One backward pass. hu (rows, cu), uc (4, cu) fp32, w (cd, cu), ain (rows,
-// cd). dz (rows, cu), or NULL for the pooled layer with dosel (rows / pool,
-// cu) fp32 and amax int32. scd (4, cd) fp32 when ain = h_{u-1} lies below a
-// BatchNorm, NULL when ain is the chain's input. Below a BatchNorm with a
-// dense dz only: the residual of pre_{u-1} (res_mode, res_src, res_sc as
-// above, at width cd) and the skip shares added to da, skip_dosel (rows /
-// pool, cd) fp32 at row skip_amax (int32) of each group, and skip_dz (rows,
-// cd); NULL when absent. Outputs: dzd (rows, cd), or NULL to skip it (input
-// layer only); sdse (2, cd) fp32 with scd; dw (cd, cu) fp32. Scratch: part
-// (ceil(rows / chunk_rows), 2, cd) and dw_part (ceil(rows / dw_chunk_rows),
-// cd, cu) fp32; both chunk sizes are multiples of 64.
-extern "C" int mlp_bwd_pass_launch(
-    const void* hu, const void* dz, const float* dosel, const int* amax,
-    const float* uc, const void* w, const void* ain, const float* scd,
-    int res_mode, const void* res_src, const float* res_sc,
-    const float* skip_dosel, const int* skip_amax, const void* skip_dz,
-    void* dzd, float* sdse, float* dw, float* part, float* dw_part,
-    long long rows, int cd, int cu, int pool, int chunk_rows, int dw_chunk_rows,
-    int is_bf16, void* stream) {
+// One backward pass is three launches (and colsum_kernel's).
+//
+// dh (rows, ldh) in T, ldh a multiple of 8 >= cu: the layer's dh, from hu
+// (rows, cu) and uc (4, cu) fp32, with dz (rows, cu), or dz NULL for the
+// pooled layer with dosel (rows / pool, cu) fp32 at row amax (int32) of each
+// group.
+extern "C" int mlp_bwd_dh_launch(const void* hu, const void* dz, const float* dosel,
+                                 const int* amax, const float* uc, void* dh,
+                                 long long rows, int cu, int ldh, int pool,
+                                 int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    return bwd_pass_any<bf16>(
-        bwd_args<bf16>(hu, dz, dosel, amax, uc, w, ain, scd, res_src, res_sc,
-                       skip_dosel, skip_amax, skip_dz, dzd, sdse, dw, part, dw_part),
-        res_mode, rows, cd, cu, pool, chunk_rows, dw_chunk_rows, s);
-  }
-  return bwd_pass_any<float>(
-      bwd_args<float>(hu, dz, dosel, amax, uc, w, ain, scd, res_src, res_sc,
-                      skip_dosel, skip_amax, skip_dz, dzd, sdse, dw, part, dw_part),
-      res_mode, rows, cd, cu, pool, chunk_rows, dw_chunk_rows, s);
+  if (is_bf16) return bwd_dh<bf16>(hu, dz, dosel, amax, uc, dh, rows, cu, ldh, pool, s);
+  return bwd_dh<float>(hu, dz, dosel, amax, uc, dh, rows, cu, ldh, pool, s);
+}
+
+// da = dh @ w^T with dh (rows, ldh) and w (cd, ldw) (cu channels of each row
+// read), then: below a BatchNorm (scd (4, cd) fp32 of hd = h_{u-1} (rows,
+// cd)), with the residual of pre_{u-1} (res_mode, res_src, res_sc as for
+// mlp_mm_stats_launch, at width cd) and the skip shares (skip_dosel (rows /
+// pool, cd) fp32 at row skip_amax (int32) of each group, skip_dz (rows, cd);
+// NULL when absent): dzd (rows, cd), a_up (rows, lda) = T(relu(pre)) and
+// sdse (2, cd) fp32, through part (ceil(rows / chunk_rows), 2, cd) fp32; at
+// the input layer (scd NULL) dzd = T(da) alone. bf16: TMA + wgmma, chunk_rows
+// a multiple of 128, ldh, ldw and lda multiples of 8 and dh, w 16-byte
+// aligned; fp32: CUDA cores, chunk_rows a multiple of 64, ldw = cu.
+extern "C" int mlp_bwd_da_launch(const void* dh, int ldh, const void* w, int ldw,
+                                 const void* hd, const float* scd, int res_mode,
+                                 const void* res_src, const float* res_sc,
+                                 const float* skip_dosel, const int* skip_amax,
+                                 const void* skip_dz, void* dzd, void* a_up, int lda,
+                                 float* sdse, float* part, long long rows, int cd,
+                                 int cu, int pool, int chunk_rows, int is_bf16,
+                                 void* stream) {
+  const DaArgs a{dh,      ldh,       w,         ldw,   hd,  scd,  res_src,
+                 res_sc,  skip_dosel, skip_amax, skip_dz, dzd, a_up, lda,
+                 sdse,    part,      rows,      cd,    cu,  pool, chunk_rows};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? bwd_da<true>(a, res_mode, s) : bwd_da<false>(a, res_mode, s);
+}
+
+// dw (cd, cu) fp32 = ain^T @ dh over all rows, ain (rows, lda) the layer
+// input (a_up, or the chain's input) with cd channels of each row read, dh
+// (rows, ldh); through dw_part (ceil(rows / chunk_rows), cd, cu) fp32 summed
+// in a fixed order. bf16: TMA + wgmma, chunk_rows a multiple of 64, lda and
+// ldh multiples of 8, both 16-byte aligned, tiles of 128 output x tile_cols
+// (128 or 192) input channels; fp32: chunk_rows a multiple of 32.
+extern "C" int mlp_bwd_dw_launch(const void* dh, int ldh, const void* ain, int lda,
+                                 float* dw, float* dw_part, long long rows, int cd,
+                                 int cu, int chunk_rows, int tile_cols, int is_bf16,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && tile_cols == 128)
+    return dw_bf16<128>(dh, ldh, ain, lda, dw, dw_part, rows, cd, cu, chunk_rows, s);
+  if (is_bf16 && tile_cols == 192)
+    return dw_bf16<192>(dh, ldh, ain, lda, dw, dw_part, rows, cd, cu, chunk_rows, s);
+  if (is_bf16) return kBadArgs;
+  return dw_f32(static_cast<const float*>(dh), ldh, static_cast<const float*>(ain), lda,
+                dw, dw_part, rows, cd, cu, chunk_rows, s);
 }

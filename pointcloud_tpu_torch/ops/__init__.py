@@ -65,8 +65,12 @@ from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
     bn_pool_reference,
     bnact_mm_stats,
     bnact_mm_stats_reference,
+    bwd_plan,
     chain_bwd_pass,
     chain_bwd_pass_reference,
+    chain_da_reference,
+    chain_dh_reference,
+    chain_dw_reference,
     mlp_pool_bwd_reference,
     mlp_pool_fused,
     mlp_pool_reference,

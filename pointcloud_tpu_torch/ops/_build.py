@@ -5,11 +5,13 @@ into its own shared library under `build/` at the root of the checkout (the
 `csrc/*.cuh` headers are included, not built on their own):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The file name carries a hash of the source, the headers and the flags, so an
 edited source is rebuilt and an unchanged one is reused. `build()` starts one `nvcc` per
-missing library, all at once, and waits for them together. Nothing here runs
+missing library, all at once, and waits for them together; `ptxas_report`
+reads each kernel's registers and spills from the output of the build that
+made its library. Nothing here runs
 at import: the CPU tests import every module, and this machine may have no
 CUDA toolkit at all.
 """
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -28,11 +31,12 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_logs: dict[str, str] = {}  # nvcc's output of the builds this process made
 
 
 def sources() -> list[str]:
@@ -86,6 +90,7 @@ def build(names: list[str] | None = None) -> float:
     failed = []
     for name, proc, tmp, out in procs:
         log, _ = proc.communicate()
+        _logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
@@ -105,3 +110,24 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def ptxas_report(name: str) -> list[tuple[str, int, int, int]]:
+    """(mangled kernel name, registers, spill store bytes, spill load bytes)
+    of each kernel of csrc/<name>.cu, from ptxas's report of the build this
+    process made (empty if the library was reused)."""
+    rows, kernel, spills = [], None, (0, 0)
+    for line in _logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            rows.append((kernel, int(m.group(1)), *spills))
+            kernel = None
+    return rows

@@ -19,6 +19,11 @@ differentiated by autograd. `mlp_pool_bwd_reference` and
 `preextract_pool_bwd_reference` are the explicit backwards out of the plain
 passes, with the kernels' rounding points.
 
+A backward pass is three stages on the card, as in its plain version: dh
+formed once (`chain_dh_reference`), da with its epilogue, which also forms
+dw's operand a_up (`chain_da_reference`), and dw (`chain_dw_reference`).
+`bwd_plan` decides their tiles, chunks, padding and scratch.
+
 Scalars travel as (4, C) fp32 rows. For a BatchNorm (`affine_scalars`): mean,
 mul = gamma * rsig, beta, rsig. For a backward pass (`up_scalars`): c1, c4,
 c3, mean.
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,8 +46,12 @@ from pointcloud_tpu_torch.ops import _build
 EPS = 1e-5
 _SENT = -1e9  # the pooled value of a group without a valid row
 _TILE_ROWS = 64
-_MAX_CHUNKS = 2048  # row chunks of the forward and da launches (gridDim.y)
-_DW_BLOCKS = 528  # blocks a dw launch aims for (4 per SM)
+_MAX_CHUNKS = 2048  # row chunks of a forward or fp32 da launch (gridDim.y)
+_DW_BLOCKS = 528  # blocks an fp32 dw launch aims for (4 per SM)
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_WG_TILE = 128  # rows and channels of a bf16 (wgmma) da or dw tile
+_WG_DEPTH = 64  # rows of one dw stage: the split-K granule
+_WG_WAVES = 4  # waves of blocks a bf16 launch may take (one resident an SM)
 _MAX_ROWS = 2**31 - 1
 RES_NONE, RES_BNRELU, RES_DENSE = 0, 1, 2
 
@@ -155,20 +165,24 @@ def _dense_dz(dosel, amax, pool: int):
     return dz.reshape(B, G * pool, C)
 
 
-def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
-                             dosel=None, amax=None, pool: int = 1,
-                             need_dzd: bool = True, res=None, skip_pool=None,
-                             skip_dense=None):
-    """Plain version of `chain_bwd_pass`, with its rounding points: dh and
-    dzd rounded to the activation dtype, the skip shares added to da in
-    fp32 (pool share first), Sd and Se summed from the rounded dzd, every
-    product accumulated in fp32."""
-    dt = h_up.dtype
-    Cd, Cu = w.shape
+def chain_dh_reference(h_up, uc, dz=None, dosel=None, amax=None, pool: int = 1):
+    """Plain version of a backward pass's first stage: dh = dtype(c1 dz - c4 -
+    c3 (h_up - mean)) (B, R, Cu), the layer's cotangent dz or, at the pooled
+    layer, dosel at row amax of each group of `pool` rows."""
     dzf = _dense_dz(dosel, amax, pool) if dz is None else dz.float()
-    dh = ((uc[0] * dzf - uc[1]) - uc[2] * (h_up.float() - uc[3])).to(dt).float()
-    wf = w.to(dt).float()
-    da = torch.matmul(dh, wf.t()) if need_dzd else None
+    return ((uc[0] * dzf - uc[1]) - uc[2] * (h_up.float() - uc[3])).to(h_up.dtype)
+
+
+def chain_da_reference(dh, w, a_in, sc_down=None, need_dzd: bool = True, res=None,
+                       skip_pool=None, skip_dense=None, pool: int = 1):
+    """Plain version of the second stage, da = dh @ w^T in fp32 and its
+    epilogue: below a BatchNorm the skip shares join da in fp32 (pool share
+    first), dzd = dtype(da 1[pre > 0]), Sd and Se summed from the rounded
+    dzd, and dw's operand a_up = dtype(relu(pre)); at the input dzd =
+    dtype(da) (None without need_dzd) and a_up = a_in. Returns (dzd, sd, se,
+    a_up)."""
+    dt = dh.dtype
+    da = torch.matmul(dh.float(), w.to(dt).float().t()) if need_dzd else None
     sd = se = dzd = None
     if sc_down is not None:
         hdf = a_in.float()
@@ -177,17 +191,37 @@ def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
             da = da + _dense_dz(*skip_pool, pool)
         if skip_dense is not None:
             da = da + skip_dense.float()
-        a_up = _relu(pre).to(dt).float()
+        a_up = _relu(pre).to(dt)
         dzd = torch.where(pre > 0, da, 0.0).to(dt)
         dzdf = dzd.float()
         sd = dzdf.sum(dim=(0, 1))
         se = (dzdf * ((hdf - sc_down[0]) * sc_down[3])).sum(dim=(0, 1))
     else:
-        a_up = a_in.float()
+        a_up = a_in
         if need_dzd:
             dzd = da.to(dt)
-    dw = torch.matmul(a_up.reshape(-1, Cd).t(), dh.reshape(-1, Cu))
-    return dzd, sd, se, dw
+    return dzd, sd, se, a_up
+
+
+def chain_dw_reference(a_up, dh):
+    """Plain version of the third stage: dw = a_up^T @ dh (Cd, Cu), fp32
+    accumulation over all rows."""
+    return torch.matmul(a_up.float().reshape(-1, a_up.shape[-1]).t(),
+                        dh.float().reshape(-1, dh.shape[-1]))
+
+
+def chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down=None, dz=None,
+                             dosel=None, amax=None, pool: int = 1,
+                             need_dzd: bool = True, res=None, skip_pool=None,
+                             skip_dense=None):
+    """Plain version of `chain_bwd_pass`, the composition of its three
+    stages with their rounding points: dh and dzd rounded to the activation
+    dtype, the skip shares added to da in fp32 (pool share first), Sd and Se
+    summed from the rounded dzd, every product accumulated in fp32."""
+    dh = chain_dh_reference(h_up, uc, dz, dosel, amax, pool)
+    dzd, sd, se, a_up = chain_da_reference(dh, w, a_in, sc_down, need_dzd, res,
+                                           skip_pool, skip_dense, pool)
+    return dzd, sd, se, chain_dw_reference(a_up, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -202,11 +236,16 @@ def _launchers():
     mm.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
     pool = lib.mlp_bn_pool_launch
     pool.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
-    bwd = lib.mlp_bwd_pass_launch
-    bwd.argtypes = [vp] * 8 + [i32] + [vp] * 10 + [i64] + [i32] * 6 + [vp]
-    for fn in (mm, pool, bwd):
+    dh = lib.mlp_bwd_dh_launch
+    dh.argtypes = [vp] * 6 + [i64] + [i32] * 4 + [vp]
+    da = lib.mlp_bwd_da_launch
+    da.argtypes = [vp, i32, vp, i32, vp, vp, i32] + [vp] * 7 + [i32, vp, vp, i64] \
+        + [i32] * 5 + [vp]
+    dw = lib.mlp_bwd_dw_launch
+    dw.argtypes = [vp, i32, vp, i32, vp, vp, i64] + [i32] * 5 + [vp]
+    for fn in (mm, pool, dh, da, dw):
         fn.restype = ctypes.c_int
-    return mm, pool, bwd
+    return mm, pool, dh, da, dw
 
 
 def _ptr(t):
@@ -218,17 +257,91 @@ def _round_up(v: int, to: int) -> int:
 
 
 def _chunk_rows(rows: int) -> int:
-    """Rows a forward or da block owns: whole 64-row tiles, at most
-    _MAX_CHUNKS chunks."""
+    """Rows a forward block owns: whole 64-row tiles, at most _MAX_CHUNKS
+    chunks."""
     return max(_TILE_ROWS, _round_up(-(-rows // _MAX_CHUNKS), _TILE_ROWS))
 
 
-def _dw_chunk_rows(rows: int, cd: int, cu: int) -> int:
-    """Rows a dw block owns: whole 64-row tiles, about _DW_BLOCKS blocks over
-    the (Cd, Cu) tiles and the row chunks together."""
+class BwdPlan(NamedTuple):
+    """Launch geometry and scratch of one backward pass (`bwd_plan`)."""
+    rows: int
+    cd: int
+    cu: int
+    input_layer: bool  # a_in is the chain's input (no BatchNorm below)
+    ldh: int  # row stride of the dh scratch (rows, ldh): cu rounded up to 8
+    lda: int  # row stride of a_up (rows, lda): bf16, cd rounded up to 8
+    pad_x: bool  # bf16 input layer of a ragged width: dw reads a padded copy
+    pad_w: bool  # bf16 with cu no multiple of 8: da reads w padded to ldh
+    da_tile: int  # rows of a da tile
+    da_chunk_rows: int  # rows a da block owns: whole tiles
+    da_chunks: int
+    dw_chunk_rows: int  # rows of a dw block's split-K chunk
+    dw_chunks: int
+    dw_cols: int  # input channels of a dw tile (bf16: 128, or 192 from cd 512)
+
+    def scratch(self) -> dict:
+        """Shapes of the pass's scratch: dh in the activation dtype; a_up in
+        it below a BatchNorm, the padded input at a ragged bf16 input layer
+        (None: dw reads the input itself); fp32 partials of Sd and Se
+        (below a BatchNorm) and of dw."""
+        a_up = (None if self.input_layer and not self.pad_x
+                else (self.rows, self.lda))
+        return {"dh": (self.rows, self.ldh), "a_up": a_up,
+                "part": None if self.input_layer else (self.da_chunks, 2, self.cd),
+                "dw_part": (self.dw_chunks, self.cd, self.cu)}
+
+
+def _split(rows: int, granule: int, blocks_per_chunk: int, sms: int) -> tuple:
+    """(chunk rows, chunks): whole granules a chunk, the `blocks_per_chunk`
+    tiles of every chunk one block each, one block resident an SM. Of the
+    counts that fit _WG_WAVES waves, the one whose waves times granules a
+    block is least (the fewest chunks on a tie): a last wave that is mostly
+    idle costs a whole wave."""
+    granules = -(-rows // granule)
+    best = None
+    most = min(granules, max(1, _WG_WAVES * sms // blocks_per_chunk))
+    for want in range(1, most + 1):
+        per = -(-granules // want)
+        chunks = -(-granules // per)
+        cost = -(-chunks * blocks_per_chunk // sms) * per
+        if best is None or cost < best[0]:
+            best = (cost, per * granule, chunks)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
+             sms: int = _SMS) -> BwdPlan:
+    """The launch plan of one backward pass of rows x (cd -> cu).
+
+    bf16 (TMA + wgmma): da blocks own chunks of pairs of 128-row tiles for
+    128 input channels, dw blocks 128 of cu x 128 (192 from cd = 512) of cd
+    over a split-K chunk of 64-row stages, each launch in whole waves;
+    TMA reads rows of 16-byte strides, so dh and a_up rows are padded to 8
+    channels, the input layer's x is copied padded when cd is ragged and w
+    when cu is. fp32 (CUDA cores): 64-row da tiles in at most _MAX_CHUNKS
+    chunks, dw chunks for about _DW_BLOCKS blocks; nothing padded but dh."""
+    ldh, lda = _round_up(cu, 8), _round_up(cd, 8)
+    if bf16:
+        # the two consumers of a da block take its 128-row tiles in turn
+        da_chunk, da_chunks = _split(rows, 2 * _WG_TILE, -(-cd // _WG_TILE), sms)
+        dw_cols = 192 if cd >= 512 else _WG_TILE
+        dw_chunk, dw_chunks = _split(
+            rows, _WG_DEPTH, -(-cu // _WG_TILE) * -(-cd // dw_cols), sms)
+        return BwdPlan(rows, cd, cu, input_layer, ldh, lda,
+                       input_layer and cd % 8 != 0, cu % 8 != 0, _WG_TILE, da_chunk,
+                       da_chunks, dw_chunk, dw_chunks, dw_cols)
+    da_chunk = _chunk_rows(rows)
     tiles = -(-cd // 128) * -(-cu // 128)
-    chunks = max(1, -(-_DW_BLOCKS // tiles))
-    return max(_TILE_ROWS, _round_up(-(-rows // chunks), _TILE_ROWS))
+    dw_chunk = max(_TILE_ROWS, _round_up(
+        -(-rows // max(1, -(-_DW_BLOCKS // tiles))), _TILE_ROWS))
+    return BwdPlan(rows, cd, cu, input_layer, ldh, cd, False, False, _TILE_ROWS,
+                   da_chunk, -(-rows // da_chunk), dw_chunk, -(-rows // dw_chunk), 128)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _device_of(name, *tensors):
@@ -305,7 +418,7 @@ def _mm_stats_kernel(x, sc, w, res=None, write_r=False):
     stats = torch.empty((2, Cu), dtype=torch.float32, device=x.device)
     part = torch.empty((-(-rows // chunk), 2, Cu), dtype=torch.float32,
                        device=x.device)
-    launch, _, _ = _launchers()
+    launch = _launchers()[0]
     with torch.cuda.device(x.device):
         err = launch(_ptr(x), _ptr(sc), mode, _ptr(src), _ptr(rsc), _ptr(w),
                      _ptr(h), _ptr(r), _ptr(stats), _ptr(part), rows, Cd, Cu,
@@ -390,7 +503,7 @@ def bn_pool(h, sc, pen, pool: int, final_relu: bool = True, res=None):
     amax = torch.empty((B, G, C), dtype=torch.int32, device=device)
     hsel = torch.empty((B, G, C), dtype=torch.float32, device=device)
     mode = _res_parts(res)[0]
-    _, launch, _ = _launchers()
+    launch = _launchers()[1]
     with torch.cuda.device(device):
         err = launch(_ptr(h), _ptr(sc), mode, _ptr(src), _ptr(rsc), _ptr(pen),
                      _ptr(out), _ptr(maxv), _ptr(amax), _ptr(hsel), B * G, C,
@@ -403,6 +516,84 @@ def bn_pool(h, sc, pen, pool: int, final_relu: bool = True, res=None):
 
 
 bn_pool.launches = 0
+
+
+def _aligned(t):
+    """t, or a copy of it where its data does not start on a 32-byte
+    boundary (the backward's vector accesses and TMA maps need one)."""
+    return t if t is None or t.data_ptr() % 32 == 0 else t.clone()
+
+
+def _launch_bwd(stage, what, device, *args):
+    with torch.cuda.device(device):
+        err = _launchers()[stage](*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"chain_bwd_pass {what} kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def _bwd_dh(plan, h_up, uc, dz=None, dosel=None, amax=None, pool: int = 1):
+    """The pass's dh stage on the card: dh (rows, plan.ldh) in h_up.dtype
+    (`chain_dh_reference` in its first Cu channels, 0 in the pad)."""
+    h_up, uc, dz, dosel, amax = map(_aligned, (h_up, uc, dz, dosel, amax))
+    dh = torch.empty((plan.rows, plan.ldh), dtype=h_up.dtype, device=h_up.device)
+    _launch_bwd(2, "dh", h_up.device, _ptr(h_up), _ptr(dz), _ptr(dosel), _ptr(amax),
+                _ptr(uc), _ptr(dh), plan.rows, plan.cu, plan.ldh, pool,
+                int(h_up.dtype == torch.bfloat16))
+    return dh
+
+
+def _bwd_da(plan, dh, w, a_in, sc_down=None, need_dzd: bool = True, res=None,
+            skip_pool=None, skip_dense=None, pool: int = 1):
+    """The pass's da stage on the card, from `_bwd_dh`'s dh: (dzd or None,
+    sdse (2, Cd) fp32 or None, a_up) as `chain_da_reference`, a_up (rows,
+    >= Cd) being dw's operand (its first Cd channels). At the input layer
+    a_up is a_in itself or its padded copy, and without need_dzd nothing is
+    launched."""
+    device = a_in.device
+    mode, src, rsc = _res_parts(res)
+    skip_dosel, skip_amax = skip_pool if skip_pool is not None else (None, None)
+    w, a_in, sc_down, src, rsc, skip_dosel, skip_amax, skip_dense = map(
+        _aligned, (w, a_in, sc_down, src, rsc, skip_dosel, skip_amax, skip_dense))
+    a_up = None
+    if sc_down is None:
+        a_up = a_in.reshape(plan.rows, plan.cd)
+        if plan.pad_x:
+            a_up = torch.zeros((plan.rows, plan.lda), dtype=a_in.dtype, device=device)
+            a_up[:, :plan.cd] = a_in.reshape(plan.rows, plan.cd)
+        if not need_dzd:
+            return None, None, a_up
+    if plan.pad_w:
+        wp = torch.zeros((plan.cd, plan.ldh), dtype=w.dtype, device=device)
+        wp[:, :plan.cu] = w
+        w = wp
+    dzd = torch.empty_like(a_in)
+    sdse = part = None
+    if sc_down is not None:
+        a_up = torch.empty((plan.rows, plan.lda), dtype=a_in.dtype, device=device)
+        sdse = torch.empty((2, plan.cd), dtype=torch.float32, device=device)
+        part = torch.empty(plan.scratch()["part"], dtype=torch.float32, device=device)
+    _launch_bwd(3, "da", device, _ptr(dh), dh.shape[1], _ptr(w), w.shape[1],
+                _ptr(a_in), _ptr(sc_down), mode, _ptr(src), _ptr(rsc),
+                _ptr(skip_dosel), _ptr(skip_amax), _ptr(skip_dense), _ptr(dzd),
+                _ptr(a_up) if sc_down is not None else None, plan.lda, _ptr(sdse),
+                _ptr(part), plan.rows, plan.cd, plan.cu, pool, plan.da_chunk_rows,
+                int(a_in.dtype == torch.bfloat16))
+    return dzd, sdse, a_up
+
+
+def _bwd_dw(plan, dh, a_up):
+    """The pass's dw stage on the card: dw (Cd, Cu) fp32 from `_bwd_dh`'s dh
+    and `_bwd_da`'s a_up."""
+    a_up = _aligned(a_up)
+    device = dh.device
+    dw = torch.empty((plan.cd, plan.cu), dtype=torch.float32, device=device)
+    dw_part = torch.empty(plan.scratch()["dw_part"], dtype=torch.float32,
+                          device=device)
+    _launch_bwd(4, "dw", device, _ptr(dh), dh.shape[1], _ptr(a_up), a_up.shape[1],
+                _ptr(dw), _ptr(dw_part), plan.rows, plan.cd, plan.cu,
+                plan.dw_chunk_rows, plan.dw_cols, int(dh.dtype == torch.bfloat16))
+    return dw
 
 
 def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
@@ -426,8 +617,9 @@ def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
       at the input: dzd = dtype(da), the gradient of a_in (None when
         need_dzd is False), sd = se = None, dw = a_in^T @ dh.
     Returns (dzd, sd, se, dw (Cd, Cu) fp32). CPU tensors take the plain
-    version; CUDA tensors launch the kernels (`chain_bwd_pass.launches`
-    counts one per pass); anything else raises."""
+    version; CUDA tensors launch the three stage kernels (`_bwd_dh`,
+    `_bwd_da`, `_bwd_dw`; `chain_bwd_pass.launches` counts one per pass);
+    anything else raises."""
     _check_product("chain_bwd_pass", a_in, w, sc_down)
     B, R, Cd = a_in.shape
     Cu = w.shape[1]
@@ -466,29 +658,12 @@ def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
                                         skip_dense)
     _check_kernel("chain_bwd_pass", (a_in, h_up, w, dz, src, skip_dense),
                   (uc, sc_down, dosel, rsc, skip_dosel), (amax, skip_amax))
-    rows = B * R
-    chunk = _chunk_rows(rows)
-    dw_chunk = _dw_chunk_rows(rows, Cd, Cu)
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
-
-    dzd = torch.empty_like(a_in) if need_dzd else None
-    sdse = part = None
-    if sc_down is not None:
-        sdse, part = f32(2, Cd), f32(-(-rows // chunk), 2, Cd)
-    dw, dw_part = f32(Cd, Cu), f32(-(-rows // dw_chunk), Cd, Cu)
-    _, _, launch = _launchers()
-    with torch.cuda.device(device):
-        err = launch(_ptr(h_up), _ptr(dz), _ptr(dosel), _ptr(amax), _ptr(uc),
-                     _ptr(w), _ptr(a_in), _ptr(sc_down), _res_parts(res)[0],
-                     _ptr(src), _ptr(rsc), _ptr(skip_dosel), _ptr(skip_amax),
-                     _ptr(skip_dense), _ptr(dzd), _ptr(sdse), _ptr(dw),
-                     _ptr(part), _ptr(dw_part), rows, Cd, Cu, pool, chunk,
-                     dw_chunk, int(a_in.dtype == torch.bfloat16),
-                     torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"chain_bwd_pass kernel launch failed: CUDA error {err}")
+    plan = bwd_plan(B * R, Cd, Cu, a_in.dtype == torch.bfloat16, sc_down is None,
+                    _sm_count(device.index))
+    dh = _bwd_dh(plan, h_up, uc, dz, dosel, amax, pool)
+    dzd, sdse, a_up = _bwd_da(plan, dh, w, a_in, sc_down, need_dzd, res, skip_pool,
+                              skip_dense, pool)
+    dw = _bwd_dw(plan, dh, a_up)
     chain_bwd_pass.launches += 1
     if sdse is None:
         return dzd, None, None, dw

@@ -18,8 +18,12 @@ from pointcloud_tpu_torch.ops import (
     bn_pool_reference,
     bnact_mm_stats,
     bnact_mm_stats_reference,
+    bwd_plan,
     chain_bwd_pass,
     chain_bwd_pass_reference,
+    chain_da_reference,
+    chain_dh_reference,
+    chain_dw_reference,
     chamfer_bwd,
     chamfer_bwd_reference,
     chamfer_distance,
@@ -660,6 +664,142 @@ def test_chain_kernels_reject_what_they_do_not_take(dev):
                        dosel=torch.zeros(2, 12, 16, device=dev),
                        amax=torch.zeros(2, 12, 16, device=dev, dtype=torch.int64),
                        pool=4)
+
+
+# ---- the chain's backward pass, stage by stage ----
+
+# (B, R, Cd, Cu, pool, kind, res_mode, skip): a sparse top layer below a
+# BatchNorm and at the input (depths 6, 131, 259; ragged widths 130, 200,
+# 72, also below a BatchNorm), dense layers, the three residual modes with
+# both skip shares at mid width 16 and at width 1024, a pool of 24
+# straddling 128-row tiles
+STAGE_CASES = [
+    (2, 48, 16, 24, 4, "sparse", tpf.RES_NONE, None),
+    (4, 1024, 6, 64, 32, "dense", None, None),
+    (3, 640, 131, 128, 128, "dense", None, None),
+    (3, 640, 128, 200, 128, "dense", tpf.RES_NONE, None),
+    (3, 640, 200, 72, 128, "sparse", tpf.RES_NONE, None),
+    (2, 128, 259, 256, 128, "dense", None, None),
+    (2, 96, 259, 40, 32, "sparse", None, None),
+    (2, 96, 24, 130, 4, "sparse", tpf.RES_NONE, None),
+    (2, 72, 64, 16, 24, "dense", tpf.RES_BNRELU, "pool"),
+    (2, 72, 16, 64, 24, "dense", tpf.RES_NONE, "dense"),
+    (4, 24 * 40, 128, 128, 24, "dense", tpf.RES_DENSE, "dense"),
+    (2, 24 * 8, 1024, 1024, 24, "dense", tpf.RES_BNRELU, "pool"),
+    (2, 24 * 8, 1027, 1024, 24, "dense", None, None),
+    # a ragged width below a BatchNorm (the epilogue's one-channel path)
+    (2, 72, 130, 64, 24, "dense", tpf.RES_BNRELU, "pool"),
+    (2, 96, 130, 40, 4, "sparse", tpf.RES_NONE, None),
+]
+
+
+def stage_inputs(dev, seed, B, R, Cd, Cu, pool, kind, res_mode, skip, dtype):
+    """Arguments of one backward pass on the card: activations ~ N(0, 1) in
+    dtype, BatchNorm scalars of random statistics (some scales negative),
+    a pooled cotangent at random rows or a dense one."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = B * R
+
+    def act(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def scalars(C):
+        gamma = torch.where(torch.rand(C, generator=g, device=dev) < 0.2, -1.0, 1.0) \
+            * (0.5 + torch.rand(C, generator=g, device=dev))
+        ssum = 0.1 * n * torch.randn(C, generator=g, device=dev)
+        ssq = n * (0.5 + torch.rand(C, generator=g, device=dev))
+        return affine_scalars(ssum, ssq, gamma, 0.1 * torch.randn(
+            C, generator=g, device=dev), n), gamma
+
+    h_up, a_in, w = act(B, R, Cu), act(B, R, Cd), act(Cd, Cu) / Cd ** 0.5
+    sc_up, gamma = scalars(Cu)
+    uc = up_scalars(sc_up, gamma, torch.randn(Cu, generator=g, device=dev),
+                    torch.randn(Cu, generator=g, device=dev), n)
+    kw = dict(pool=pool)
+    if kind == "sparse":
+        kw["dosel"] = torch.randn((B, R // pool, Cu), generator=g, device=dev)
+        kw["amax"] = torch.randint(0, pool, (B, R // pool, Cu), generator=g,
+                                   device=dev, dtype=torch.int32)
+    else:
+        kw["dz"] = act(B, R, Cu)
+    sc_down = None
+    if res_mode is not None:
+        sc_down = scalars(Cd)[0]
+        if res_mode == tpf.RES_BNRELU:
+            kw["res"] = (act(B, R, Cd), scalars(Cd)[0])
+        elif res_mode == tpf.RES_DENSE:
+            kw["res"] = torch.relu(act(B, R, Cd))
+        if skip == "pool":
+            kw["skip_pool"] = (torch.randn((B, R // pool, Cd), generator=g, device=dev),
+                               torch.randint(0, pool, (B, R // pool, Cd), generator=g,
+                                             device=dev, dtype=torch.int32))
+        elif skip == "dense":
+            kw["skip_dense"] = act(B, R, Cd)
+    return (h_up, uc, w.contiguous(), a_in, sc_down), kw
+
+
+@pytest.mark.parametrize("case", STAGE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_bwd_stages_match_their_plain_stages(dev, case, dtype):
+    """Each stage kernel of `chain_bwd_pass` against its plain stage on the
+    same inputs, each twice and bit-equal: dh bit-equal (the pad channels
+    0), dzd within one ulp (`close_act`), a_up bit-equal, sd / se 1e-4 /
+    5e-3 and dw 1e-4 / 1e-3 relative (summation order); then the whole pass
+    against `chain_bwd_pass_reference`."""
+    B, R, Cd, Cu, pool, kind, res_mode, skip = case
+    (h_up, uc, w, a_in, sc_down), kw = stage_inputs(dev, sum(case[:5]), *case, dtype)
+    rows = B * R
+    plan = bwd_plan(rows, Cd, Cu, dtype == torch.bfloat16, sc_down is None)
+    sparse = {k: kw.get(k) for k in ("dz", "dosel", "amax")}
+
+    def twice(fn):
+        got, again = fn(), fn()
+        got_t = got if isinstance(got, tuple) else (got,)
+        again_t = again if isinstance(again, tuple) else (again,)
+        assert all((a is None and b is None) or torch.equal(a, b)
+                   for a, b in zip(got_t, again_t))
+        return got
+
+    dh = twice(lambda: tpf._bwd_dh(plan, h_up, uc, pool=pool, **sparse))
+    want_dh = chain_dh_reference(h_up, uc, pool=pool, **sparse)
+    assert dh.dtype == dtype and dh.shape == (rows, plan.ldh)
+    assert torch.equal(dh[:, :Cu].reshape(B, R, Cu), want_dh)
+    assert not bool(dh[:, Cu:].float().abs().sum())
+    joins = {k: kw.get(k) for k in ("res", "skip_pool", "skip_dense")}
+    for need in ((True, False) if sc_down is None else (True,)):
+        dzd, sdse, a_up = twice(lambda: tpf._bwd_da(plan, dh, w, a_in, sc_down, need,
+                                                    pool=pool, **joins))
+        w_dzd, w_sd, w_se, w_aup = chain_da_reference(want_dh, w, a_in, sc_down, need,
+                                                      pool=pool, **joins)
+        if need:
+            close_act(dzd, w_dzd)
+        else:
+            assert dzd is None
+        assert torch.equal(a_up[:, :Cd].reshape(B, R, Cd), w_aup)
+        if sc_down is not None:
+            close_sums(sdse[0], w_sd, dtype, bf16_tol=5e-3)
+            close_sums(sdse[1], w_se, dtype, bf16_tol=5e-3)
+        dw = twice(lambda: tpf._bwd_dw(plan, dh, a_up))
+        close_sums(dw, chain_dw_reference(w_aup, want_dh), dtype)
+    got = chain_bwd_pass(h_up, uc, w, a_in, sc_down, **kw)
+    want = chain_bwd_pass_reference(h_up, uc, w, a_in, sc_down, **kw)
+    close_act(got[0], want[0])
+    close_sums(got[3], want[3], dtype)
+
+
+def test_chain_bwd_stage_kernels_reject_what_they_do_not_take(dev):
+    """A plan whose chunks are no whole tiles, or padded strides that are
+    no multiple of 8, make the launch fail rather than run."""
+    (h_up, uc, w, a_in, sc_down), kw = stage_inputs(
+        dev, 0, 2, 128, 64, 64, 4, "dense", tpf.RES_NONE, None, torch.bfloat16)
+    plan = bwd_plan(256, 64, 64, True, False)
+    dh = tpf._bwd_dh(plan, h_up, uc, kw["dz"])
+    with pytest.raises(RuntimeError, match="da kernel launch failed"):
+        tpf._bwd_da(plan._replace(da_chunk_rows=100), dh, w, a_in, sc_down)
+    with pytest.raises(RuntimeError, match="dh kernel launch failed"):
+        tpf._bwd_dh(plan._replace(ldh=60), h_up, uc, kw["dz"])
+    with pytest.raises(RuntimeError, match="dw kernel launch failed"):
+        tpf._bwd_dw(plan._replace(dw_chunk_rows=96), dh, dh)
 
 
 # ---- the PointMLP train slice's kernels: the chain's residual mode ----
