@@ -7,12 +7,14 @@ Phases; any failure raises and the script exits non-zero without its result
 lines:
   1. build every kernel in pointcloud_tpu_torch/csrc/ (one nvcc each, in
      parallel) into build/, or reuse the build; print the registers and
-     spills of the chain backward's kernels (ptxas -v);
+     spills of the chain's forward and backward kernels (ptxas -v);
   2. hold each kernel against its plain PyTorch version on the card (masks,
      fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
      equal indices, empty balls, k not a multiple of 8, the shared-memory
      and global paths; for the four passes of the Dense-BN-ReLU-pool chain
-     depths 6 / 131 / 259, ragged widths, pools of 4 / 32 / 128, a fully
+     depths 6 / 131 / 259, ragged widths (bf16 widths that are no multiple
+     of 8 take the tile kernel, the rest TMA + wgmma), pools of 4 / 32 /
+     128, a fully
      masked group, planted ties, final_relu both ways, and each stage of
      the backward pass (dh, da, dw) against its plain stage; ball_group's
      gradient; for the Sinkhorn matching N != M, N not a multiple of 64,
@@ -39,7 +41,8 @@ lines:
   8. the PointNet2 train path at full width: make_optimizer +
      make_train_step for the PointNet2 autoencoder at B=256 x 2048 x 6,
      bf16, one fixed batch, 1 warm-up step and 10 chained steps, with the
-     launch counts of a step asserted exactly;
+     launch counts of a step asserted exactly; SA2's grouping gradient
+     (scatter_rows) at one more step's own inputs, held and timed;
   9. the Earth Mover's Distance paths at full width: create_model(
      "Autoencoder", "PointNet", "Cube") with its default EMD loss, eval and
      train steps at B=128 x 2048 x 6 (bf16); create_model("Segmenter",
@@ -66,7 +69,10 @@ lines:
      and PointMLP-Elite with its default EMD loss, a warm-up step and 5
      chained steps with exact launch counts, the step's parts and a trace,
      every stage's residual chain held against its plain versions at that
-     batch's own inputs and PointMLP's stages timed; one train step of the
+     batch's own inputs and both configurations' stages timed (the
+     products' bf16 route asserted TMA + wgmma on every driven path);
+     PointMLP's four grouping gradients (scatter_rows) at one more step's
+     own inputs, held and timed; one train step of the
      Segmenter on PointMLP-Elite at B=8; the fp32 PointMLP train step card
      vs CPU at B=2 (equal FPS and kNN indices, first loss and update);
  12. the multi-scale-grouping PointNet2 kernel: group_gather (the legacy
@@ -92,7 +98,8 @@ Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound, with both Chamfer backward routes at the
 train step's shapes, the parts of each step and a torch.profiler trace of
-each train step (device time by kernel, busy and idle share). For each path
+each train step (device time by kernel, busy and idle share, beside the
+host's enqueue time). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
 13, encode, the sensor chain)
 every kernel's launch count is set
@@ -158,12 +165,14 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def trace_steps(step, x, y, untraced_ms, label):
+def trace_steps(step, x, y, untraced_ms, label, enqueue_ms=None):
     """torch.profiler trace of 3 more train steps: the 12 largest device
     kernels' times per step summed by name, and the device's
     busy time per step beside the traced step's and the untraced step's
-    (`untraced_ms`) host-clock time. The profiler slows the host, so the idle
-    share is stated against both clocks."""
+    (`untraced_ms`) host-clock time and, where given, the host's own time
+    to enqueue a step (`drive_train`): a step that runs at the host's pace
+    still shows the device time it needs. The profiler slows the host, so
+    the idle share is stated against both clocks. Returns the busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = 3
@@ -185,9 +194,13 @@ def trace_steps(step, x, y, untraced_ms, label):
         f"{len(rows)} kernels; host clock {traced_ms:.3f} ms/step traced (idle "
         f"{100 * (1 - busy / traced_ms):.1f}%), {untraced_ms:.3f} ms/step "
         f"untraced (idle {100 * (1 - busy / untraced_ms):.1f}%)")
+    if enqueue_ms is not None:
+        log(f"  {label}: device busy {busy:.3f} ms/step | host enqueue "
+            f"{enqueue_ms:.3f} ms/step | step {untraced_ms:.3f} ms/step")
     for ms, calls, key in rows[:12]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:6.1f} calls/step  "
             f"{key[:100]}")
+    return busy
 
 
 def bound(ops, nbytes, peak_ops):
@@ -1058,6 +1071,8 @@ def close_sums(name, got, want, tol):
 # the kernels of one chain backward pass (csrc/mlp_chain.cu), by name
 BWD_KERNELS = ("bwd_dh_kernel", "bwd_da_wgmma_kernel", "bwd_dw_wgmma_kernel",
                "bwd_da_f32_kernel", "bwd_dw_f32_kernel")
+# and of its forward products: the TMA + wgmma kernel, the tile kernel
+FWD_KERNELS = ("fwd_wgmma_kernel", "mm_stats_kernel")
 
 
 def bwd_stages(a, kw):
@@ -1123,7 +1138,7 @@ def check_bwd_stages(a, kw, what):
 
 
 def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
-                  need_dx=True, planted=False, residual=False, tag=""):
+                  need_dx=True, planted=False, residual=False, tag="", path=False):
     """Each pass of the chain against its plain version ON THE SAME INPUTS
     (the kernel chain's own tensors feed both: the passes are walked by the
     port's own _chain_forward and _chain_backward), each kernel twice and
@@ -1139,7 +1154,9 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
     residual chain (pen None): the residual adds, the stored block outputs
     and the skip shares of the backward. `planted`: the inputs are
     `chain_inputs`', whose ties are then checked (with pen, every call
-    checks that exactly the groups without a valid row give -1e9). Updates
+    checks that exactly the groups without a valid row give -1e9). `path`:
+    a driven path's own tensors, whose bf16 products must take the TMA +
+    wgmma kernel (`fwd_plan`), never the tile kernel. Updates
     `err` (keys: the wrapper's name + `tag`) with the largest absolute
     errors (of h, out, dw); returns the forward's saved tensors (ws_c, hs,
     scs, rs, maxv, amax, hsel) and the pooled output."""
@@ -1164,6 +1181,12 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
 
     def product(name, fn, ref):
         def run(*a, **kw):
+            w = a[-1]
+            plan = tpf.fwd_plan(B * R, w.shape[0], w.shape[1], dt == torch.bfloat16,
+                                name == "mm_stats", tpf._sm_count(x.device.index))
+            if path and dt == torch.bfloat16 and not plan.panel_rows:
+                raise AssertionError(f"{name} {label} {tuple(w.shape)}: a driven "
+                                     f"path's product went to the tile kernel")
             got = twice_equal(name, lambda: fn(*a, **kw))
             want = ref(*a, **kw)
             note(name, close_act(f"{name} {label} {tuple(a[-1].shape)}", got[0],
@@ -1368,8 +1391,8 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
     plain version, a library yardstick (bf16 matmul +
     F.batch_norm(training=True) + ReLU [+ the residual add] + amax, and
     autograd through them; timed here, never called by the port) and the
-    bound (each backward pass and its library yardstick over 10 calls after
-    2 warm-ups); each backward pass also as its three stages alone (dh, da,
+    bound (each product pass, each backward pass and their library
+    yardsticks over 10 calls after 2 warm-ups); each backward pass also as its three stages alone (dh, da,
     dw, 10 calls each), beside their bounds. Returns rows of (kernel name,
     layer, ms, plain ms, library ms, (bound ms, by))."""
     import torch.nn.functional as F
@@ -1412,18 +1435,18 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
             res = tpf._layer_residual(u, L, residual, hs, scs, rs)
             write_r = residual and u % 2 == 1 and (u + 1) // 2 >= 2
             args, kw = (hs[u - 1], scs[u - 1], ws_c[u]), dict(res=res, write_r=write_r)
-            ms = cuda_ms(lambda: bnact_mm_stats(*args, **kw), iters=5)
+            ms = cuda_ms(lambda: bnact_mm_stats(*args, **kw), iters=10, warmup=2)
             plain = cuda_ms(lambda: bnact_mm_stats_reference(*args, **kw), iters=1,
                             warmup=1)
             lib = cuda_ms(lambda: sums(torch.matmul(
-                torch.relu(bn(hs[u - 1], u - 1) + lib_res(res)), ws_c[u])), iters=2,
-                warmup=1)
+                torch.relu(bn(hs[u - 1], u - 1) + lib_res(res)), ws_c[u])), iters=10,
+                warmup=2)
             bnd = chain_bounds(rows, groups, cd, cu, es, False, True,
                                res=res is not None, write_r=write_r)[0]
         else:
-            ms = cuda_ms(lambda: mm_stats(x, ws_c[0]), iters=5)
+            ms = cuda_ms(lambda: mm_stats(x, ws_c[0]), iters=10, warmup=2)
             plain = cuda_ms(lambda: mm_stats_reference(x, ws_c[0]), iters=1, warmup=1)
-            lib = cuda_ms(lambda: sums(torch.matmul(x, ws_c[0])), iters=2, warmup=1)
+            lib = cuda_ms(lambda: sums(torch.matmul(x, ws_c[0])), iters=10, warmup=2)
             bnd = chain_bounds(rows, groups, cd, cu, es, False, False)[0]
         out_rows.append(("bnact_mm_stats" if u else "mm_stats", u, ms, plain, lib, bnd))
     cl = ws[-1].shape[1]
@@ -1493,6 +1516,12 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
         cd, cu = ws[u].shape
         shape = f"C={cu} pool={pool}" if name == "bn_pool" else f"{cd}->{cu}"
         split = ""
+        if name in ("mm_stats", "bnact_mm_stats"):
+            p = tpf.fwd_plan(rows, cd, cu, dt == torch.bfloat16, u == 0,
+                             tpf._sm_count(x.device.index))
+            split = (f" | plan: panels of {p.panel_rows} rows, {p.wn} channels a "
+                     f"consumer, {p.stages} stages, {p.slots} slots, {p.chunks} "
+                     f"chunks, {p.smem} B" if p.panel_rows else " | tile kernel")
         if name == "chain_bwd_pass":
             sb = bwd_stage_bounds(rows, groups, cd, cu, es, u == L - 1, u > 0,
                                   u > 0 or need_dx)
@@ -1502,6 +1531,44 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
             f"plain {plain:.3f} ms | library {lib:.3f} ms | bound {bnd[0]:.3f} ms "
             f"({bnd[1]}){split}")
     return out_rows
+
+
+def time_scatters(scattered, label, err):
+    """Each recorded `scatter_rows(g, idx, n)` call of a path (its grouping
+    gradients, at the path's own rows) against its plain version (1e-4
+    relative, two runs bit-equal), timed beside it, the library's
+    `index_add_` (atomics; timed here, never called by the port) and the
+    bound, the kernel and the library over 10 calls after 2 warm-ups.
+    Returns rows of (shape, ms, plain ms, library ms, (bound ms, by))."""
+    from pointcloud_tpu_torch.ops import scatter_rows, scatter_rows_reference
+
+    dev = torch.device("cuda")
+    out = []
+    for (g, idx, n), _ in scattered:
+        got = twice_equal("scatter_rows", lambda: (scatter_rows(g, idx, n),))[0]
+        want = scatter_rows_reference(g, idx, n)
+        e = rel_err(got, want)
+        err["scatter_rows"] = max(err["scatter_rows"],
+                                  float((got - want).abs().max()))
+        if e > 1e-4:
+            raise AssertionError(f"scatter_rows at {label} differs by {e:.2e} rel")
+        Bs, R, C = g.shape
+        off = (idx.long() + torch.arange(Bs, device=dev)[:, None] * n).reshape(-1)
+        src = g.reshape(-1, C).float()
+        t = (cuda_ms(lambda: scatter_rows(g, idx, n), iters=10, warmup=2),
+             cuda_ms(lambda: scatter_rows_reference(g, idx, n), iters=2, warmup=1),
+             cuda_ms(lambda: torch.zeros((Bs * n, C), device=dev).index_add_(
+                 0, off, src), iters=10, warmup=2),
+             bound(Bs * R * C, Bs * R * (C * g.element_size() + 4) + Bs * n * C * 4,
+                   PEAK_FP32_FLOPS))
+        log(f"  scatter_rows at {label}, B={Bs} R={R} -> n={n} C={C} "
+            f"{str(g.dtype)[6:]}: rel err {e:.2e}, two runs bit-equal; kernel "
+            f"{t[0]:.3f} ms | plain {t[1]:.3f} ms | library index_add_ {t[2]:.3f} ms "
+            f"| bound {t[3][0]:.4f} ms ({t[3][1]})")
+        out.append(((Bs, R, n, C), *t))
+        del got, want, off, src
+    torch.cuda.empty_cache()
+    return out
 
 
 def pointnet2_train_path(seed, gen, x_raw, smi, err):
@@ -1553,11 +1620,22 @@ def pointnet2_train_path(seed, gen, x_raw, smi, err):
         if not bool(torch.isfinite(buf).all()) or bool((buf == (
                 1.0 if "var" in name else 0.0)).all()):
             raise AssertionError(f"running statistic {name} did not move")
-    trace_steps(step, xt, xt, ms_step, f"PointNet2 train step, B={B_PN2}")
+    trace_steps(step, xt, xt, ms_step, f"PointNet2 train step, B={B_PN2}",
+                tr["enqueue_ms"])
 
     fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xt, xt)
     log(f"  train step parts (median of 3, CUDA events): forward + loss "
         f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
+    # one more step, recording SA2's grouping gradient on its way to
+    # scatter_rows (SA1's grouped features are the input: no gradient)
+    with recording(sys.modules["pointcloud_tpu_torch.ops.ball_group"],
+                   "scatter_rows") as scattered:
+        step(xt, xt)
+    if len(scattered) != per_step["scatter_rows"]:
+        raise AssertionError(f"the PointNet2 step scattered {len(scattered)} times")
+    scatters = time_scatters(scattered, f"SA2's grouping gradient of the B={B_PN2} "
+                             f"step", err)
+    del scattered
     opt.zero_grad(set_to_none=True)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     xn = spec.in_transform(xt)[0]
@@ -1600,7 +1678,8 @@ def pointnet2_train_path(seed, gen, x_raw, smi, err):
     for i, (x, ws, gs, bs, pen, K) in enumerate(levels):
         level = f"SA{i + 1}"
         fwd = compare_chain(gen, x, ws, gs, bs, pen, K, True, err,
-                            f"{level} of the B={B_PN2} batch", need_dx=i > 0)
+                            f"{level} of the B={B_PN2} batch", need_dx=i > 0,
+                            path=True)
         torch.cuda.empty_cache()
         rows[level] = time_chain(x, ws, gs, bs, pen, K, fwd, i > 0, level)
         levels[i] = None
@@ -1613,7 +1692,7 @@ def pointnet2_train_path(seed, gen, x_raw, smi, err):
         log(f"  {name}, its {per_step[name]} launches of one step together: kernel "
             f"{tot[0]:.3f} ms | plain {tot[1]:.3f} ms | library {tot[2]:.3f} ms | "
             f"bound {bnd:.3f} ms")
-    return {"counts": counts, "rows": rows}
+    return {"counts": counts, "rows": rows, "scatters": scatters}
 
 
 def card_vs_cpu_pointnet2_train(seed, x_raw):
@@ -1948,7 +2027,8 @@ def emd_paths(seed, gen, x_raw, smi, err):
                   dense_pool_stats=3 * TRAIN_ITERS,
                   dense_pool_stats_bwd=3 * TRAIN_ITERS)
     report_train("EMD train path", B_EMD, tr, ae_logs, smi)
-    trace_steps(tstep, xe, xe, tr["ms"], f"PointNet + EMD train step, B={B_EMD}")
+    trace_steps(tstep, xe, xe, tr["ms"], f"PointNet + EMD train step, B={B_EMD}",
+                tr["enqueue_ms"])
     fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xe, xe)
     log(f"  train step parts (median of 3, CUDA events): forward + loss "
         f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
@@ -1981,7 +2061,8 @@ def emd_paths(seed, gen, x_raw, smi, err):
                   dense_pool_stats=3 * TRAIN_ITERS,
                   dense_pool_stats_bwd=3 * TRAIN_ITERS)
     report_train("Segmenter train path", B_SEG, sg, seg_logs, smi)
-    trace_steps(tstep, xs, ys, sg["ms"], f"Segmenter train step, B={B_SEG}")
+    trace_steps(tstep, xs, ys, sg["ms"], f"Segmenter train step, B={B_SEG}",
+                sg["enqueue_ms"])
     fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xs, ys)
     log(f"  train step parts (median of 3, CUDA events): forward + loss "
         f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
@@ -2455,10 +2536,12 @@ def pointmlp_train_paths(seed, gen, x_raw, smi, err):
     PointMLP with Chamfer and PointMLP-Elite with its default EMD loss at
     B=32 (a warm-up step and MLP_TRAIN_ITERS chained steps, the step's parts,
     a trace), every stage's residual chain held against its plain versions
-    at that batch's own inputs, and PointMLP's four stages timed beside the
-    plain versions, the library yardstick and the bounds; one train step of
-    the Segmenter on PointMLP-Elite at B=8 (counts only). Returns each
-    path's counts and the timing rows by stage."""
+    at that batch's own inputs, and both configurations' four stages timed
+    beside the plain versions, the library yardstick and the bounds;
+    PointMLP's four grouping gradients (`scatter_rows`, one a stage) held and
+    timed at one more step's own inputs; one train step of the Segmenter on
+    PointMLP-Elite at B=8 (counts only). Returns each path's counts, the
+    timing rows by stage and the scatter rows."""
     from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
 
     dev = torch.device("cuda")
@@ -2491,10 +2574,23 @@ def pointmlp_train_paths(seed, gen, x_raw, smi, err):
             if not bool(torch.isfinite(buf).all()) or bool((buf == (
                     1.0 if "var" in name else 0.0)).all()):
                 raise AssertionError(f"{backbone}: running statistic {name} did not move")
-        trace_steps(step, xb, xb, tr["ms"], label)
+        trace_steps(step, xb, xb, tr["ms"], label, tr["enqueue_ms"])
         fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xb, xb)
         log(f"  train step parts (median of 3, CUDA events): forward + loss "
             f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
+        scatters = []
+        if backbone == "PointMLP":
+            # one more step, recording each stage's grouping gradient on its
+            # way to scatter_rows (one a stage, at its feature width)
+            with recording(sys.modules["pointcloud_tpu_torch.ops.scatter_rows"],
+                           "scatter_rows") as scattered:
+                step(xb, xb)
+            if len(scattered) != per_step["scatter_rows"]:
+                raise AssertionError(f"the {backbone} step scattered "
+                                     f"{len(scattered)} times")
+            scatters = time_scatters(scattered, f"a grouping gradient of the "
+                                     f"{backbone} B={B_MLP} step", err)
+            del scattered
         opt.zero_grad(set_to_none=True)
         stages = pre_extraction_inputs(bb, spec.in_transform(xb)[0])
         counts = tr["counts"]
@@ -2506,17 +2602,14 @@ def pointmlp_train_paths(seed, gen, x_raw, smi, err):
             stage = f"{backbone} S{i + 1}"
             fwd = compare_chain(gen, x, ws, gs, bs, None, K, True, err,
                                 f"{stage} of the B={B_MLP} batch", residual=True,
-                                tag=RES)
+                                tag=RES, path=True)
             torch.cuda.empty_cache()
-            if backbone == "PointMLP":
-                rows[f"S{i + 1}"] = time_chain(x, ws, gs, bs, None, K, fwd, True, stage,
-                                               residual=True)
+            rows[f"S{i + 1}"] = time_chain(x, ws, gs, bs, None, K, fwd, True, stage,
+                                           residual=True)
             stages[i] = None
             del fwd, x, ws, gs, bs
             torch.cuda.empty_cache()
         for name in ("mm_stats", "bnact_mm_stats", "bn_pool", "chain_bwd_pass"):
-            if not rows:
-                break
             tot = [[sum(r[j] for r in lv if r[0] == name) for lv in rows.values()]
                    for j in (2, 3, 4)]
             bnd = [sum(r[5][0] for r in lv if r[0] == name) for lv in rows.values()]
@@ -2525,7 +2618,7 @@ def pointmlp_train_paths(seed, gen, x_raw, smi, err):
                 f"plain {' / '.join(f'{v:.3f}' for v in tot[1])} | library "
                 f"{' / '.join(f'{v:.3f}' for v in tot[2])} | bound "
                 f"{' / '.join(f'{v:.3f}' for v in bnd)}")
-        out[backbone] = {"counts": counts, "rows": rows}
+        out[backbone] = {"counts": counts, "rows": rows, "scatters": scatters}
 
     log("[PointMLP Segmenter train] Segmenter / PointMLPE / EMD, B=8 x 2048, bf16: "
         "one train step")
@@ -2993,8 +3086,6 @@ def msg_train_path(seed, gen, x_raw, smi, err):
         dense_pool_stats,
         dense_pool_stats_bwd,
         dense_pool_stats_reference,
-        scatter_rows,
-        scatter_rows_reference,
     )
     from pointcloud_tpu_torch.train import make_optimizer, make_train_step
 
@@ -3025,7 +3116,8 @@ def msg_train_path(seed, gen, x_raw, smi, err):
         start = 1.0 if name.rsplit(".", 1)[-1].startswith("var") else 0.0
         if not bool(torch.isfinite(buf).all()) or bool((buf == start).all()):
             raise AssertionError(f"running statistic {name} did not move")
-    trace_steps(step, xt, xt, tr["ms"], f"MSG train step, B={B_MSG}")
+    trace_steps(step, xt, xt, tr["ms"], f"MSG train step, B={B_MSG}",
+                tr["enqueue_ms"])
     fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xt, xt)
     log(f"  train step parts (median of 3, CUDA events): forward + loss "
         f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
@@ -3075,34 +3167,12 @@ def msg_train_path(seed, gen, x_raw, smi, err):
     if sorted(a[0].shape[1] for a, _ in scattered) != [128 * k for k in (32, 64, 128)]:
         raise AssertionError(f"level 2's backward scattered "
                              f"{[tuple(a[0].shape) for a, _ in scattered]}")
-    for (g, idx, n), _ in scattered:
-        got = twice_equal("scatter_rows", lambda: (scatter_rows(g, idx, n),))[0]
-        want = scatter_rows_reference(g, idx, n)
-        e = rel_err(got, want)
-        err["scatter_rows"] = max(err["scatter_rows"],
-                                  float((got - want).abs().max()))
-        if e > 1e-4:
-            raise AssertionError(f"scatter_rows at level 2's backward differs by "
-                                 f"{e:.2e} rel")
-        Bs, R, C = g.shape
-        off = (idx.long() + torch.arange(Bs, device=dev)[:, None] * n).reshape(-1)
-        src = g.reshape(-1, C).float()
-        t = (cuda_ms(lambda: scatter_rows(g, idx, n), iters=5),
-             cuda_ms(lambda: scatter_rows_reference(g, idx, n), iters=2, warmup=1),
-             cuda_ms(lambda: torch.zeros((Bs * n, C), device=dev).index_add_(
-                 0, off, src), iters=3, warmup=1),
-             bound(Bs * R * C, Bs * R * (C * g.element_size() + 4) + Bs * n * C * 4,
-                   PEAK_FP32_FLOPS))
-        log(f"  scatter_rows at level 2's backward, B={Bs} R={R} -> n={n} C={C} "
-            f"{str(g.dtype)[6:]}: rel err {e:.2e}, two runs bit-equal; kernel "
-            f"{t[0]:.3f} ms | plain {t[1]:.3f} ms | library index_add_ {t[2]:.3f} ms "
-            f"| bound {t[3][0]:.4f} ms ({t[3][1]})")
-        del got, want, off, src
+    time_scatters(scattered, f"level 2's backward of the MSG B={B_MSG} step", err)
     del scattered, chamfer_args
     torch.cuda.empty_cache()
     x, ws, gs, bs, pen, K = chain
     fwd = compare_chain(gen, x, ws, gs, bs, pen, K, True, err,
-                        f"group-all level of the MSG B={B_MSG} batch")
+                        f"group-all level of the MSG B={B_MSG} batch", path=True)
     torch.cuda.empty_cache()
     time_chain(x, ws, gs, bs, pen, K, fwd, True, "MSG group-all")
     del chain, fwd, x, ws, gs, bs, pen
@@ -3285,7 +3355,7 @@ def main(argv=None) -> int:
     log(f"[build] {_build.sources()} -> {_build.BUILD_DIR}: {secs:.1f} s "
         f"({'built' if secs else 'reused'})")
     for kernel, regs, st, ld in _build.ptxas_report("mlp_chain"):
-        name = next((k for k in BWD_KERNELS if k in kernel), None)
+        name = next((k for k in FWD_KERNELS + BWD_KERNELS if k in kernel), None)
         if name:
             log(f"  ptxas {name} {kernel[kernel.index(name) + len(name):][:40]}: "
                 f"{regs} registers, spills {st} B stored / {ld} B loaded")
@@ -3468,7 +3538,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"non-finite train loss {losses}")
     if not losses[-1] < float(first_loss):
         raise AssertionError("the train loss did not fall over the steps")
-    trace_steps(tstep, xt, xt, ms_train, f"PointNet train step, B={B_TRAIN}")
+    trace_steps(tstep, xt, xt, ms_train, f"PointNet train step, B={B_TRAIN}",
+                tr["enqueue_ms"])
 
     fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xt, xt)
     log(f"  train step parts (median of 3, CUDA events): forward + loss "

@@ -1,7 +1,7 @@
 // Hopper building blocks (sm_90a) for the port's tensor-core kernels:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the bf16
-// m64n128k16 product with fp32 accumulators. mlp_chain.cu includes this
-// header.
+// mbarriers, TMA tile loads and stores, wgmma shared-memory descriptors and
+// the bf16 m64n{64,128,192}k16 products with fp32 accumulators. mlp_chain.cu
+// includes this header.
 //
 // Operand tiles live in shared memory in the 128-byte-swizzle layout that a
 // TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: a box of 64 bf16 (128
@@ -84,6 +84,41 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// Orders this thread's ordinary shared-memory stores before later reads of
+// the same memory by the async proxy (wgmma operands): a thread that stages
+// an operand tile itself runs it after its stores and before it signals the
+// tile's barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A 2-D TMA store of the box at (c0 inner, c1 outer) from src (laid out as a
+// load of the same map writes it); parts of the box past the tensor are not
+// written. One thread issues it after the threads that wrote src ran
+// fence_proxy_async and met at a barrier; bulk_commit closes the group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until at most N committed store groups of this thread still read
+// shared memory (their source may then be rewritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// Waits until at most N committed store groups of this thread are pending.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
@@ -197,14 +232,39 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
-// The product of the tile width N (128 or 192): wgmma_m64n128k16 or _m64n192k16.
+// As wgmma_m64n128k16 for a 64 x 64 tile (the fragment's j = 0..7).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The product of the tile width N (64, 128 or 192): wgmma_m64n64k16,
+// _m64n128k16 or _m64n192k16.
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_m64nNk16(float (&d)[N / 2], uint64_t desc_a,
                                                uint64_t desc_b, int accumulate) {
-  if constexpr (N == 128) {
+  if constexpr (N == 64) {
+    wgmma_m64n64k16<TA, TB>(d, desc_a, desc_b, accumulate);
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16<TA, TB>(d, desc_a, desc_b, accumulate);
   } else {
-    static_assert(N == 192, "tile widths 128 and 192");
+    static_assert(N == 192, "tile widths 64, 128 and 192");
     wgmma_m64n192k16<TA, TB>(d, desc_a, desc_b, accumulate);
   }
 }

@@ -4,8 +4,10 @@
 //
 // Replaces the four Pallas kernels of pointcloud_tpu/ops/preextract_fused.py
 // in both of their modes (mlp_pool_fused and preextract_pool_fused):
-//   _mm_stats_kernel        -> mm_stats_kernel<T, false, kResNone>
-//   _bnact_mm_stats_kernel  -> mm_stats_kernel<T, true, RES> (+ write_r)
+//   _mm_stats_kernel        -> fwd_wgmma_kernel<WN, false, kResNone> (bf16),
+//                              mm_stats_kernel<T, false, kResNone>
+//   _bnact_mm_stats_kernel  -> fwd_wgmma_kernel<WN, true, RES> (bf16),
+//                              mm_stats_kernel<T, true, RES> (+ write_r)
 //   _bn_respool_kernel      -> bn_pool_kernel<T, RES>
 //   _bwd_pass_kernel        -> one pass: bwd_dh_kernel, then bwd_da and bwd_dw
 //                              (bf16: *_wgmma_kernel; fp32: *_f32_kernel);
@@ -45,24 +47,28 @@
 //
 // Design, forward. The TPU kernels walk the batch in a sequential grid and
 // carry the sums and dw in VMEM from step to step; CUDA blocks run in
-// parallel with no carry. The forward products run on the 64 x 128 tiles of
+// parallel with no carry. bf16 products (every driven path) run on
+// fwd_wgmma_kernel (its note below): a resident panel of activated rows,
+// each input element read and activated once, w streamed by TMA to two
+// consumer warpgroups on wgmma, a statistics epilogue and a TMA store of h;
+// ops/preextract_fused.py fwd_plan sizes it. Widths it does not take (cu,
+// or cd below a BatchNorm, no multiple of 8: TMA wants 16-byte rows) and
+// fp32 (only the card-vs-CPU checks) run on the 64 x 128 tiles of
 // tile_mma.cuh (bf16: wmma tensor-core tiles with fp32 accumulators; fp32:
 // CUDA cores), staged through shared memory in depth chunks of 32 with zero
-// padding, so a depth of 6, 131 or 259 and ragged widths need no special
-// path. The prologue (BatchNorm + residual + ReLU) is applied while an
-// operand tile is staged, the epilogue (rounding, statistics) while the
-// accumulator tile sits in shared memory. A thread stages one channel of a
-// tile and keeps that channel's scalars (and the residual's) in registers.
-// These kernels are bound by memory latency (scalar loads, two barriers a
-// chunk), so resident blocks count: they are held to 80 registers (three
-// blocks an SM).
-//   mm_stats: a block owns 128 output channels and a chunk of rows; per
-//            64-row tile it forms the product, rounds, stores h and adds to
-//            per-thread column sums; per-chunk partials, then colsum_kernel
-//            sums them in a fixed order (32 strided lanes per column, then
-//            the 32 lanes in order). With r_out the blocks of the first
-//            column tile store `a` as they stage it (every column tile stages
-//            the same values).
+// padding. There the prologue (BatchNorm + residual + ReLU) is applied
+// while an operand tile is staged, the epilogue (rounding, statistics)
+// while the accumulator tile sits in shared memory; a thread stages one
+// channel of a tile and keeps that channel's scalars (and the residual's)
+// in registers; bound by memory latency, they are held to 80 registers
+// (three blocks an SM).
+//   mm_stats (tiles): a block owns 128 output channels and a chunk of rows;
+//            per 64-row tile it forms the product, rounds, stores h and
+//            adds to per-thread column sums; per-chunk partials, then
+//            colsum_kernel sums them in a fixed order (32 strided lanes per
+//            column, then the 32 lanes in order). With r_out the blocks of
+//            the first column tile store `a` as they stage it (every column
+//            tile stages the same values).
 //   bn_pool: no product. One thread per (group, channel) walks its group's
 //            rows in order with a strict >, so the lowest row wins ties and
 //            no merge between blocks is needed.
@@ -123,13 +129,16 @@
 // 128 channels at its first stage) a layer's product is 2 rows cd cu
 // operations, a few tenths of a millisecond at 989 TFLOP/s dense bf16, while
 // reading and writing the (rows, C) tensors once takes 0.1 to 0.5 ms at 3.35
-// TB/s. Backward: bytes at PointNet2's levels and PointMLP's stages 1-2
+// TB/s; at stage 4's 1024-wide layers operations (0.21 ms a pass), and w,
+// re-read from L2 once a 64-row panel, 2 MB each time. Backward: bytes at PointNet2's levels and PointMLP's stages 1-2
 // (dh's pass reads h_u and dz and writes dh; da reads dh, h_{u-1} and the
 // residual and writes dzd and a_up; dw reads a_up and dh: ~8 (rows, C)
 // tensors), operations at stage 4's 1024-wide layers (4 rows cd cu, 0.42 ms
 // a pass at the dense bf16 rate). The design moves each tensor the least
 // number of times the three products allow and keeps the tensor cores fed
-// from a TMA ring; the forward's staging is left to a later change.
+// from a TMA ring; the forward reads each input once and w once a panel.
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "tile_mma.cuh"
@@ -1049,6 +1058,404 @@ __global__ void __launch_bounds__(kTmaThreads, 1) bwd_dw_wgmma_kernel(
   }
 }
 
+// ---- bf16 forward products: a resident activated panel, TMA + wgmma ----
+//
+// h = T(act(a_in) @ w) and the per-chunk column sums of the rounded h and
+// h^2 (see the note at the top). A block owns a chunk of rows and walks it
+// in panels of 128 rows (two 64-row halves) or, where a deep layer's panel
+// would not fit, 64 rows; each panel stays resident over all of cd while
+// the block walks every N tile of cu over it, so each input element is
+// read and activated once. Warps 1-3 of the producer warpgroup stage the
+// panels, up to `slots` ahead, in the 128-byte-swizzled K-major layout
+// (16-byte chunk c of row r at c ^ (r % 8)): where rows are whole 16-byte
+// chunks, lane 1 of warp 0 loads a panel by TMA as soon as the consumers
+// free its slot and, below a BatchNorm, the three warps apply the BatchNorm + residual + ReLU prologue in place (the
+// residual read with 16-byte loads, kInFlight rows in flight), round to
+// bf16 and store r_out where asked; the layer input of a ragged width (6,
+// 131, 259, 643) is read as the panel's contiguous range of elements with
+// 16-byte loads and scattered two bytes at a time. Lane 0 of warp 0 walks
+// every N tile of every panel and streams w's (64 depth x nt channel) tiles
+// through a ring by TMA (MN-major boxes of 64 x 64, zero past cd and cu).
+// Two consumer warpgroups read every ring stage: with 128-row panels each
+// takes its 64-row half and all nt channels, with 64-row panels each takes
+// nt / 2 channels of the one half; so every stage and every panel has both
+// consumers as readers and a parity wait never meets a barrier two phases
+// away. Each N tile's accumulators (m64nWNk16, fp32 registers) are rounded
+// to bf16 into a swizzled tile in shared memory that one thread stores by
+// TMA (rows written whole; the pairs stored from registers, 4 bytes a lane
+// and 8 rows a warp, held back every shape on the card), and summed over
+// the tile's rows: per thread, then across the warp by shuffles in a fixed
+// order, then over the four warps in order into per-consumer column sums in
+// shared memory; at the end the two consumers' sums are added in order into
+// the chunk's partials. No atomics.
+
+constexpr int kFwdMaxStages = 4, kFwdMaxSlots = 4;
+constexpr int kSmemLimit = 232448;  // dynamic shared memory a block may have
+constexpr int kStagers = 3 * 32;    // warps 1-3 of the producer warpgroup
+
+// The launch geometry (ops/preextract_fused.py fwd_plan) and the shared
+// memory it implies: the panel slots, the w ring, each consumer's bf16 h
+// tile for its TMA store (wn / 64 swizzled atoms of 64 rows x 128 bytes),
+// the column sums ([consumer][sum, sq][ntiles nt] over 128-row panels, whose
+// two halves sum the same channels; [sum, sq][ntiles nt] over 64-row
+// panels, whose consumers own disjoint channels), the warps' tile sums
+// [consumer][warp][sum, sq][wn], then the barriers.
+struct FwdGeom {
+  int pr;      // panel rows: 128 or 64
+  int wn;      // channels of a consumer's product: 64 or 128
+  int ka;      // depth atoms of 64 channels: ceil(cd / 64)
+  int slots;   // panels staged ahead (1..4)
+  int stages;  // w ring stages (1..4)
+  int nt;      // channels of a ring stage: wn (pr 128) or 2 wn (pr 64)
+  int ntiles;  // ceil(cu / nt)
+  __host__ __device__ int panel_bytes() const { return ka * pr * 128; }
+  __host__ __device__ int stage_bytes() const { return nt / 64 * 8192; }
+  __host__ __device__ int epi_bytes() const { return 2 * wn * 128; }
+  __host__ __device__ int colsum_floats() const {
+    return (pr == 128 ? 4 : 2) * ntiles * nt;
+  }
+  __host__ __device__ int wsum_floats() const { return 16 * wn; }
+  __host__ __device__ int bytes() const {
+    return 1024 + slots * panel_bytes() + stages * stage_bytes() + epi_bytes() +
+           4 * (colsum_floats() + wsum_floats()) + 20 * 8;
+  }
+};
+
+// Byte offset of (row r, channel c) in a panel of pr rows: 64-channel atoms
+// of pr x 128 bytes, the 128-byte swizzle within each.
+__device__ __forceinline__ int panel_off(int r, int c, int pr) {
+  return (c >> 6) * pr * 128 + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
+}
+
+// 16-byte loads a staging thread keeps in flight: staging is bound by the
+// loads' latency (three warps stage an SM's panel).
+constexpr int kInFlight = 16;
+
+// The layer input's nr rows from row0 into a panel as they are, cd ragged
+// (rows are no whole 16-byte chunks, so TMA cannot read them): the rows are
+// one contiguous range of nr cd elements, read 16 bytes at a time
+// (kInFlight loads in flight a thread) and scattered to their (row,
+// channel) places two bytes at a time. (Forming whole 16-byte chunks of a
+// row from the two aligned words that hold them, and storing those, was
+// slower at SA2's 131 channels on the card.)
+__device__ __forceinline__ void stage_input(unsigned char* pan, const bf16* __restrict__ a_in,
+                                            int64_t row0, int nr, int cd, int pr, int st) {
+  const bf16* src = a_in + row0 * cd;
+  const int n = nr * cd, n8 = n / 8;
+  for (int i0 = st; i0 < n8; i0 += kInFlight * kStagers) {
+    uint4 u[kInFlight];
+#pragma unroll
+    for (int b = 0; b < kInFlight; ++b) {
+      const int i = i0 + b * kStagers;
+      if (i < n8) u[b] = ldg16(src + 8 * i);
+    }
+#pragma unroll
+    for (int b = 0; b < kInFlight; ++b) {
+      const int i = i0 + b * kStagers;
+      if (i >= n8) break;
+      int r = (8 * i) / cd, c = 8 * i - r * cd;
+      const uint32_t v[4] = {u[b].x, u[b].y, u[b].z, u[b].w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        *reinterpret_cast<uint16_t*>(pan + panel_off(r, c, pr)) =
+            static_cast<uint16_t>(v[k / 2] >> (16 * (k % 2)));
+        if (++c == cd) c = 0, ++r;
+      }
+    }
+  }
+  for (int e = 8 * n8 + st; e < n; e += kStagers) {
+    const int r = e / cd;
+    *reinterpret_cast<bf16*>(pan + panel_off(r, e - r * cd, pr)) = src[e];
+  }
+}
+
+// A lower layer's h, which TMA loaded into a panel (nr rows from row0, cd a
+// multiple of 8), activated in place: a = bf16(relu(BN(h) [+ residual]))
+// with bn_pre's and Residual::add's rounded operations, 8 channels (one
+// 16-byte chunk) at a time; r_out (or NULL) takes the same 16 bytes. Thread
+// st owns the chunks q = st % L, + L, .. (L = min(cd / 8, 32)) over the rows
+// st / L, + S, .. (S = 96 / L streams), so a chunk's scalars are loaded once
+// a panel; the residual's loads of kInFlight rows are in flight at once.
+template <int RES>
+__device__ __forceinline__ void activate_panel(unsigned char* pan,
+                                               const float* __restrict__ sc,
+                                               const bf16* __restrict__ res_src,
+                                               const float* __restrict__ res_sc,
+                                               bf16* __restrict__ r_out, int64_t row0,
+                                               int nr, int cd, int pr, int st) {
+  // (RES_BNRELU's second set of scalars leaves registers for 8 rows)
+  constexpr int ROWS = RES == kResDense ? kInFlight : RES == kResBnRelu ? kInFlight / 2 : 4;
+  const int nq = cd / 8, L = nq < 32 ? nq : 32, S = kStagers / L;
+  if (st >= S * L) return;
+  for (int q = st % L; q < nq; q += L) {
+    float m[8], mu[8], be[8], rm[8], rmu[8], rbe[8];
+    load8(sc + 8 * q, m);
+    load8(sc + cd + 8 * q, mu);
+    load8(sc + 2 * cd + 8 * q, be);
+    if constexpr (RES == kResBnRelu) {
+      load8(res_sc + 8 * q, rm);
+      load8(res_sc + cd + 8 * q, rmu);
+      load8(res_sc + 2 * cd + 8 * q, rbe);
+    }
+    for (int r0 = st / L; r0 < nr; r0 += ROWS * S) {
+      uint4 y[ROWS];
+      if constexpr (RES != kResNone) {
+#pragma unroll
+        for (int b = 0; b < ROWS; ++b) {
+          const int r = r0 + b * S;
+          if (r < nr) y[b] = ldg16(res_src + (row0 + r) * cd + 8 * q);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < ROWS; ++b) {
+        const int r = r0 + b * S;
+        if (r >= nr) break;
+        uint4* at = reinterpret_cast<uint4*>(pan + panel_off(r, 8 * q, pr));
+        float f[8], g[8], o[8];
+        unpack8(*at, f);
+        if constexpr (RES != kResNone) unpack8(y[b], g);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          float pre = bn_pre(f[k], m[k], mu[k], be[k]);
+          if constexpr (RES == kResBnRelu) {
+            pre = __fadd_rn(pre, fmaxf(bn_pre(g[k], rm[k], rmu[k], rbe[k]), 0.f));
+          } else if constexpr (RES == kResDense) {
+            pre = __fadd_rn(pre, g[k]);
+          }
+          o[k] = fmaxf(pre, 0.f);
+        }
+        uint4 u;
+        __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) p2[k] = __floats2bfloat162_rn(o[2 * k], o[2 * k + 1]);
+        *at = u;
+        if (r_out != nullptr) *reinterpret_cast<uint4*>(r_out + (row0 + r) * cd + 8 * q) = u;
+      }
+    }
+  }
+}
+
+// One chunk of rows (blockIdx.x): h (stored through map_h), r_out (or NULL)
+// and part[chunk, 0 / 1, :] = the chunk's column sums of h and h^2. BN
+// false: the layer input as it is (no scalars, no residual).
+template <int WN, bool BN, int RES>
+__global__ void __launch_bounds__(kTmaThreads, 1) fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_w, const __grid_constant__ CUtensorMap map_a,
+    const __grid_constant__ CUtensorMap map_h, const bf16* __restrict__ a_in,
+    const float* __restrict__ sc, const bf16* __restrict__ res_src,
+    const float* __restrict__ res_sc, bf16* __restrict__ r_out, float* __restrict__ part,
+    FwdGeom geo, int64_t rows, int cd, int cu, int chunk_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const panels = hopper::align1024(smem_raw);
+  unsigned char* const ring = panels + geo.slots * geo.panel_bytes();
+  unsigned char* const epi = ring + geo.stages * geo.stage_bytes();
+  float* const colsum = reinterpret_cast<float*>(epi + geo.epi_bytes());
+  float* const wsum = colsum + geo.colsum_floats();
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(wsum + geo.wsum_floats());
+  uint64_t* const full = bars;                       // w stage landed
+  uint64_t* const empty = bars + kFwdMaxStages;      // w stage read
+  uint64_t* const pfull = bars + 2 * kFwdMaxStages;  // panel staged
+  uint64_t* const pempty = pfull + kFwdMaxSlots;     // panel read
+  uint64_t* const ptma = pempty + kFwdMaxSlots;      // panel's input landed
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * chunk_rows;
+  const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
+  const int n_panels = static_cast<int>((r_end - r_begin + geo.pr - 1) / geo.pr);
+  const int ksteps = geo.ka;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < geo.stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // the eight consumer warps
+    }
+    for (int s = 0; s < geo.slots; ++s) {
+      hopper::mbar_init(&pfull[s], 3);  // the three staging warps
+      hopper::mbar_init(&pempty[s], 8);
+      hopper::mbar_init(&ptma[s], 1);
+    }
+    hopper::fence_barrier_init();
+  }
+  // zero the panels (their depth past cd stays zero: staging writes channels
+  // below cd only) and the column sums
+  for (int i = threadIdx.x; i < geo.slots * geo.panel_bytes() / 16; i += kTmaThreads)
+    reinterpret_cast<uint4*>(panels)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < geo.colsum_floats(); i += kTmaThreads) colsum[i] = 0.f;
+  hopper::fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Widths of whole 16-byte rows: lane 1 of warp 0 loads each panel by TMA
+  // (boxes of 64 channels x pr rows, zero past cd and the last row), up to
+  // `slots` panels ahead, and the stagers activate it in place below a
+  // BatchNorm. A ragged input width is staged by the stagers themselves.
+  const bool tma = cd % 8 == 0;
+  if (threadIdx.x < kWg) {
+    if (warp == 0) {
+      if (lane == 0) {  // w tiles: panel p, N tile j, depth atom k in order
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int p = 0; p < n_panels; ++p) {
+          for (int j = 0; j < geo.ntiles; ++j) {
+            const int n0 = j * geo.nt;
+            const int atoms = min(geo.nt / 64, (cu - n0 + 63) / 64);
+            for (int k = 0; k < ksteps; ++k) {
+              hopper::mbar_wait(&empty[stage], phase ^ 1);
+              hopper::mbar_expect_tx(&full[stage], atoms * kAtom * 2);
+              for (int a = 0; a < atoms; ++a)
+                hopper::tma_load_2d(ring + stage * geo.stage_bytes() + a * kAtom * 2,
+                                    &map_w, &full[stage], n0 + 64 * a, 64 * k);
+              if (++stage == geo.stages) stage = 0, phase ^= 1;
+            }
+          }
+        }
+      } else if (lane == 1 && tma) {  // panels, once the consumers freed the slot
+        for (int p = 0; p < n_panels; ++p) {
+          const int slot = p % geo.slots, use = p / geo.slots;
+          hopper::mbar_wait(&pempty[slot], (use & 1) ^ 1);
+          hopper::mbar_expect_tx(&ptma[slot], geo.panel_bytes());
+          for (int a = 0; a < geo.ka; ++a)
+            hopper::tma_load_2d(panels + slot * geo.panel_bytes() + a * geo.pr * 128,
+                                &map_a, &ptma[slot], 64 * a,
+                                static_cast<int>(r_begin) + p * geo.pr);
+        }
+      }
+      return;
+    }
+    const int st = threadIdx.x - 32;  // a staging thread, 0..95
+    for (int p = 0; p < n_panels; ++p) {
+      const int slot = p % geo.slots, use = p / geo.slots;
+      unsigned char* pan = panels + slot * geo.panel_bytes();
+      const int64_t row0 = r_begin + static_cast<int64_t>(p) * geo.pr;
+      const int nr = static_cast<int>(r_end - row0 < geo.pr ? r_end - row0 : geo.pr);
+      if (tma) {
+        hopper::mbar_wait(&ptma[slot], use & 1);
+        if constexpr (BN)
+          activate_panel<RES>(pan, sc, res_src, res_sc, r_out, row0, nr, cd, geo.pr, st);
+      } else if constexpr (!BN) {  // a ragged input width (below a BatchNorm
+        // cd is a multiple of 8): rows are no whole 16-byte chunks
+        hopper::mbar_wait(&pempty[slot], (use & 1) ^ 1);
+        stage_input(pan, a_in, row0, nr, cd, geo.pr, st);
+      }
+      hopper::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&pfull[slot]);
+    }
+    return;
+  }
+
+  // consumer g: a 64-row half of a 128-row panel (all nt channels of a
+  // stage), or channels g wn .. of a stage over a 64-row panel
+  const int g = threadIdx.x / kWg - 1;
+  const int tid = threadIdx.x % kWg, cw = tid / 32;
+  const bool halves = geo.pr == 128;
+  const int a_half = halves ? g : 0;
+  const int b_off = halves ? 0 : g * WN;
+  const int tot = geo.ntiles * geo.nt;
+  float* const cs = colsum + (halves ? g * 2 * tot : 0);
+  float* const ws = wsum + g * 8 * WN;
+  unsigned char* const eb = epi + g * WN * 128;  // this consumer's h tile
+  const bool issuer = tid == 0;  // issues the tile's TMA stores
+  const int r_loc = cw * 16 + lane / 4;  // rows r_loc and r_loc + 8 of the half
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int p = 0; p < n_panels; ++p) {
+    const int slot = p % geo.slots;
+    hopper::mbar_wait(&pfull[slot], (p / geo.slots) & 1);
+    const unsigned char* pan = panels + slot * geo.panel_bytes() + a_half * 64 * 128;
+    const int64_t row_t = r_begin + static_cast<int64_t>(p) * geo.pr + a_half * 64;
+    const int64_t ra = row_t + r_loc, rb = ra + 8;
+    const bool va = ra < r_end, vb = rb < r_end;
+    for (int j = 0; j < geo.ntiles; ++j) {
+      float d[WN / 2];
+#pragma unroll
+      for (int i = 0; i < WN / 2; ++i) d[i] = 0.f;
+      int prev = 0;
+      for (int k = 0; k < ksteps; ++k) {
+        hopper::mbar_wait(&full[stage], phase);
+        hopper::wgmma_fence();
+        const unsigned char* a_at = pan + k * geo.pr * 128;
+        const unsigned char* b_at = ring + stage * geo.stage_bytes() + b_off / 64 * kAtom * 2;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          hopper::wgmma_m64nNk16<WN, 0, 1>(d, hopper::desc_sw128(a_at + kk * 32, 16, 1024),
+                                           hopper::desc_sw128(b_at + kk * 2048, kAtom * 2, 1024),
+                                           1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        if (k > 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == geo.stages) stage = 0, phase ^= 1;
+      }
+      hopper::wgmma_wait<0>();
+      if (lane == 0) {
+        hopper::mbar_arrive(&empty[prev]);
+        if (j == geo.ntiles - 1) hopper::mbar_arrive(&pempty[slot]);
+      }
+      // the tile's epilogue: the bf16 pairs into the swizzled h tile (one
+      // TMA store of 64 rows x 64 channels an atom; rows and channels past
+      // the tensor are not written), the rounded values and their squares
+      // summed over the two rows, then over the warp (lanes of one lane % 4
+      // hold the same columns), then over the four warps in order
+      if (issuer) hopper::bulk_wait_read<0>();  // the last tile's stores read eb
+      hopper::named_sync(1 + g, kWg);
+      const int n_base = j * geo.nt + b_off;
+#pragma unroll
+      for (int jj = 0; jj < WN / 8; ++jj) {
+        const __nv_bfloat162 pa = __floats2bfloat162_rn(d[4 * jj], d[4 * jj + 1]);
+        const __nv_bfloat162 pb = __floats2bfloat162_rn(d[4 * jj + 2], d[4 * jj + 3]);
+        // rows r_loc and r_loc + 8 share their swizzle phase (r % 8)
+        const int at = (jj / 8) * 8192 + r_loc * 128 +
+                       (((jj % 8) ^ (r_loc & 7)) << 4) + 4 * (lane % 4);
+        *reinterpret_cast<__nv_bfloat162*>(eb + at) = pa;
+        *reinterpret_cast<__nv_bfloat162*>(eb + at + 8 * 128) = pb;
+        const float2 fa = __bfloat1622float2(pa), fb = __bfloat1622float2(pb);
+        const float xa = va ? fa.x : 0.f, ya = va ? fa.y : 0.f;
+        const float xb = vb ? fb.x : 0.f, yb = vb ? fb.y : 0.f;
+        float v[4] = {xa + xb, ya + yb, xa * xa + xb * xb, ya * ya + yb * yb};
+#pragma unroll
+        for (int off = 4; off < 32; off *= 2)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
+        if (lane < 4) {
+          const int col = jj * 8 + 2 * lane;
+          ws[(cw * 2) * WN + col] = v[0];
+          ws[(cw * 2) * WN + col + 1] = v[1];
+          ws[(cw * 2 + 1) * WN + col] = v[2];
+          ws[(cw * 2 + 1) * WN + col + 1] = v[3];
+        }
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + g, kWg);
+      if (issuer) {
+        for (int a = 0; a < WN / 64 && n_base + 64 * a < cu; ++a)
+          hopper::tma_store_2d(&map_h, eb + a * 8192, n_base + 64 * a,
+                               static_cast<int>(row_t));
+        hopper::bulk_commit();
+      }
+      if (tid < WN) {
+        float s = 0.f, q = 0.f;
+#pragma unroll
+        for (int w4 = 0; w4 < 4; ++w4) {
+          s += ws[(w4 * 2) * WN + tid];
+          q += ws[(w4 * 2 + 1) * WN + tid];
+        }
+        cs[n_base + tid] += s;
+        cs[tot + n_base + tid] += q;
+      }
+      hopper::named_sync(1 + g, kWg);  // ws is rewritten by the next tile
+    }
+  }
+  if (issuer) hopper::bulk_wait<0>();  // h written before the block ends
+  // the chunk's partials: consumer 0's sums, then consumer 1's (over 64-row
+  // panels each channel has one consumer)
+  hopper::named_sync(3, 2 * kWg);
+  float* const out = part + static_cast<int64_t>(blockIdx.x) * 2 * cu;
+  for (int e = threadIdx.x - kWg; e < 2 * cu; e += 2 * kWg) {
+    const int which = e / cu, c = e - which * cu;
+    out[e] = halves ? colsum[which * tot + c] + colsum[2 * tot + which * tot + c]
+                    : colsum[which * tot + c];
+  }
+}
+
 // ---- fp32: CUDA-core tiles (tile_mma.cuh's Mma<float>), no TF32 ----
 
 // da = dh @ w^T for a chunk of rows and 128 input channels i0.., then the
@@ -1205,23 +1612,73 @@ int mm_stats(const T* a_in, const float* sc, const T* res_src,
   return colsum(part, stats, n_chunks, 2 * static_cast<int64_t>(cu), s);
 }
 
+// The bf16 forward on TMA + wgmma (fwd_wgmma_kernel), geometry from the
+// caller's plan; its checks mirror fwd_plan's.
+template <int WN, bool BN, int RES>
+int fwd_bf16(const bf16* a_in, const float* sc, const bf16* res_src,
+             const float* res_sc, const bf16* w, bf16* h_out, bf16* r_out,
+             float* stats, float* part, int64_t rows, int cd, int cu, int chunk_rows,
+             FwdGeom geo, cudaStream_t s) {
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15u) != 0;
+  };
+  if (cu % 8 != 0 || (BN && cd % 8 != 0) || chunk_rows % geo.pr != 0 ||
+      geo.stages < 1 || geo.stages > kFwdMaxStages || geo.slots < 1 ||
+      geo.slots > kFwdMaxSlots || geo.bytes() > kSmemLimit || misaligned(a_in) ||
+      misaligned(w) || misaligned(h_out) || misaligned(sc) || misaligned(res_src) ||
+      misaligned(res_sc) || misaligned(r_out))
+    return kBadArgs;
+  CUtensorMap map_w, map_h, map_a{};  // map_a: rows of whole 16-byte chunks only
+  if (!hopper::bf16_map(&map_w, w, cu, cd, cu, 64, 64) ||
+      !hopper::bf16_map(&map_h, h_out, cu, rows, cu, 64, 64) ||
+      (cd % 8 == 0 && !hopper::bf16_map(&map_a, a_in, cd, rows, cd, 64, geo.pr)))
+    return kBadArgs;
+  const void* kernel = reinterpret_cast<const void*>(&fwd_wgmma_kernel<WN, BN, RES>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, geo.bytes());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = chunks_of(rows, chunk_rows);
+  fwd_wgmma_kernel<WN, BN, RES><<<chunks, kTmaThreads, geo.bytes(), s>>>(
+      map_w, map_a, map_h, a_in, sc, res_src, res_sc, r_out, part, geo, rows, cd, cu,
+      chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return colsum(part, stats, chunks, 2 * static_cast<int64_t>(cu), s);
+}
+
 template <typename T>
 int mm_stats_any(const void* a_in, const float* sc, int res_mode,
                  const void* res_src, const float* res_sc, const void* w,
                  void* h_out, void* r_out, float* stats, float* part,
-                 int64_t rows, int cd, int cu, int chunk_rows, cudaStream_t s) {
+                 int64_t rows, int cd, int cu, int chunk_rows, const FwdGeom* geo,
+                 cudaStream_t s) {
   const T* a = static_cast<const T*>(a_in);
   const T* rs = static_cast<const T*>(res_src);
   const T* wt = static_cast<const T*>(w);
   T* h = static_cast<T*>(h_out);
   T* r = static_cast<T*>(r_out);
+  if (sc == nullptr && (res_mode != kResNone || r_out != nullptr)) return kBadArgs;
+  if (geo != nullptr) {  // bf16 on the tensor cores
+    if constexpr (std::is_same<T, bf16>::value) {
+#define MLP_CHAIN_FWD(BN, RES)                                                        \
+  return geo->wn == 64                                                                \
+             ? fwd_bf16<64, BN, RES>(a, sc, rs, res_sc, wt, h, r, stats, part, rows,  \
+                                     cd, cu, chunk_rows, *geo, s)                     \
+             : fwd_bf16<128, BN, RES>(a, sc, rs, res_sc, wt, h, r, stats, part, rows, \
+                                      cd, cu, chunk_rows, *geo, s)
+      if (geo->wn != 64 && geo->wn != 128) return kBadArgs;
+      if (geo->pr != 64 && geo->pr != 128) return kBadArgs;
+      if (sc == nullptr) MLP_CHAIN_FWD(false, kResNone);
+      if (res_mode == kResNone) MLP_CHAIN_FWD(true, kResNone);
+      if (res_mode == kResBnRelu) MLP_CHAIN_FWD(true, kResBnRelu);
+      if (res_mode == kResDense) MLP_CHAIN_FWD(true, kResDense);
+#undef MLP_CHAIN_FWD
+    }
+    return kBadArgs;
+  }
 #define MLP_CHAIN_MM(BN, RES) \
   return mm_stats<T, BN, RES>(a, sc, rs, res_sc, wt, h, r, stats, part, rows, \
                               cd, cu, chunk_rows, s)
-  if (sc == nullptr) {  // layer 0: the chain's input as it is
-    if (res_mode != kResNone || r_out != nullptr) return kBadArgs;
-    MLP_CHAIN_MM(false, kResNone);
-  }
+  if (sc == nullptr) MLP_CHAIN_MM(false, kResNone);  // layer 0: the input as it is
   if (res_mode == kResNone) MLP_CHAIN_MM(true, kResNone);
   if (res_mode == kResBnRelu) MLP_CHAIN_MM(true, kResBnRelu);
   if (res_mode == kResDense) MLP_CHAIN_MM(true, kResDense);
@@ -1416,21 +1873,34 @@ int dw_f32(const float* dh, int ldh, const float* ain, int lda, float* dw,
 // h_out and h_out^2. sc (>= 3, cd) fp32 rows mean, mul, beta selects the
 // BatchNorm + residual + ReLU prologue; sc == NULL takes a_in as it is (no
 // residual, no r_out). r_out (rows, cd), or NULL: the staged act(a_in).
-// Scratch: part (ceil(rows / chunk_rows), 2, cu) fp32; chunk_rows is a
-// multiple of 64.
+// Scratch: part (ceil(rows / chunk_rows), 2, cu) fp32. panel_rows 0: the
+// 64 x 128 tiles of tile_mma.cuh (fp32; bf16 widths fwd_plan sends there),
+// chunk_rows a multiple of 64. panel_rows 64 or 128 (bf16 only): the TMA +
+// wgmma kernel with panels of that many rows, wn (64 or 128) channels a
+// consumer, `stages` ring stages and `slots` panel slots; chunk_rows a
+// multiple of panel_rows, cu a multiple of 8 (and cd below a BatchNorm),
+// every pointer 16-byte aligned.
 extern "C" int mlp_mm_stats_launch(const void* a_in, const float* sc,
                                    int res_mode, const void* res_src,
                                    const float* res_sc, const void* w,
                                    void* h_out, void* r_out, float* stats,
                                    float* part, long long rows, int cd, int cu,
-                                   int chunk_rows, int is_bf16, void* stream) {
+                                   int chunk_rows, int panel_rows, int wn, int stages,
+                                   int slots, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  FwdGeom geo{};
+  if (panel_rows != 0) {
+    if (!is_bf16 || wn <= 0) return kBadArgs;
+    const int nt = panel_rows == 128 ? wn : 2 * wn;
+    geo = FwdGeom{panel_rows, wn, (cd + 63) / 64, slots, stages, nt, (cu + nt - 1) / nt};
+  }
+  const FwdGeom* g = panel_rows != 0 ? &geo : nullptr;
   if (is_bf16) {
     return mm_stats_any<bf16>(a_in, sc, res_mode, res_src, res_sc, w, h_out,
-                              r_out, stats, part, rows, cd, cu, chunk_rows, s);
+                              r_out, stats, part, rows, cd, cu, chunk_rows, g, s);
   }
   return mm_stats_any<float>(a_in, sc, res_mode, res_src, res_sc, w, h_out,
-                             r_out, stats, part, rows, cd, cu, chunk_rows, s);
+                             r_out, stats, part, rows, cd, cu, chunk_rows, g, s);
 }
 
 // The pool pass over h (groups * pool, C): out (groups, C) in T, maxv and

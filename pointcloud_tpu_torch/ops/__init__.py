@@ -71,6 +71,7 @@ from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
     chain_da_reference,
     chain_dh_reference,
     chain_dw_reference,
+    fwd_plan,
     mlp_pool_bwd_reference,
     mlp_pool_fused,
     mlp_pool_reference,

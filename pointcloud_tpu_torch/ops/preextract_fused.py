@@ -19,10 +19,16 @@ differentiated by autograd. `mlp_pool_bwd_reference` and
 `preextract_pool_bwd_reference` are the explicit backwards out of the plain
 passes, with the kernels' rounding points.
 
-A backward pass is three stages on the card, as in its plain version: dh
-formed once (`chain_dh_reference`), da with its epilogue, which also forms
-dw's operand a_up (`chain_da_reference`), and dw (`chain_dw_reference`).
-`bwd_plan` decides their tiles, chunks, padding and scratch.
+A forward product pass is one launch on the card (and the fixed-order
+column sum of its per-chunk partials): in bf16 a resident panel of
+activated rows walked over every tile of w by TMA + wgmma, each input
+element read and activated once; `fwd_plan` decides its panels, tiles, ring,
+slots and chunks, and sends fp32 and the widths TMA cannot read to the
+64 x 128 tile kernel. A backward pass is three stages on the card, as in its
+plain version: dh formed once (`chain_dh_reference`), da with its epilogue,
+which also forms dw's operand a_up (`chain_da_reference`), and dw
+(`chain_dw_reference`). `bwd_plan` decides their tiles, chunks, padding and
+scratch.
 
 Scalars travel as (4, C) fp32 rows. For a BatchNorm (`affine_scalars`): mean,
 mul = gamma * rsig, beta, rsig. For a backward pass (`up_scalars`): c1, c4,
@@ -53,6 +59,7 @@ _WG_TILE = 128  # rows and channels of a bf16 (wgmma) da or dw tile
 _WG_DEPTH = 64  # rows of one dw stage: the split-K granule
 _WG_WAVES = 4  # waves of blocks a bf16 launch may take (one resident an SM)
 _MAX_ROWS = 2**31 - 1
+_SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on an H100
 RES_NONE, RES_BNRELU, RES_DENSE = 0, 1, 2
 
 
@@ -233,7 +240,7 @@ def _launchers():
     lib = _build.load("mlp_chain")
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     mm = lib.mlp_mm_stats_launch
-    mm.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
+    mm.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 8 + [vp]
     pool = lib.mlp_bn_pool_launch
     pool.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
     dh = lib.mlp_bwd_dh_launch
@@ -407,22 +414,95 @@ def _check_residual(name, res, like):
     return src, sc
 
 
+class FwdPlan(NamedTuple):
+    """Launch geometry of one forward product pass (`fwd_plan`)."""
+    rows: int
+    cd: int
+    cu: int
+    input_layer: bool  # a_in is the chain's input (no BatchNorm below)
+    panel_rows: int  # rows of a resident panel (128 or 64); 0: the tile kernel
+    wn: int  # channels of one consumer's product (64 or 128)
+    stage_cols: int  # channels of a w ring stage: wn, or 2 wn over 64-row panels
+    stages: int  # w ring stages
+    slots: int  # panels staged ahead
+    chunk_rows: int  # rows a block owns: whole panels (tile kernel: 64-row tiles)
+    chunks: int
+    smem: int  # dynamic shared memory of a block, bytes
+
+
+def _fwd_smem(cd: int, cu: int, pr: int, wn: int, stages: int, slots: int) -> int:
+    """Shared memory of the TMA + wgmma forward (csrc/mlp_chain.cu FwdGeom):
+    1024 bytes of alignment slack, `slots` panels of ceil(cd / 64) swizzled
+    atoms of pr x 128 bytes, `stages` ring stages of 64 x nt bf16, the two
+    consumers' 64 x wn bf16 h tiles, fp32 column sums ([consumer][sum,
+    sq][ceil(cu / nt) nt] over 128-row panels, [sum, sq][..] over 64-row
+    ones), the warps' tile sums [consumer][warp][sum, sq][wn] and 20
+    mbarriers."""
+    nt = wn if pr == 128 else 2 * wn
+    tot = -(-cu // nt) * nt
+    sums = (4 if pr == 128 else 2) * tot
+    return (1024 + slots * -(-cd // 64) * pr * 128 + stages * nt // 64 * 8192
+            + 2 * wn * 128 + 4 * (sums + 16 * wn) + 20 * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
+             sms: int = _SMS) -> FwdPlan:
+    """The launch plan of one forward product pass of rows x (cd -> cu).
+
+    bf16 (TMA + wgmma): a block keeps a panel of activated input rows
+    resident over all of cd and walks every N tile of cu over it, so each
+    input element is read and activated once. The first of these that fits
+    227 KB of shared memory: panels of 128 rows (a 64-row half for each
+    consumer warpgroup) with wn = 128 channels a product (64 where cu is no
+    wider), then wn = 64, each beside a ring of at least 3 w stages; then
+    panels of 64 rows (the consumers split each stage's 2 wn channels) with
+    wn = 128 (where cu is wider than 128), then 64, beside at least 2
+    stages. Of that, a second panel slot where one fits (the next panel's
+    TMA load then overlaps the products), then the most ring stages (up to
+    4), then the most slots (up to 4); one block resident an SM, chunks of
+    whole panels in whole waves (`_split`). TMA reads w and writes h in 16-byte rows and the
+    activated operand is formed in 16-byte chunks of channels, so cu (and cd
+    below a BatchNorm) must be a multiple of 8: no driven path has another
+    width, and the others (and fp32, which reaches the passes only in the
+    card-vs-CPU checks; and a depth whose 64-row panel does not fit, cd past
+    about 1,300, none on a driven path) take the 64 x 128 tiles of
+    tile_mma.cuh, in at most _MAX_CHUNKS chunks of 64-row tiles."""
+    if bf16 and cu % 8 == 0 and (input_layer or cd % 8 == 0):
+        for pr, wide, least in ((128, 64, 3), (64, 128, 2)):
+            for wn in ((128, 64) if cu > wide else (64,)):
+                fits = [(min(slots, 2), stages, slots)
+                        for stages in range(least, 5) for slots in range(1, 5)
+                        if _fwd_smem(cd, cu, pr, wn, stages, slots) <= _SMEM_LIMIT]
+                if fits:
+                    _, stages, slots = max(fits)
+                    chunk, chunks = _split(rows, pr, 1, sms)
+                    return FwdPlan(rows, cd, cu, input_layer, pr, wn,
+                                   wn if pr == 128 else 2 * wn, stages, slots, chunk,
+                                   chunks, _fwd_smem(cd, cu, pr, wn, stages, slots))
+    chunk = _chunk_rows(rows)
+    return FwdPlan(rows, cd, cu, input_layer, 0, 0, 0, 0, 0, chunk, -(-rows // chunk), 0)
+
+
 def _mm_stats_kernel(x, sc, w, res=None, write_r=False):
     B, R, Cd = x.shape
     Cu = w.shape[1]
     rows = B * R
-    chunk = _chunk_rows(rows)
+    plan = fwd_plan(rows, Cd, Cu, x.dtype == torch.bfloat16, sc is None,
+                    _sm_count(x.device.index))
     mode, src, rsc = _res_parts(res)
+    if plan.panel_rows:  # 16-byte loads, TMA: aligned operands
+        x, sc, w, src, rsc = map(_aligned, (x, sc, w, src, rsc))
     h = torch.empty((B, R, Cu), dtype=x.dtype, device=x.device)
     r = torch.empty_like(x) if write_r else None
     stats = torch.empty((2, Cu), dtype=torch.float32, device=x.device)
-    part = torch.empty((-(-rows // chunk), 2, Cu), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((plan.chunks, 2, Cu), dtype=torch.float32, device=x.device)
     launch = _launchers()[0]
     with torch.cuda.device(x.device):
         err = launch(_ptr(x), _ptr(sc), mode, _ptr(src), _ptr(rsc), _ptr(w),
                      _ptr(h), _ptr(r), _ptr(stats), _ptr(part), rows, Cd, Cu,
-                     chunk, int(x.dtype == torch.bfloat16),
+                     plan.chunk_rows, plan.panel_rows, plan.wn, plan.stages,
+                     plan.slots, int(x.dtype == torch.bfloat16),
                      torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mlp_chain product kernel launch failed: CUDA error {err}")

@@ -802,6 +802,113 @@ def test_chain_bwd_stage_kernels_reject_what_they_do_not_take(dev):
         tpf._bwd_dw(plan._replace(dw_chunk_rows=96), dh, dh)
 
 
+# ---- the chain's forward products on TMA + wgmma ----
+
+# (B, R, Cd, Cu, mode, write_r), mode: "input" (layer 0, no BatchNorm),
+# RES_NONE / RES_BNRELU / RES_DENSE below a BatchNorm. Ragged input depths
+# (6, 10, 131, 643), narrow outputs (8, 16), row counts that are no multiple
+# of a panel (150, 1000), cd = cu = 1024 (64-row panels), every residual
+# mode with write_r; the last two are widths the plan leaves on the tile
+# kernel (cu, or cd below a BatchNorm, no multiple of 8).
+FWD_CASES = [
+    (3, 50, 6, 64, "input", False),
+    (2, 75, 10, 8, "input", False),
+    (4, 250, 131, 128, "input", False),
+    (2, 96, 643, 256, "input", False),
+    (3, 50, 64, 16, tpf.RES_NONE, False),
+    (3, 50, 16, 64, tpf.RES_NONE, False),
+    (2, 96, 1024, 1024, tpf.RES_NONE, False),
+    (2, 96, 1024, 1024, tpf.RES_BNRELU, True),
+    (4, 250, 128, 128, tpf.RES_BNRELU, True),
+    (3, 50, 256, 256, tpf.RES_DENSE, True),
+    (2, 75, 200, 72, tpf.RES_DENSE, False),
+    (2, 96, 24, 130, tpf.RES_NONE, False),
+    (2, 96, 130, 40, tpf.RES_BNRELU, True),
+]
+
+
+def fwd_inputs(dev, seed, B, R, Cd, Cu, mode, dtype):
+    """Arguments of one forward product pass on the card: the input ~ N(0,
+    1) in dtype, w ~ N(0, 1 / Cd), BatchNorm scalars of random statistics
+    (some scales negative), a residual (h0 with its scalars, or a stored
+    r >= 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = B * R
+
+    def scalars(C):
+        gamma = torch.where(torch.rand(C, generator=g, device=dev) < 0.2, -1.0, 1.0) \
+            * (0.5 + torch.rand(C, generator=g, device=dev))
+        ssum = 0.1 * n * torch.randn(C, generator=g, device=dev)
+        ssq = n * (0.5 + torch.rand(C, generator=g, device=dev))
+        return affine_scalars(ssum, ssq, gamma, 0.1 * torch.randn(
+            C, generator=g, device=dev), n)
+
+    x = torch.randn((B, R, Cd), generator=g, device=dev).to(dtype)
+    w = (torch.randn((Cd, Cu), generator=g, device=dev) / Cd ** 0.5).to(dtype)
+    if mode == "input":
+        return (x, w), {}
+    res = None
+    if mode == tpf.RES_BNRELU:
+        res = (torch.randn((B, R, Cd), generator=g, device=dev).to(dtype), scalars(Cd))
+    elif mode == tpf.RES_DENSE:
+        res = torch.relu(torch.randn((B, R, Cd), generator=g, device=dev)).to(dtype)
+    return (x, scalars(Cd), w), {"res": res}
+
+
+@pytest.mark.parametrize("sms", [None, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_fwd_products_match_plain_and_are_deterministic(dev, case, dtype, sms,
+                                                        monkeypatch):
+    """mm_stats / bnact_mm_stats against their plain versions on the same
+    inputs, each twice and bit-equal: h by `close_act` (fp32 accumulations
+    in another order), ssum / ssq 1e-4 / 1e-3 relative, the stored layer
+    input r exactly equal. bf16 takes the TMA + wgmma kernel at every width
+    fwd_plan gives it (asserted) and the tile kernel elsewhere; with `sms`
+    the plan is made for a card of 3 SMs, so that a block walks several
+    panels and the launch several chunks."""
+    B, R, Cd, Cu, mode, write_r = case
+    if sms is not None:
+        monkeypatch.setattr(tpf, "_sm_count", lambda index: sms)
+    args, kw = fwd_inputs(dev, sum(case[:4]), B, R, Cd, Cu, mode, dtype)
+    plan = tpf.fwd_plan(B * R, Cd, Cu, dtype == torch.bfloat16, mode == "input",
+                        sms or tpf._sm_count(dev.index))
+    wgmma = dtype == torch.bfloat16 and Cu % 8 == 0 and (mode == "input" or Cd % 8 == 0)
+    assert (plan.panel_rows > 0) == wgmma
+    if sms is not None and wgmma:
+        assert plan.chunks > 1 or plan.chunk_rows > plan.panel_rows
+    if mode == "input":
+        fn, ref = mm_stats, mm_stats_reference
+    else:
+        fn, ref = bnact_mm_stats, bnact_mm_stats_reference
+        kw["write_r"] = write_r
+    before = fn.launches
+    got, again = fn(*args, **kw), fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ref(*args, **kw)
+    assert len(got) == len(want) == 3 + int(write_r)
+    close_act(got[0], want[0])
+    close_sums(got[1], want[1], dtype)
+    close_sums(got[2], want[2], dtype)
+    if write_r:
+        assert got[3].dtype == dtype and torch.equal(got[3], want[3])
+
+
+def test_fwd_kernel_rejects_what_it_does_not_take(dev, monkeypatch):
+    """A plan whose chunks are no whole panels, or with more panel slots or
+    fewer ring stages than the kernel has, makes the launch fail rather than
+    run."""
+    (x, sc, w), _ = fwd_inputs(dev, 0, 2, 128, 64, 64, tpf.RES_NONE, torch.bfloat16)
+    plan = tpf.fwd_plan(256, 64, 64, True, False, tpf._sm_count(dev.index))
+    for bad in (plan._replace(chunk_rows=100), plan._replace(slots=9),
+                plan._replace(stages=0)):
+        monkeypatch.setattr(tpf, "fwd_plan", lambda *a, _p=bad: _p)
+        with pytest.raises(RuntimeError, match="product kernel launch failed"):
+            tpf._mm_stats_kernel(x, sc, w)
+
+
 # ---- the PointMLP train slice's kernels: the chain's residual mode ----
 
 # (B, R, layout, pool): PointMLP-Elite's mid width 16 with a pool of 24 over
