@@ -7,14 +7,16 @@ Phases; any failure raises and the script exits non-zero without its result
 lines:
   1. build every kernel in pointcloud_tpu_torch/csrc/ (one nvcc each, in
      parallel) into build/, or reuse the build; print the registers and
-     spills of the chain's forward and backward kernels (ptxas -v);
+     spills of the chain's forward and backward kernels, fps's cluster
+     kernel and the dense-pool backward's TMA + wgmma kernels (ptxas -v);
   2. hold each kernel against its plain PyTorch version on the card (masks,
      fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
      equal indices, empty balls, k not a multiple of 8, the shared-memory
-     and global paths; for the four passes of the Dense-BN-ReLU-pool chain
-     depths 6 / 131 / 259, ragged widths (bf16 widths that are no multiple
-     of 8 take the tile kernel, the rest TMA + wgmma), pools of 4 / 32 /
-     128, a fully
+     and global paths, and fps's cluster route at the sensor's shape with
+     ties between blocks and at a ragged N; for the four passes of the
+     Dense-BN-ReLU-pool chain depths 6 / 131 / 259, ragged widths (bf16
+     widths that are no multiple of 8 take the tile kernel, the rest TMA +
+     wgmma), pools of 4 / 32 / 128, a fully
      masked group, planted ties, final_relu both ways, and each stage of
      the backward pass (dh, da, dw) against its plain stage; ball_group's
      gradient; for the Sinkhorn matching N != M, N not a multiple of 64,
@@ -26,14 +28,16 @@ lines:
      points x 6 dims (bf16 activations), plus `encode` on one cloud;
   4. the train path at full width: make_optimizer + make_train_step at
      bench.py's B=256 x 2048 x 6, bf16, one fixed batch, 1 warm-up step and
-     10 chained steps;
+     10 chained steps; a second instance from the same seed and batch takes
+     40 chained steps, the last one's loss below the warm-up step's;
   5. the segment-sum route of the Chamfer backward: chamfer_distance(x, y)
      .backward() at B=4, N=M=4096, C=6 (above the 6<<20 switch);
   6. the PointNet2 path at full width: create_model("Autoencoder",
      "PointNet2", "Cube", loss_override="chamfer") and its eval step at
      B=256 x 2048 x 6 (bf16), `encode` on one cloud, and the sensor's
      FilterBBox -> SampleFurthestPoints(2048) on one cloud of 3 cameras x
-     256 x 256 points (its FPS indices card vs CPU equal);
+     256 x 256 points (its FPS indices card vs CPU equal; the route, the
+     cluster and the time a step beside the bound);
   7. check the outputs: finite values of the right shapes, the kernel-path
      loss vs the plain version's, and the fp32 models' eval steps (PointNet
      and PointNet2) and train steps (PointNet and PointNet2), and the STN
@@ -88,7 +92,10 @@ lines:
      make_optimizer + make_train_step, a warm-up step and 10 chained steps
      with exact launch counts, the step's parts, a trace, and, at one more
      step's own inputs, against their plain versions: dense_pool_stats at
-     the six branches' last layers (pools 16 to 128), the four chain passes
+     the six branches' last layers (pools 16 to 128; the backward's dx and
+     dw kernels' device times from a trace, beside the library and the
+     bound), the
+     four chain passes
      of the group-all level (643 -> 256 -> 512 -> 1024, pool 128), level 2's
      three scatter_rows and chamfer_bwd, each timed;
  14. the fp32 MSG autoencoder card vs CPU at B=2 x 1024 points: FPS and
@@ -96,8 +103,11 @@ lines:
      step's loss, gradients and update.
 Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
-a library yardstick and its bound, with both Chamfer backward routes at the
-train step's shapes, the parts of each step and a torch.profiler trace of
+a library yardstick and its bound (the dense-pool backward at phase 4's
+shape also as its dx and dw kernels' device times from a trace), with
+both Chamfer backward
+routes at the train step's shapes, the parts of each step and a
+torch.profiler trace of
 each train step (device time by kernel, busy and idle share, beside the
 host's enqueue time). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
@@ -130,6 +140,12 @@ B_MAIN = 512  # bench.py's eval batch
 ITERS = 20  # chained eval steps after the first
 B_TRAIN = 256  # bench.py's train batch
 TRAIN_ITERS = 10  # chained train steps after the warm-up step
+# phase 4's chained steps: Adam's first updates raise the loss to 2.2-4.2x
+# the warm-up loss, and at the tenth step it lies on either side of the
+# warm-up loss across seeds and equally exact orders of the dense-pool
+# backward's dw sums; by the fortieth it lies 12-22% below it in every case
+# tried (`--loss-spread 40 --seeds 0 1 2 3`, three orders each)
+PN_TRAIN_ITERS = 40
 B_ROUTE, P_ROUTE = 4, 4096  # 16.8M cost elements per cloud: the segment-sum route
 B_PN2 = 256  # bench.py's PointNet2 batch
 B_EMD = 128  # the AE + EMD train batch of benchmarks/config_step_bench.py
@@ -535,6 +551,61 @@ def compare_dense_pool(gen, x, w, b, s, pen, pool, acc_bound=False):
     return err, err_bwd, got
 
 
+def pool_bwd_bound(B, R, Cin, C, pool):
+    """The dense-pool backward's bound: three products (z, dx, dw) at the
+    dense bf16 rate; bytes x read and dx written (bf16), w and the bias read,
+    asel and dpsel read, dw and db written (fp32)."""
+    return bound(3 * 2 * B * R * Cin * C,
+                 (2 * B * R * Cin + Cin * C + C) * 2 + B * (R // pool) * C * (4 + 4)
+                 + Cin * C * 4 + 3 * C * 4, PEAK_BF16_FLOPS)
+
+
+def pool_library_bwd(x, w, b, pool, g_ps, g_s):
+    """Autograd through bf16 matmul + the pool blocks' amax + the sums, the
+    composition that stores z: a yardstick timed here, never called by the
+    port. Returns the thunk."""
+    xl, wl, bl = (t.detach().clone().requires_grad_() for t in (x, w, b))
+
+    def run():
+        z = torch.matmul(xl, wl) + bl
+        B, R, C = z.shape
+        zmax = z.reshape(B, R // pool, pool, C).amax(dim=2)
+        zf = z.float()
+        return torch.autograd.grad(
+            (zmax, zf.sum(dim=(0, 1)), (zf * zf).sum(dim=(0, 1))), (xl, wl, bl),
+            (g_ps.to(zmax.dtype), g_s, g_s))
+    return run
+
+
+def time_pool_bwd_parts(x, w, b, s, asel, g_ps, g_s, pool):
+    """(dx ms, dw ms) of one dense_pool_stats_bwd call: the device time of its
+    dx kernel, and of its dw kernel with the fixed-order sums of its partials
+    (colsum_kernel), from a torch.profiler trace of 5 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointcloud_tpu_torch.ops import dense_pool_stats_bwd
+
+    calls = 5
+    dense_pool_stats_bwd(x, w, b, s, asel, g_ps, g_s, g_s, pool)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            dense_pool_stats_bwd(x, w, b, s, asel, g_ps, g_s, g_s, pool)
+        torch.cuda.synchronize()
+    dx = dw = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA" or e.is_user_annotation:
+            continue
+        ms = e.device_time_total / 1e3 / calls
+        if "dx_wgmma_kernel" in e.key or "bwd_dx_kernel" in e.key:
+            dx += ms
+        elif any(k in e.key for k in ("dw_wgmma_kernel", "bwd_dw_kernel", "colsum_kernel")):
+            dw += ms
+    if dx <= 0 or dw <= 0:
+        raise AssertionError(f"the backward's trace holds no dx ({dx}) or dw ({dw}) time")
+    return dx, dw
+
+
 def raw_batch(gen, sc, B, P, dev):
     bbox = torch.tensor(sc.bbox, dtype=torch.float32, device=dev)
     return torch.cat([
@@ -692,31 +763,35 @@ def card_vs_cpu_train(seed, x_raw, loss_override="chamfer", first_tol=1e-5,
     return l_gpu[0]
 
 
-def check_fps(gen, B, N, K, C=3, masked=True):
+def check_fps(gen, B, N, K, C=3, masked=True, keep=0.8, mask_last=True):
     """farthest_point_sample vs fps_reference: equal indices (the same
     rounded operations in the same order), the kernel twice. Points N//2..
-    duplicate points 0.. (exact ties); with masks ~20% of points masked,
-    point 0 of cloud 0 masked and every point of the last cloud masked (all
-    slots 0 there). Returns the largest index difference (0)."""
-    from pointcloud_tpu_torch.ops import farthest_point_sample, fps_reference
+    duplicate points 0.. (exact ties; on the cluster route the copies lie
+    in other blocks); with masks a share `keep` of the points valid, point 0
+    of cloud 0 masked and, with mask_last, every point of the last cloud
+    masked (all slots 0 there). Returns the largest index difference (0)."""
+    from pointcloud_tpu_torch.ops import farthest_point_sample, fps_plan, fps_reference
 
     dev = torch.device("cuda")
     xyz = torch.rand((B, N, C), generator=gen, device=dev)
     xyz[:, N - N // 2:] = xyz[:, : N // 2]
     mask = None
     if masked:
-        mask = torch.rand((B, N), generator=gen, device=dev) > 0.2
+        mask = torch.rand((B, N), generator=gen, device=dev) < keep
         mask[0, 0] = False
-        mask[-1] = False
+        if mask_last:
+            mask[-1] = False
     got = twice_equal("fps", lambda: (farthest_point_sample(xyz, K, mask),))[0]
     want = fps_reference(xyz, K, mask)
     if not torch.equal(got, want):
         raise AssertionError(f"fps indices differ from the plain version "
                              f"(B={B} N={N} K={K} C={C} masked={masked})")
-    if masked and not bool((got[-1] == 0).all()):
+    if masked and mask_last and not bool((got[-1] == 0).all()):
         raise AssertionError("fps on a fully masked cloud must give zeros")
-    log(f"  fps B={B} N={N} K={K} C={C} masked={masked}: indices equal to the "
-        f"plain version's; two runs bit-equal")
+    plan = fps_plan(B, N)
+    log(f"  fps B={B} N={N} K={K} C={C} masked={masked} ({plan.route} route, "
+        f"{plan.cluster} block(s) of {plan.per_block} points a cloud): indices "
+        f"equal to the plain version's; two runs bit-equal")
     return float((got - want).abs().max())
 
 
@@ -820,6 +895,7 @@ def pointnet2_path(seed, gen, x_raw, smi, err):
         ball_group,
         ball_group_reference,
         farthest_point_sample,
+        fps_plan,
         fps_reference,
         index_points,
         nn_sweep,
@@ -972,13 +1048,18 @@ def pointnet2_path(seed, gen, x_raw, smi, err):
     s_plain = cuda_ms(lambda: fps_reference(s_xyz, sc.sample_points, keep[None]),
                       iters=1, warmup=1)
     s_bound = fps_bound(1, s_xyz.shape[1], sc.sample_points)
+    s_plan = fps_plan(1, s_xyz.shape[1])
+    steps = sc.sample_points - 1
     log(f"  {float(keep.float().mean()):.3f} of the points inside the bbox; "
         f"chain host clock, 5 calls: median {s_lat[2]:.3f} ms, max "
         f"{s_lat[-1]:.3f} ms; launches {s_counts}; FPS indices card vs CPU "
         f"equal")
-    log(f"  fps B=1 N={s_xyz.shape[1]} K={sc.sample_points} (sensor): kernel "
-        f"{s_ms:.3f} ms | plain {s_plain:.3f} ms | library none | bound "
-        f"{s_bound[0]:.4f} ms ({s_bound[1]}; {sc.sample_points - 1} serial steps)")
+    log(f"  fps B=1 N={s_xyz.shape[1]} K={sc.sample_points} (sensor, {s_plan.route} "
+        f"route, a cluster of {s_plan.cluster} blocks x {s_plan.per_block} points): "
+        f"kernel {s_ms:.3f} ms ({1e3 * s_ms / steps:.2f} us a step) | plain "
+        f"{s_plain:.3f} ms | library none | bound {s_bound[0]:.4f} ms "
+        f"({1e3 * s_bound[0] / steps:.3f} us a step; {s_bound[1]}; {steps} serial "
+        f"steps)")
     return {"counts": counts, "fps": (f_ms, f_plain, f_bound),
             "ball_group": ball["SA2"]}
 
@@ -1073,6 +1154,10 @@ BWD_KERNELS = ("bwd_dh_kernel", "bwd_da_wgmma_kernel", "bwd_dw_wgmma_kernel",
                "bwd_da_f32_kernel", "bwd_dw_f32_kernel")
 # and of its forward products: the TMA + wgmma kernel, the tile kernel
 FWD_KERNELS = ("fwd_wgmma_kernel", "mm_stats_kernel")
+# fps's cluster route (csrc/fps.cu) and the dense-pool backward's TMA +
+# wgmma kernels (csrc/dense_bn_pool.cu)
+FPS_KERNELS = ("fps_cluster_kernel",)
+POOL_KERNELS = ("dx_wgmma_kernel", "dw_wgmma_kernel")
 
 
 def bwd_stages(a, kw):
@@ -1084,7 +1169,7 @@ def bwd_stages(a, kw):
     (B, R, cd), cu = a_in.shape, w.shape[1]
     pool = kw.get("pool", 1)
     plan = tpf.bwd_plan(B * R, cd, cu, a_in.dtype == torch.bfloat16, sc_down is None,
-                        tpf._sm_count(a_in.device.index))
+                        tpf.sm_count(a_in.device.index))
     cot = {k: kw.get(k) for k in ("dz", "dosel", "amax")}
     joins = {k: kw.get(k) for k in ("res", "skip_pool", "skip_dense")}
     return (plan,
@@ -1183,7 +1268,7 @@ def compare_chain(gen, x, ws, gs, bs, pen, pool, final_relu, err, label,
         def run(*a, **kw):
             w = a[-1]
             plan = tpf.fwd_plan(B * R, w.shape[0], w.shape[1], dt == torch.bfloat16,
-                                name == "mm_stats", tpf._sm_count(x.device.index))
+                                name == "mm_stats", tpf.sm_count(x.device.index))
             if path and dt == torch.bfloat16 and not plan.panel_rows:
                 raise AssertionError(f"{name} {label} {tuple(w.shape)}: a driven "
                                      f"path's product went to the tile kernel")
@@ -1518,7 +1603,7 @@ def time_chain(x, ws, gs, bs, pen, pool, fwd, need_dx, level, residual=False):
         split = ""
         if name in ("mm_stats", "bnact_mm_stats"):
             p = tpf.fwd_plan(rows, cd, cu, dt == torch.bfloat16, u == 0,
-                             tpf._sm_count(x.device.index))
+                             tpf.sm_count(x.device.index))
             split = (f" | plan: panels of {p.panel_rows} rows, {p.wn} channels a "
                      f"consumer, {p.stages} stages, {p.slots} slots, {p.chunks} "
                      f"chunks, {p.smem} B" if p.panel_rows else " | tile kernel")
@@ -3086,6 +3171,7 @@ def msg_train_path(seed, gen, x_raw, smi, err):
         dense_pool_stats,
         dense_pool_stats_bwd,
         dense_pool_stats_reference,
+        pool_bwd_plan,
     )
     from pointcloud_tpu_torch.train import make_optimizer, make_train_step
 
@@ -3193,13 +3279,19 @@ def msg_train_path(seed, gen, x_raw, smi, err):
             cuda_ms(lambda: dense_pool_stats_reference(x, w, b, s, pen, pool),
                     iters=2, warmup=1),
             cuda_ms(lambda: dense_pool_stats_bwd(x, w, b, s, fwd_out[1], g_ps, g_s,
-                                                 g_s, pool), iters=5)))
+                                                 g_s, pool), iters=5),
+            *time_pool_bwd_parts(x, w, b, s, fwd_out[1], g_ps, g_s, pool),
+            cuda_ms(pool_library_bwd(x, w, b, pool, g_ps, g_s), iters=2, warmup=1),
+            pool_bwd_bound(x.shape[0], x.shape[1], x.shape[2], C, pool)[0],
+            pool_bwd_plan(x.shape[0] * x.shape[1], x.shape[2], C, True, pool).route))
         del fwd_out, g_ps
         torch.cuda.empty_cache()
     log("  dense_pool_stats at the six branches (R = S x pool rows a cloud, bf16; "
-        "kernel fwd | plain fwd | kernel bwd, ms): " + "; ".join(
+        "kernel fwd | plain fwd | kernel bwd (dx + dw, device time traced) | library bwd "
+        "| bwd bound, ms): " + "; ".join(
             f"pool {c[-1]} Cin={c[0].shape[2]} C={c[1].shape[1]} R={c[0].shape[1]}: "
-            f"{t[0]:.3f} | {t[1]:.3f} | {t[2]:.3f}" for c, t in zip(captured, times)))
+            f"{t[0]:.3f} | {t[1]:.3f} | {t[2]:.3f} ({t[3]:.3f} + {t[4]:.3f}, {t[7]}) | "
+            f"{t[5]:.3f} | {t[6]:.4f}" for c, t in zip(captured, times)))
     del captured
     torch.cuda.empty_cache()
     return {"counts": tr["counts"]}
@@ -3308,16 +3400,62 @@ def card_vs_cpu_msg(seed, x_raw):
         raise AssertionError("fp32 MSG train step on the card disagrees with the CPU")
 
 
+def loss_spread(seeds, steps, orders):
+    """Phase 4's train path (the PointNet autoencoder with Chamfer, B_TRAIN x
+    2048 x 6, bf16, Adam) from each seed's weights and clouds, drawn at once
+    from a generator of the seed (so seed 0's clouds are not phase 4's): the
+    warm-up loss, `steps` chained losses and the first chained step below the
+    warm-up loss, one line a (order, seed). Each order re-sums the dense-pool
+    backward's fp32 dw partials over other chunk boundaries, an equally exact
+    summation: the wgmma route plans as for a card of that many SMs; a port
+    whose backward has only the tile route (no `pool_bwd_plan`) cuts its dw
+    into that many chunks. Order 0 is the port's own plan."""
+    from pointcloud_tpu_torch.ops import dense_bn_pool as tdp
+    from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+
+    dev = torch.device("cuda")
+    tiled = not hasattr(tdp, "pool_bwd_plan")
+    own = tdp._DW_CHUNKS if tiled else tdp.sm_count
+    for order in orders:
+        if tiled:
+            tdp._DW_CHUNKS = order or own
+        else:
+            tdp.sm_count = (lambda index, n=order: n) if order else own
+        for seed in seeds:
+            spec = create_model("Autoencoder", "PointNet", "Cube",
+                                loss_override="chamfer", device=dev, seed=seed)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x = raw_batch(gen, spec.scene, B_TRAIN, spec.scene.sample_points, dev)
+            tr = drive_train(make_train_step(spec, make_optimizer(spec)), x, x, steps)
+            below = next((i + 1 for i, v in enumerate(tr["losses"])
+                          if v < tr["first_loss"]), None)
+            log(json.dumps({"order": order, "seed": seed, "warm_up": tr["first_loss"],
+                            "losses": tr["losses"], "first_below": below}))
+            del spec, tr, x
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and clouds")
+    ap.add_argument("--loss-spread", type=int, default=0, metavar="STEPS",
+                    help="only build, then print phase 4's chained train "
+                         "losses over STEPS steps for each of --seeds and "
+                         "--orders (see loss_spread); prints no result lines")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
+    ap.add_argument("--orders", type=int, nargs="+", default=[0])
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on "
               "the card", file=sys.stderr)
         return 1
+    if args.loss_spread:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        loss_spread(args.seeds, args.loss_spread, args.orders)
+        return 0
 
     from pointcloud_tpu_torch import cfg
     from pointcloud_tpu_torch.ops import (
@@ -3330,6 +3468,7 @@ def main(argv=None) -> int:
         dense_pool_stats_reference,
         nn_sweep,
         nn_sweep_reference,
+        pool_bwd_plan,
         scatter_rows,
         scatter_rows_reference,
     )
@@ -3354,11 +3493,13 @@ def main(argv=None) -> int:
     secs = _build.build()
     log(f"[build] {_build.sources()} -> {_build.BUILD_DIR}: {secs:.1f} s "
         f"({'built' if secs else 'reused'})")
-    for kernel, regs, st, ld in _build.ptxas_report("mlp_chain"):
-        name = next((k for k in FWD_KERNELS + BWD_KERNELS if k in kernel), None)
-        if name:
-            log(f"  ptxas {name} {kernel[kernel.index(name) + len(name):][:40]}: "
-                f"{regs} registers, spills {st} B stored / {ld} B loaded")
+    for source, names in (("mlp_chain", FWD_KERNELS + BWD_KERNELS),
+                          ("fps", FPS_KERNELS), ("dense_bn_pool", POOL_KERNELS)):
+        for kernel, regs, st, ld in _build.ptxas_report(source):
+            name = next((k for k in names if k in kernel), None)
+            if name:
+                log(f"  ptxas {name} {kernel[kernel.index(name) + len(name):][:40]}: "
+                    f"{regs} registers, spills {st} B stored / {ld} B loaded")
 
     # ---- 2. kernels vs plain versions ----
     log("[kernels vs plain versions]")
@@ -3387,7 +3528,17 @@ def main(argv=None) -> int:
                      check_fps(gen, 3, 700, 64, C=6),
                      check_fps(gen, 3, 100, 150),  # under-full: K > N
                      check_fps(gen, 2, 5000, 256),  # 1024 threads
-                     check_fps(gen, 2, 20000, 256))  # global scratch
+                     check_fps(gen, 2, 20000, 256))  # a cluster of 2
+    # the cluster route, with a generator of its own (`gen` goes on to draw
+    # the paths' clouds): the sensor's shape (a cluster of 16, half the
+    # points valid, the copies 8 blocks apart), copies 2 blocks apart, 13
+    # blocks of a ragged N; and the scratch route
+    gen_fps = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    err["fps"] = max(err["fps"],
+                     check_fps(gen_fps, 1, 196608, 2048, keep=0.5, mask_last=False),
+                     check_fps(gen_fps, 2, 40000, 1024),
+                     check_fps(gen_fps, 2, 150001, 256),
+                     check_fps(gen_fps, 1, 200000, 64, mask_last=False))
     err["ball_group"] = max(
         check_ball_group(gen, 4, 2048, 512, 32, 3, torch.bfloat16, True, 0.2),
         check_ball_group(gen, 4, 512, 128, 64, 128, torch.bfloat16, False, 0.4),
@@ -3536,8 +3687,25 @@ def main(argv=None) -> int:
     log(f"  the host alone enqueues a step in {tr['enqueue_ms']:.3f} ms")
     if not all(torch.isfinite(torch.tensor(losses))):
         raise AssertionError(f"non-finite train loss {losses}")
-    if not losses[-1] < float(first_loss):
+    # falling: the last of PN_TRAIN_ITERS chained steps below the warm-up
+    # loss, on a second instance from the same seed and batch, so that the
+    # trace, the parts and the yardsticks below see the weights of the
+    # TRAIN_ITERS steps above
+    gate = create_model("Autoencoder", "PointNet", "Cube", loss_override="chamfer",
+                        device=dev, seed=args.seed)
+    gt = drive_train(make_train_step(gate, make_optimizer(gate)), xt, xt,
+                     PN_TRAIN_ITERS)
+    fall = gt["losses"]
+    log(f"  the loss gate: a second instance from the same seed, warm-up "
+        f"{gt['first_loss']:.6f}, {PN_TRAIN_ITERS} chained steps: step "
+        f"{TRAIN_ITERS} {fall[TRAIN_ITERS - 1]:.6f}, step {PN_TRAIN_ITERS} "
+        f"{fall[-1]:.6f}")
+    if not all(torch.isfinite(torch.tensor(fall))):
+        raise AssertionError(f"non-finite train loss {fall}")
+    if not fall[-1] < gt["first_loss"]:
         raise AssertionError("the train loss did not fall over the steps")
+    del gate
+    torch.cuda.empty_cache()
     trace_steps(tstep, xt, xt, ms_train, f"PointNet train step, B={B_TRAIN}",
                 tr["enqueue_ms"])
 
@@ -3583,6 +3751,8 @@ def main(argv=None) -> int:
     g_s = torch.randn((Cd,), generator=gen, device=dev) / (Bt * Rt)
     b_ms = cuda_ms(lambda: dense_pool_stats_bwd(
         dx_in, dw_in, db_in, ds_in, fwd_out[1], g_ps, g_s, g_s, Rt), iters=5)
+    bx_ms, bw_ms = time_pool_bwd_parts(dx_in, dw_in, db_in, ds_in, fwd_out[1], g_ps,
+                                       g_s, Rt)
     xl = dx_in.detach().clone().requires_grad_()
     wl = dw_in.detach().clone().requires_grad_()
     bl = db_in.detach().clone().requires_grad_()
@@ -3592,25 +3762,20 @@ def main(argv=None) -> int:
         return torch.autograd.grad((o[0], o[2], o[3]), (xl, wl, bl),
                                    (g_ps.to(o[0].dtype), g_s, g_s))
 
-    def dense_library_bwd():  # autograd through the composition that stores z
-        z = torch.matmul(xl, wl) + bl
-        zmax = torch.amax(z, dim=1)
-        zf = z.float()
-        return torch.autograd.grad(
-            (zmax, zf.sum(dim=(0, 1)), (zf * zf).sum(dim=(0, 1))), (xl, wl, bl),
-            (g_ps[:, 0].to(zmax.dtype), g_s, g_s))
-
     b_plain = cuda_ms(dense_plain_bwd, iters=2, warmup=1)
-    b_lib = cuda_ms(dense_library_bwd, iters=2, warmup=1)
-    b_bound = bound(3 * flops, (2 * Bt * Rt * Cin + Cin * Cd + Cd) * 2
-                    + Bt * Cd * (4 + 4) + Cin * Cd * 4 + 3 * Cd * 4,
-                    PEAK_BF16_FLOPS)
+    b_lib = cuda_ms(pool_library_bwd(dx_in, dw_in, db_in, Rt, g_ps, g_s), iters=2,
+                    warmup=1)
+    b_bound = pool_bwd_bound(Bt, Rt, Cin, Cd, Rt)
+    b_plan = pool_bwd_plan(Bt * Rt, Cin, Cd, True, Rt)
     log(f"  dense_pool_stats fwd B={Bt} R={Rt} Cin={Cin} C={Cd} bf16: kernel "
         f"{d_ms:.3f} ms | plain {d_plain:.3f} ms | library matmul + aminmax + "
         f"sums {d_lib:.3f} ms | bound {d_bound[0]:.3f} ms ({d_bound[1]})")
-    log(f"  dense_pool_stats bwd: kernel {b_ms:.3f} ms | plain (autograd) "
-        f"{b_plain:.3f} ms | library (autograd through matmul + amax + sums) "
-        f"{b_lib:.3f} ms | bound {b_bound[0]:.3f} ms ({b_bound[1]})")
+    log(f"  dense_pool_stats bwd ({b_plan.route} route; dx {b_plan.dx_chunks} blocks "
+        f"of {b_plan.dx_chunk_rows} rows, dw {b_plan.dw_chunks} chunks x "
+        f"{-(-Cd // 128)} channel tiles): kernel {b_ms:.3f} ms (dx {bx_ms:.3f} + dw "
+        f"and db {bw_ms:.3f}, device time traced) | plain (autograd) {b_plain:.3f} ms | "
+        f"library (autograd through matmul + amax + sums) {b_lib:.3f} ms | bound "
+        f"{b_bound[0]:.3f} ms ({b_bound[1]})")
     del xl, wl, bl, feats
     torch.cuda.empty_cache()
 

@@ -15,13 +15,13 @@
 //            dz = dssum + 2 dssq z + s sparse(asel, dpsel), cast to T,
 //            dx = dz @ w^T (T), dw = x^T @ dz (fp32), db = sum_r dz (fp32).
 // z and dz never reach device memory: each is recomputed tile by tile from x
-// and w and consumed in shared memory.
+// and w and consumed in shared memory or registers.
 //
-// Design. Every product runs on one 64 x 128 output tile per block of 256
-// threads (tile_mma.cuh), staged through shared memory in depth chunks of
-// 32: bf16 operands go through the tensor cores with nvcuda::wmma 16x16x16
-// tiles and fp32 accumulators; fp32 operands run on the CUDA cores (4 x 8
-// outputs a thread), so fp32 stays fp32 (no TF32).
+// Design, forward. Every product runs on one 64 x 128 output tile per block
+// of 256 threads (tile_mma.cuh), staged through shared memory in depth chunks
+// of 32: bf16 operands go through the tensor cores with nvcuda::wmma
+// 16x16x16 tiles and fp32 accumulators; fp32 operands run on the CUDA cores
+// (4 x 8 outputs a thread), so fp32 stays fp32 (no TF32).
 //   forward  (launch 1): a block owns 128 channels and a chunk of 512 rows.
 //            Per 64-row tile it forms z in shared memory; each thread then
 //            walks one channel over 32 rows, adding to its sum and sum of
@@ -33,16 +33,58 @@
 //            The sums go to per-chunk partials.
 //   (launches 2-3) decode the pool keys into psel / asel; sum the partials
 //            of ssum and ssq over the chunks in a fixed order.
-//   backward (launch 1): a block owns 64 rows and 128 input channels. For
-//            each 128-channel tile of C it recomputes z, forms dz in shared
-//            memory and accumulates dx += dz @ w^T in registers.
-//   (launch 2): a block owns 128 channels of C, 128 of Cin and a chunk of
-//            rows: it recomputes z and dz per 64-row tile and accumulates
-//            dw += x^T @ dz in registers, and the column sums of dz for db;
-//            it writes per-chunk partials.
-//   (launches 3-4) sum the dw and db partials over the chunks in a fixed
-//            order. No fp32 atomics anywhere: the same inputs give the same
-//            bits on every run.
+// Design, backward. Two products, each launch recomputing z from x and w and
+// forming dz where it is consumed, so neither reaches device memory (at
+// PointNet's 524,288 rows x 1024 channels each would be 1 GB of bf16).
+//   bf16 with Cin <= 128 and Cin, C multiples of 8, at pools whose tables
+//   fit (below; every driven shape: ops/dense_bn_pool.py pool_bwd_plan) runs
+//   on TMA + wgmma (hopper.cuh). A block is one producer warpgroup, whose one
+//   thread issues the TMA loads (x and w with the 128-byte swizzle) into
+//   mbarrier rings of 5 stages, and two consumer warpgroups that issue wgmma
+//   with fp32 accumulators in registers. Each stage also carries, by TMA, the
+//   asel and dpsel of the pool blocks its rows meet (a few hundred bytes to
+//   tens of KB: what bounds the pool from below), so the sparse term is a
+//   shared-memory lookup (read through L1, its latency held up every
+//   epilogue).
+//   dx (dx_wgmma_kernel): a block walks a chunk of 128-row tiles, each
+//            consumer a 64-row half, with the tile's x (rows x Cin, K-major)
+//            resident in one of two slots (the next tile's load overlaps).
+//            w streams in chunks of 64 channels of C (Cin rows x 128 bytes).
+//            Per chunk: z = x @ w_chunk (m64n64, w's chunk read MN-major),
+//            then dz in registers: z rounded to T after the bias, dz = dssum
+//            + 2 dssq z, plus sign dpsel at the pooled row, zero past the
+//            rows or C; packed to bf16 in the accumulator's own order it is
+//            the A operand of dx += dz @ w_chunk^T (register-A m64n{64,128}
+//            k16, the same w chunk read K-major): no shared-memory trip for
+//            dz. dz is formed while the last chunk's dx product runs (two
+//            A-operand buffers, chunks unrolled by two so that they stay
+//            registers), then the next chunk's z and this chunk's dx are
+//            issued; a stage is released two chunks on.
+//   dw (dw_wgmma_kernel): computes dw^T. A block owns 128 channels of C (a
+//            64-channel atom each consumer) and a chunk of rows walked in
+//            64-row steps; its w atoms stay resident, x streams through the
+//            ring. Per step each consumer forms z and dz of its atom as above
+//            (and adds dz in fp32 to its column sums for db), writes dz to
+//            shared memory (MN-major, swizzled, two buffers), then adds
+//            dz^T @ x (m64n{64,128}, both operands MN-major) to its dw^T
+//            tile: it reads only its own dz, so the consumers meet at no
+//            barrier. The next step's z is issued before this step's dw; the
+//            last step's dw runs while dz is formed. The tensor cores' fp32
+//            sums are not rounded to nearest: each 4 steps (256 rows) are
+//            summed by them, then added into fp32 registers. dw and db go to
+//            per-chunk partials.
+//   fp32 (the card-vs-CPU checks), Cin > 128 and widths that are no
+//   multiple of 8 (TMA wants 16-byte rows) take the tile route:
+//   bwd_dx_kernel: a block owns 64 rows and 128 input channels; for each
+//            128-channel tile of C it recomputes z, forms dz in shared memory
+//            and accumulates dx += dz @ w^T in registers.
+//   bwd_dw_kernel: a block owns 128 channels of C, 128 of Cin and a chunk of
+//            rows; it recomputes z and dz per 64-row tile, accumulates dw +=
+//            x^T @ dz and the column sums of dz for db, and writes per-chunk
+//            partials.
+//   Both routes end with colsum_kernel summing the dw and db partials over
+//   the chunks in a fixed order. No fp32 atomics anywhere: the same inputs
+//   give the same bits on every run.
 // The TPU kernels run one grid step per batch block, carrying the sums and
 // dw from step to step in VMEM; CUDA blocks run in parallel with no carry,
 // hence the partials and the second passes.
@@ -51,10 +93,13 @@
 // operations (1.37e11 at rows = 256 x 2048, Cin 128, C 1024: 0.139 ms at the
 // dense bf16 tensor-core rate of 989 TFLOP/s); its bytes (x once, w, the
 // pooled outputs) take 0.040 ms at 3.35 TB/s. The backward needs three such
-// products (z, dx, dw): 0.417 ms. This design recomputes z twice in the
-// backward (four products). Pipelined loads (cp.async / TMA) and wgmma are
-// left to a later change.
+// products (z, dx, dw): 0.417 ms. The bf16 backward computes four (z once in
+// each launch): the bound's 4/3, to keep 2 GB of z and dz out of device
+// memory.
 
+#include <type_traits>
+
+#include "hopper.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -450,7 +495,8 @@ int backward(const T* x, const T* w, const T* bias, const float* sign,
              float* db_part, int64_t rows, int cin, int C, int pool,
              int chunk_rows, cudaStream_t s) {
   const int n_chunks = static_cast<int>((rows + chunk_rows - 1) / chunk_rows);
-  cudaError_t err = set_smem<T>(reinterpret_cast<const void*>(&bwd_dx_kernel<T>));
+  cudaError_t err;
+  err = set_smem<T>(reinterpret_cast<const void*>(&bwd_dx_kernel<T>));
   if (err != cudaSuccess) return static_cast<int>(err);
   bwd_dx_kernel<T><<<dim3((cin + TN - 1) / TN, static_cast<unsigned>((rows + TM - 1) / TM)),
                      kThreads, Lds<T>::total, s>>>(
@@ -467,7 +513,535 @@ int backward(const T* x, const T* w, const T* bias, const float* sign,
       dw_part, dw, n_chunks, static_cast<int64_t>(cin) * C);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   colsum_kernel<<<blocks_for(C), kThreads, 0, s>>>(db_part, db, n_chunks, C);
-  return static_cast<int>(cudaGetLastError());
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return 0;
+}
+
+// ---------------- backward, bf16: TMA + wgmma ----------------
+
+constexpr int kWg = 128;             // threads of a warpgroup
+constexpr int kWgThreads = 3 * kWg;  // producer + 2 consumers
+constexpr int kDxRows = 128;         // rows of a dx tile: a 64-row half a consumer
+constexpr int kChunk = 64;           // channels of C in a dx w chunk: 128 bytes of bf16
+constexpr int kStages = 5;           // ring stages of both launches
+constexpr int kStepRows = 64;        // rows of a dw step
+constexpr int kDwCols = 128;         // channels of C a dw block owns
+constexpr int kPromote = 4;          // dw steps a tensor-core sum spans
+constexpr int kAtom = 64 * 64;       // a 64 x 64 bf16 atom (elements)
+constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may have
+constexpr int kBadArgs = static_cast<int>(cudaErrorInvalidValue);
+
+// Pool blocks that `window` consecutive rows starting at a multiple of
+// `window` can meet: the rows of a ring stage's asel / dpsel tables.
+__host__ __device__ constexpr int groups_met(int window, int pool) {
+  return (window - 1) / pool + 2;
+}
+
+// The per-channel scalars of dz: dz = dssum + 2 dssq T(z + bias) + sign
+// dpsel at the row asel of each pool block (see the note at the top).
+struct DzArgs {
+  const bf16* bias;
+  const float* sign;
+  const float* dssum;
+  const float* dssq;
+  int C;
+  int pool;
+};
+
+// (bias, sign, dssum, 2 dssq) of channel c, zeros past C.
+__device__ __forceinline__ float4 dz_scalars(const DzArgs& za, int c) {
+  if (c >= za.C) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(__bfloat162float(za.bias[c]), za.sign[c], za.dssum[c],
+                     2.f * za.dssq[c]);
+}
+
+// dz at one row (row `within` of its pool block) and two neighbouring
+// channels from their products z0, z1 (no bias yet), in the tile route's
+// arithmetic: z rounded to bf16 after the bias, fma(2 dssq, z, dssum), then
+// + sign dpsel at the pooled row. sel / dps: the stage's asel and dpsel
+// tables, `at` the entry of the row's pool block and the first channel.
+__device__ __forceinline__ float2 dz_pair(float z0, float z1, const float4& s0,
+                                          const float4& s1, const int* sel,
+                                          const float* dps, int at, int within) {
+  const float r0 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(z0, s0.x)));
+  const float r1 = __bfloat162float(__float2bfloat16_rn(__fadd_rn(z1, s1.x)));
+  float d0 = __fmaf_rn(s0.w, r0, s0.z);
+  float d1 = __fmaf_rn(s1.w, r1, s1.z);
+  const int2 k = *reinterpret_cast<const int2*>(sel + at);
+  if (k.x == within) d0 = __fadd_rn(d0, __fmul_rn(dps[at], s0.y));
+  if (k.y == within) d1 = __fadd_rn(d1, __fmul_rn(dps[at + 1], s1.y));
+  return make_float2(d0, d1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float2 v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);  // .x: the low half
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// z (64 rows x 64 channels, the warpgroup's fragment) = x_rows @ w_atom over
+// the depth Cin (CP / 16 steps): x's CP / 64 K-major atoms (`rows_off`
+// elements into each: the warpgroup's 64 rows), w's atom MN-major (Cin rows
+// of 128 bytes). Issues and commits one group.
+template <int CP, int XROWS>
+__device__ __forceinline__ void z_product(float (&z)[32], const bf16 (*x)[XROWS * 64],
+                                          int rows_off, const bf16* w) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CP / 16; ++kk) {
+    hopper::wgmma_m64n64k16<0, 1>(
+        z, hopper::desc_sw128(x[kk / 4] + rows_off + (kk % 4) * 16, 16, 1024),
+        hopper::desc_sw128(w + kk * 16 * 64, kAtom * 2, 1024), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// The fragment's rows (16 warp + lane / 4 and + 8 of a 64-row block): in
+// range, their rows within the pool block and the pool blocks' rows in the
+// stage's tables (pool block - g0, the first block of the stage's window).
+struct FragRows {
+  bool ok_a, ok_b;
+  int in_a, in_b, gl_a, gl_b;
+  __device__ FragRows(int64_t row_a, int64_t end, int pool, int64_t g0) {
+    const int64_t row_b = row_a + 8;
+    const int64_t grp_a = row_a / pool, grp_b = row_b / pool;
+    ok_a = row_a < end;
+    ok_b = row_b < end;
+    in_a = static_cast<int>(row_a - grp_a * pool);
+    in_b = static_cast<int>(row_b - grp_b * pool);
+    gl_a = static_cast<int>(grp_a - g0);
+    gl_b = static_cast<int>(grp_b - g0);
+  }
+};
+
+// Shared memory of a dx block: the struct (1024-aligned), then each ring
+// stage's asel and dpsel tables (ng pool blocks x 64 channels of 4 bytes
+// each, packed as TMA writes them) and the scalars of every channel of C.
+template <int CP>
+struct alignas(128) DxSmem {
+  bf16 x[2][CP / 64][kDxRows * 64];  // two slots of a tile's x: CP / 64 atoms
+  bf16 w[kStages][CP * 64];          // w chunks: Cin (to CP) rows x 64 channels
+  uint64_t x_full[2], x_empty[2], full[kStages], empty[kStages];
+};
+template <int CP>
+constexpr int dx_smem_bytes(int C, int pool) {
+  return 1024 + static_cast<int>(sizeof(DxSmem<CP>)) +
+         kStages * 2 * groups_met(kDxRows, pool) * kChunk * 4 + 16 * C;
+}
+
+// dx of a chunk of 128-row tiles: both consumers walk every w chunk, each on
+// its 64-row half. Per chunk: wait for its z, form dz (the A operand, two
+// buffers) while the last chunk's dx product runs, issue the next chunk's z
+// and this chunk's dx. A stage is released (by all 8 consumer warps) once
+// the dx product that read it is known done, two chunks on.
+template <int CP>
+__global__ void __launch_bounds__(kWgThreads, 1) dx_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+    const __grid_constant__ CUtensorMap map_sel, const __grid_constant__ CUtensorMap map_dps,
+    DzArgs za, bf16* __restrict__ dx, int64_t rows, int cin, int chunk_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hopper::align1024(smem_raw);
+  DxSmem<CP>& sm = *reinterpret_cast<DxSmem<CP>*>(base);
+  const int ng = groups_met(kDxRows, za.pool);
+  const int tab = ng * kChunk;  // entries of one table
+  int* tabs = reinterpret_cast<int*>(base + sizeof(DxSmem<CP>));  // [stage][sel, dps][tab]
+  float4* sc = reinterpret_cast<float4*>(tabs + kStages * 2 * tab);
+  const int C = za.C;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * chunk_rows;
+  const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
+  const int tiles = static_cast<int>((r_end - r_begin + kDxRows - 1) / kDxRows);
+  const int chunks = (C + kChunk - 1) / kChunk;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 1);
+      hopper::mbar_init(&sm.empty[i], 8);  // the 8 warps of both consumers
+    }
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&sm.x_full[i], 1);
+      hopper::mbar_init(&sm.x_empty[i], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  for (int c = threadIdx.x; c < C; c += kWgThreads) sc[c] = dz_scalars(za, c);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer
+    hopper::regs_release<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        const int slot = t & 1;
+        const int row0 = static_cast<int>(r_begin) + t * kDxRows;
+        const int g0 = row0 / za.pool;
+        hopper::mbar_wait(&sm.x_empty[slot], ((t >> 1) & 1) ^ 1);
+        hopper::mbar_expect_tx(&sm.x_full[slot], CP / 64 * kDxRows * 64 * 2);
+        for (int a = 0; a < CP / 64; ++a)
+          hopper::tma_load_2d(sm.x[slot][a], &map_x, &sm.x_full[slot], 64 * a, row0);
+        for (int ch = 0; ch < chunks; ++ch) {
+          hopper::mbar_wait(&sm.empty[stage], phase ^ 1);
+          hopper::mbar_expect_tx(&sm.full[stage], CP * 64 * 2 + 2 * tab * 4);
+          hopper::tma_load_2d(sm.w[stage], &map_w, &sm.full[stage], ch * kChunk, 0);
+          int* t2 = tabs + stage * 2 * tab;
+          hopper::tma_load_2d(t2, &map_sel, &sm.full[stage], ch * kChunk, g0);
+          hopper::tma_load_2d(t2 + tab, &map_dps, &sm.full[stage], ch * kChunk, g0);
+          if (++stage == kStages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  hopper::regs_claim<232>();  // 40 x 128 + 232 x 256 = the block's 168 x 384
+  const int g = threadIdx.x / kWg - 1;  // rows 64 g .. of each tile
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int rq = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  float z[32], acc[CP / 2];
+  uint32_t a[2][4][4];  // dz of a chunk, the A operand of its 4 depth slices
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[b][i][j] = 0u;
+  for (int t = 0; t < tiles; ++t) {
+    const int slot = t & 1;
+    const int64_t row0 = r_begin + static_cast<int64_t>(t) * kDxRows;
+    const int64_t row_a = row0 + 64 * g + rq;
+    const FragRows fr(row_a, r_end, za.pool, row0 / za.pool);
+    hopper::mbar_wait(&sm.x_full[slot], (t >> 1) & 1);
+#pragma unroll
+    for (int i = 0; i < CP / 2; ++i) acc[i] = 0.f;
+    const int pos0 = t * chunks;  // ring position of the tile's first chunk
+    hopper::mbar_wait(&sm.full[pos0 % kStages], (pos0 / kStages) & 1);
+    z_product<CP, kDxRows>(z, sm.x[slot], 64 * g * 64, sm.w[pos0 % kStages]);
+    // one chunk; P = ch % 2 picks the A operand's buffer at compile time
+    // (registers indexed at run time would live in local memory)
+    const auto chunk_step = [&](auto parity, int ch) {
+      constexpr int P = decltype(parity)::value;
+      const int pos = pos0 + ch, stage = pos % kStages;
+      // this chunk's z is done (and the dx product two chunks back); the
+      // last chunk's dx product may still run
+      if (ch == 0) {
+        hopper::wgmma_wait<0>();
+      } else {
+        hopper::wgmma_wait<1>();
+      }
+      hopper::fence_regs(z);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hopper::fence_regs(a[P][i]);
+      if (ch >= 2 && lane == 0) hopper::mbar_arrive(&sm.empty[(pos - 2) % kStages]);
+      const int* sel = tabs + stage * 2 * tab;
+      const float* dps = reinterpret_cast<const float*>(sel + tab);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cl = 8 * j + cq, col = ch * kChunk + cl;
+        float2 va = make_float2(0.f, 0.f), vb = va;
+        if (col < C) {  // C is a multiple of 8: both channels or neither
+          const float4 s0 = sc[col], s1 = sc[col + 1];
+          if (fr.ok_a)
+            va = dz_pair(z[4 * j], z[4 * j + 1], s0, s1, sel, dps, fr.gl_a * kChunk + cl,
+                         fr.in_a);
+          if (fr.ok_b)
+            vb = dz_pair(z[4 * j + 2], z[4 * j + 3], s0, s1, sel, dps,
+                         fr.gl_b * kChunk + cl, fr.in_b);
+        }
+        a[P][j / 2][(j % 2) * 2] = pack_bf16(va);
+        a[P][j / 2][(j % 2) * 2 + 1] = pack_bf16(vb);
+      }
+      if (ch + 1 < chunks) {  // the next chunk's z, then this chunk's dx
+        const int next = (pos + 1) % kStages;
+        hopper::mbar_wait(&sm.full[next], ((pos + 1) / kStages) & 1);
+        z_product<CP, kDxRows>(z, sm.x[slot], 64 * g * 64, sm.w[next]);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::wgmma_m64nNk16_rs<CP, 0>(
+            acc, a[P][kk], hopper::desc_sw128(sm.w[stage] + kk * 16, 16, 1024), 1);
+      }
+      hopper::wgmma_commit();
+    };
+    for (int ch = 0; ch < chunks; ch += 2) {
+      chunk_step(std::integral_constant<int, 0>{}, ch);
+      if (ch + 1 < chunks) chunk_step(std::integral_constant<int, 1>{}, ch + 1);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hopper::fence_regs(a[b][i]);
+    if (lane == 0) {
+      const int last = pos0 + chunks - 1;
+      if (chunks >= 2) hopper::mbar_arrive(&sm.empty[(last - 1) % kStages]);
+      hopper::mbar_arrive(&sm.empty[last % kStages]);
+      hopper::mbar_arrive(&sm.x_empty[slot]);
+    }
+#pragma unroll
+    for (int j = 0; j < CP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < cin) {
+        if (fr.ok_a)
+          *reinterpret_cast<uint32_t*>(dx + row_a * cin + col) =
+              pack_bf16(make_float2(acc[4 * j], acc[4 * j + 1]));
+        if (fr.ok_b)
+          *reinterpret_cast<uint32_t*>(dx + (row_a + 8) * cin + col) =
+              pack_bf16(make_float2(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+    }
+  }
+}
+
+// Shared memory of a dw block: the struct, then each ring stage's asel and
+// dpsel tables (ng pool blocks x the block's 128 channels).
+template <int CP>
+struct alignas(128) DwSmem {
+  bf16 x[kStages][CP / 64][kStepRows * 64];  // x steps: CP / 64 atoms of 64 rows
+  bf16 w[2][CP * 64];                        // the block's w: two 64-channel atoms
+  bf16 dz[2][2][kStepRows * 64];             // [step parity][atom]: 64 rows x 64, MN-major
+  float4 sc[kDwCols];                        // (bias, sign, dssum, 2 dssq)
+  float red[2][4][64];                       // db: [consumer][warp][channel]
+  uint64_t full[kStages], empty[kStages], w_full;
+};
+template <int CP>
+constexpr int dw_smem_bytes(int pool) {
+  return 1024 + static_cast<int>(sizeof(DwSmem<CP>)) +
+         kStages * 2 * groups_met(kStepRows, pool) * kDwCols * 4;
+}
+
+// dw and db partials of a chunk of rows for 128 channels of C (c0..): the
+// consumer g owns the 64 channels c0 + 64 g .. (an atom); per step it forms
+// their z and dz, writes dz to shared memory (MN-major, swizzled, two
+// buffers) and adds dw^T (its 64 channels x Cin) += dz^T @ x (both operands
+// MN-major): each consumer reads only its own dz, so the two meet at no
+// barrier. Per step: wait for its z (the last step's dw product may still
+// run), form dz, issue the next step's z, then this step's dw. Each kPromote
+// steps the dw sums are waited for and added into fp32 registers. A consumer
+// whose atom lies past C only releases the stages.
+template <int CP>
+__global__ void __launch_bounds__(kWgThreads, 1) dw_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+    const __grid_constant__ CUtensorMap map_sel, const __grid_constant__ CUtensorMap map_dps,
+    DzArgs za, float* __restrict__ dw_part, float* __restrict__ db_part, int64_t rows,
+    int cin, int chunk_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = hopper::align1024(smem_raw);
+  DwSmem<CP>& sm = *reinterpret_cast<DwSmem<CP>*>(base);
+  const int ng = groups_met(kStepRows, za.pool);
+  const int tab = ng * kDwCols;
+  int* tabs = reinterpret_cast<int*>(base + sizeof(DwSmem<CP>));  // [stage][sel, dps][tab]
+  const int C = za.C;
+  const int c0 = blockIdx.x * kDwCols;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.y) * chunk_rows;
+  const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
+  const int steps = static_cast<int>((r_end - r_begin + kStepRows - 1) / kStepRows);
+  const int c_atoms = min(2, (C - c0 + 63) / 64);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 1);
+      hopper::mbar_init(&sm.empty[i], 8);
+    }
+    hopper::mbar_init(&sm.w_full, 1);
+    hopper::fence_barrier_init();
+  }
+  for (int c = threadIdx.x; c < kDwCols; c += kWgThreads) sm.sc[c] = dz_scalars(za, c0 + c);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {  // producer
+    hopper::regs_release<40>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&sm.w_full, c_atoms * CP * 64 * 2);
+      for (int a = 0; a < c_atoms; ++a)
+        hopper::tma_load_2d(sm.w[a], &map_w, &sm.w_full, c0 + 64 * a, 0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < steps; ++s) {
+        const int row = static_cast<int>(r_begin) + s * kStepRows;
+        hopper::mbar_wait(&sm.empty[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&sm.full[stage], CP / 64 * kAtom * 2 + 2 * tab * 4);
+        for (int a = 0; a < CP / 64; ++a)
+          hopper::tma_load_2d(sm.x[stage][a], &map_x, &sm.full[stage], 64 * a, row);
+        int* t2 = tabs + stage * 2 * tab;
+        hopper::tma_load_2d(t2, &map_sel, &sm.full[stage], c0, row / za.pool);
+        hopper::tma_load_2d(t2 + tab, &map_dps, &sm.full[stage], c0, row / za.pool);
+        if (++stage == kStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hopper::regs_claim<232>();
+  const int g = threadIdx.x / kWg - 1;
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int rq = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  if (g >= c_atoms) {  // no channel of C: release the stages as they come
+    for (int s = 0; s < steps; ++s) {
+      hopper::mbar_wait(&sm.full[s % kStages], (s / kStages) & 1);
+      if (lane == 0) hopper::mbar_arrive(&sm.empty[s % kStages]);
+    }
+    return;
+  }
+  hopper::mbar_wait(&sm.w_full, 0);
+  float z[32], d[CP / 2], acc[CP / 2], db[16];
+#pragma unroll
+  for (int i = 0; i < CP / 2; ++i) d[i] = acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) db[i] = 0.f;
+  hopper::mbar_wait(&sm.full[0], 0);
+  z_product<CP, kStepRows>(z, sm.x[0], 0, sm.w[g]);
+  for (int s = 0; s < steps; ++s) {
+    const int stage = s % kStages;
+    // this step's z is done (and the dw product two steps back); the last
+    // step's dw product may still run, but not across a promotion
+    const bool promote = s > 0 && (s - 1) % kPromote == kPromote - 1;
+    if (s == 0 || promote) {
+      hopper::wgmma_wait<0>();
+    } else {
+      hopper::wgmma_wait<1>();
+    }
+    hopper::fence_regs(z);
+    hopper::fence_regs(d);
+    if (promote) {
+#pragma unroll
+      for (int i = 0; i < CP / 2; ++i) acc[i] += d[i];
+    }
+    if (s >= 2 && lane == 0) hopper::mbar_arrive(&sm.empty[(s - 2) % kStages]);
+    const int64_t row0 = r_begin + static_cast<int64_t>(s) * kStepRows;
+    const FragRows fr(row0 + rq, r_end, za.pool, row0 / za.pool);
+    const int* sel = tabs + stage * 2 * tab;
+    const float* dps = reinterpret_cast<const float*>(sel + tab);
+    bf16* dzt = sm.dz[s & 1][g];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 64 * g + 8 * j + cq;
+      float2 va = make_float2(0.f, 0.f), vb = va;
+      if (c0 + cl < C) {
+        const float4 s0 = sm.sc[cl], s1 = sm.sc[cl + 1];
+        if (fr.ok_a)
+          va = dz_pair(z[4 * j], z[4 * j + 1], s0, s1, sel, dps, fr.gl_a * kDwCols + cl,
+                       fr.in_a);
+        if (fr.ok_b)
+          vb = dz_pair(z[4 * j + 2], z[4 * j + 3], s0, s1, sel, dps, fr.gl_b * kDwCols + cl,
+                       fr.in_b);
+      }
+      db[2 * j] += va.x;
+      db[2 * j] += vb.x;
+      db[2 * j + 1] += va.y;
+      db[2 * j + 1] += vb.y;
+      // (row, channel) of an MN-major swizzled atom: 128-byte rows, 16-byte
+      // chunk j of row r at chunk j ^ (r % 8); rows rq and rq + 8 share it
+      const int at = (j ^ (rq & 7)) * 8 + cq;
+      *reinterpret_cast<uint32_t*>(dzt + rq * 64 + at) = pack_bf16(va);
+      *reinterpret_cast<uint32_t*>(dzt + (rq + 8) * 64 + at) = pack_bf16(vb);
+    }
+    hopper::fence_proxy_async();
+    if (s + 1 < steps) {  // the next step's z runs while this step's dw is issued
+      const int next = (s + 1) % kStages;
+      hopper::mbar_wait(&sm.full[next], ((s + 1) / kStages) & 1);
+      z_product<CP, kStepRows>(z, sm.x[next], 0, sm.w[g]);
+    }
+    hopper::named_sync(2 + g, kWg);  // the consumer's dz written
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStepRows / 16; ++kk) {
+      hopper::wgmma_m64nNk16<CP, 1, 1>(
+          d, hopper::desc_sw128(dzt + kk * 16 * 64, kAtom * 2, 1024),
+          hopper::desc_sw128(sm.x[stage][0] + kk * 16 * 64, kAtom * 2, 1024),
+          kk > 0 || s % kPromote != 0);
+    }
+    hopper::wgmma_commit();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(d);
+  if (steps > 0) {
+#pragma unroll
+    for (int i = 0; i < CP / 2; ++i) acc[i] += d[i];
+  }
+  // dw^T's fragment: rows are channels of C, columns channels of Cin
+  const int64_t chunk = blockIdx.y;
+  float* out = dw_part + chunk * cin * C;
+#pragma unroll
+  for (int j = 0; j < CP / 8; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + 64 * g + rq + 8 * (q >> 1), i = 8 * j + cq + (q & 1);
+      if (i < cin && c < C) out[static_cast<int64_t>(i) * C + c] = acc[4 * j + q];
+    }
+  }
+  // db: the 8 lanes of a channel pair, then the 4 warps, in a fixed order
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) db[i] += __shfl_xor_sync(0xffffffffu, db[i], off);
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sm.red[g][warp][8 * j + cq] = db[2 * j];
+      sm.red[g][warp][8 * j + cq + 1] = db[2 * j + 1];
+    }
+  }
+  hopper::named_sync(2 + g, kWg);
+  if (tid < 64 && c0 + 64 * g + tid < C) {
+    const float* r = &sm.red[g][0][tid];
+    db_part[chunk * C + c0 + 64 * g + tid] = ((r[0] + r[64]) + r[128]) + r[192];
+  }
+}
+
+bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) != 0; }
+
+template <int CP>
+int backward_wgmma(const bf16* x, const bf16* w, const int* asel, const float* dpsel,
+                   const DzArgs& za, bf16* dx, float* dw, float* db, float* dw_part,
+                   float* db_part, int64_t rows, int cin, int dx_chunk_rows,
+                   int dw_chunk_rows, cudaStream_t s) {
+  const int C = za.C;
+  const int64_t groups = rows / za.pool;
+  if (dx_chunk_rows % kDxRows != 0 || dw_chunk_rows % kStepRows != 0 ||
+      dx_chunk_rows < 1 || dw_chunk_rows < 1 || rows % za.pool != 0 || misaligned(x) ||
+      misaligned(w) || misaligned(asel) || misaligned(dpsel) ||
+      dx_smem_bytes<CP>(C, za.pool) > kSmemLimit || dw_smem_bytes<CP>(za.pool) > kSmemLimit)
+    return kBadArgs;
+  CUtensorMap map_w;
+  if (!hopper::bf16_map(&map_w, w, C, cin, C, 64, CP)) return kBadArgs;
+  // dx: one block a chunk of 128-row tiles
+  const int dx_ng = groups_met(kDxRows, za.pool);
+  CUtensorMap dx_x, dx_sel, dx_dps;
+  if (!hopper::bf16_map(&dx_x, x, cin, rows, cin, 64, kDxRows) ||
+      !hopper::b32_map(&dx_sel, asel, C, groups, C, kChunk, dx_ng) ||
+      !hopper::b32_map(&dx_dps, dpsel, C, groups, C, kChunk, dx_ng))
+    return kBadArgs;
+  const void* dx_kernel = reinterpret_cast<const void*>(&dx_wgmma_kernel<CP>);
+  const int dx_smem = dx_smem_bytes<CP>(C, za.pool);
+  cudaError_t err =
+      cudaFuncSetAttribute(dx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned dx_chunks = static_cast<unsigned>((rows + dx_chunk_rows - 1) / dx_chunk_rows);
+  dx_wgmma_kernel<CP><<<dx_chunks, kWgThreads, dx_smem, s>>>(dx_x, map_w, dx_sel, dx_dps, za,
+                                                             dx, rows, cin, dx_chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // dw and db: a block 128 channels of C over a split-K chunk, the chunks'
+  // partials summed in order
+  const int dw_ng = groups_met(kStepRows, za.pool);
+  CUtensorMap dw_x, dw_sel, dw_dps;
+  if (!hopper::bf16_map(&dw_x, x, cin, rows, cin, 64, kStepRows) ||
+      !hopper::b32_map(&dw_sel, asel, C, groups, C, kDwCols, dw_ng) ||
+      !hopper::b32_map(&dw_dps, dpsel, C, groups, C, kDwCols, dw_ng))
+    return kBadArgs;
+  const void* dw_kernel = reinterpret_cast<const void*>(&dw_wgmma_kernel<CP>);
+  const int dw_smem = dw_smem_bytes<CP>(za.pool);
+  err = cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = static_cast<int>((rows + dw_chunk_rows - 1) / dw_chunk_rows);
+  dw_wgmma_kernel<CP><<<dim3((C + kDwCols - 1) / kDwCols, chunks), kWgThreads, dw_smem, s>>>(
+      dw_x, map_w, dw_sel, dw_dps, za, dw_part, db_part, rows, cin, dw_chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  colsum_kernel<<<blocks_for(static_cast<int64_t>(cin) * C), kThreads, 0, s>>>(
+      dw_part, dw, chunks, static_cast<int64_t>(cin) * C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  colsum_kernel<<<blocks_for(C), kThreads, 0, s>>>(db_part, db, chunks, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return 0;
 }
 
 }  // namespace
@@ -475,9 +1049,9 @@ int backward(const T* x, const T* w, const T* bias, const float* sign,
 // Plain C entry points for ctypes. Device pointers of contiguous tensors;
 // is_bf16 picks T (bf16 when 1, fp32 when 0). Forward scratch: keys
 // (rows / pool * C) uint64 and part (n_chunks, 2, C) fp32; stats (2, C) fp32
-// receives ssum then ssq. Backward scratch: dw_part (n_chunks, Cin, C) and
-// db_part (n_chunks, C) fp32. Each returns the CUDA error of its launches
-// (0 on success); the caller checked shapes and bounds.
+// receives ssum then ssq. Each returns the CUDA error of its launches (0 on
+// success; cudaErrorInvalidValue for a geometry its route does not take);
+// the caller checked shapes and bounds.
 extern "C" int dense_pool_stats_fwd_launch(
     const void* x, const void* w, const void* bias, const float* sign,
     const float* pen, void* psel, int* asel, float* stats, void* keys,
@@ -497,21 +1071,44 @@ extern "C" int dense_pool_stats_fwd_launch(
                         cin, c, pool, chunk_rows, s);
 }
 
+// The backward. route 0 (tile): T from is_bf16, dw partials over chunks of
+// dw_chunk_rows rows (a multiple of 32). route 1 (TMA + wgmma, bf16 only):
+// Cin <= 128 and C multiples of 8, cin_pad = 64 for Cin <= 64 else 128,
+// dx_chunk_rows a multiple of 128 and dw_chunk_rows of 64, x and w 16-byte
+// aligned, asel and dpsel 16-byte aligned, shared memory within the card's
+// at this pool (ops/dense_bn_pool.py pool_bwd_plan). Scratch: dw_part (ceil(rows /
+// dw_chunk_rows), Cin, C) and db_part (that many, C) fp32.
 extern "C" int dense_pool_stats_bwd_launch(
     const void* x, const void* w, const void* bias, const float* sign,
     const int* asel, const float* dpsel, const float* dssum, const float* dssq,
     void* dx, float* dw, float* db, float* dw_part, float* db_part,
-    long long rows, int cin, int c, int pool, int chunk_rows, int is_bf16,
-    void* stream) {
+    long long rows, int cin, int c, int pool, int route, int cin_pad,
+    int dx_chunk_rows, int dw_chunk_rows, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || cin < 1 || c < 1 || pool < 1) return kBadArgs;
+  if (route == 1) {
+    if (!is_bf16 || cin % 8 != 0 || c % 8 != 0 || cin > 128 ||
+        cin_pad != (cin <= 64 ? 64 : 128))
+      return kBadArgs;
+    const DzArgs za{static_cast<const bf16*>(bias), sign, dssum, dssq, c, pool};
+    const auto* xb = static_cast<const bf16*>(x);
+    const auto* wb = static_cast<const bf16*>(w);
+    auto* dxb = static_cast<bf16*>(dx);
+    return cin_pad == 64
+               ? backward_wgmma<64>(xb, wb, asel, dpsel, za, dxb, dw, db, dw_part, db_part,
+                                    rows, cin, dx_chunk_rows, dw_chunk_rows, s)
+               : backward_wgmma<128>(xb, wb, asel, dpsel, za, dxb, dw, db, dw_part,
+                                     db_part, rows, cin, dx_chunk_rows, dw_chunk_rows, s);
+  }
+  if (route != 0 || dw_chunk_rows < 1 || dw_chunk_rows % KC != 0) return kBadArgs;
   if (is_bf16) {
     return backward<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                           static_cast<const bf16*>(bias), sign, asel, dpsel,
                           dssum, dssq, static_cast<bf16*>(dx), dw, db, dw_part,
-                          db_part, rows, cin, c, pool, chunk_rows, s);
+                          db_part, rows, cin, c, pool, dw_chunk_rows, s);
   }
   return backward<float>(static_cast<const float*>(x), static_cast<const float*>(w),
                          static_cast<const float*>(bias), sign, asel, dpsel,
                          dssum, dssq, static_cast<float*>(dx), dw, db, dw_part,
-                         db_part, rows, cin, c, pool, chunk_rows, s);
+                         db_part, rows, cin, c, pool, dw_chunk_rows, s);
 }

@@ -24,6 +24,7 @@ from pointcloud_tpu_torch.ops.dense_bn_pool import (  # noqa: F401
     dense_pool_stats,
     dense_pool_stats_bwd,
     dense_pool_stats_reference,
+    pool_bwd_plan,
 )
 from pointcloud_tpu_torch.ops.emd import (  # noqa: F401
     auction_match,
@@ -33,6 +34,7 @@ from pointcloud_tpu_torch.ops.emd import (  # noqa: F401
 from pointcloud_tpu_torch.ops.fps import (  # noqa: F401
     farthest_point_sample,
     farthest_point_sample_xyz,
+    fps_plan,
     fps_reference,
 )
 from pointcloud_tpu_torch.ops.geometry import (  # noqa: F401

@@ -10,22 +10,113 @@ max-pool, so the kernels never store it (nor its gradient) in device memory.
 `dense_pool_stats` takes the plain version `dense_pool_stats_reference`
 (gradients from autograd) only for CPU tensors; for CUDA tensors it runs the
 forward kernel, and its backward runs `dense_pool_stats_bwd`, the backward
-kernel.
+kernels, on the route `pool_bwd_plan` picks from the shape and dtype.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from pointcloud_tpu_torch.ops import _build
+from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT, SMS, sm_count, split
 
 _FWD_CHUNK_ROWS = 512  # rows a forward block owns (csrc/dense_bn_pool.cu)
-_DW_CHUNKS = 64  # at most this many row chunks of dw partials
+_DW_CHUNKS = 64  # at most this many row chunks of dw partials (tile route)
 _TILE_ROWS = 64
-_MAX_ROWS = 65535 * _TILE_ROWS  # gridDim.y of the dx launch
+_MAX_ROWS = 65535 * _TILE_ROWS  # gridDim.y of the tile route's dx launch
+_DX_TILE = 128  # rows of a wgmma dx tile (a 64-row half each consumer)
+_DW_STEP = 64  # rows of a wgmma dw step: the split-K granule
+_DW_COLS = 128  # channels of C a wgmma dw block owns
+_STAGES = 5  # ring stages of the wgmma launches (csrc kStages)
+_WG_MAX_CIN = 128  # widest Cin the wgmma route takes (one accumulator tile)
+_ROUTES = ("tile", "wgmma")  # csrc/dense_bn_pool.cu route codes
+
+
+class PoolBwdPlan(NamedTuple):
+    """Route and launch geometry of one `dense_pool_stats_bwd` call."""
+    rows: int
+    cin: int
+    c: int
+    pool: int
+    route: str  # "wgmma" (TMA + wgmma, bf16) or "tile" (tile_mma.cuh)
+    cin_pad: int  # wgmma: Cin rounded up to 64 or 128 (the dx tile's width)
+    dx_chunk_rows: int  # rows a dx block walks (wgmma: whole 128-row tiles)
+    dx_chunks: int
+    dw_chunk_rows: int  # rows of a dw block's split-K chunk
+    dw_chunks: int
+    dx_smem: int  # wgmma: dynamic shared memory of a dx block, bytes
+    dw_smem: int  # of a dw block
+
+
+def _groups_met(window: int, pool: int) -> int:
+    """Pool blocks that `window` rows from a multiple of `window` can meet:
+    the rows of a ring stage's asel and dpsel tables."""
+    return (window - 1) // pool + 2
+
+
+def _dx_smem(cin_pad: int, c: int, pool: int) -> int:
+    """csrc/dense_bn_pool.cu dx_smem_bytes: 1024 bytes of alignment slack;
+    the struct (two slots of a 128-row x tile, _STAGES w chunks of cin_pad x
+    64 bf16, 2 x 2 + 2 x _STAGES mbarriers; padded to 128 bytes); each
+    stage's asel and dpsel tables (pool blocks met by 128 rows x 64 channels,
+    4 bytes each); (bias, sign, dssum, 2 dssq) of every channel of C."""
+    struct = 2 * _DX_TILE * cin_pad * 2 + _STAGES * cin_pad * 64 * 2 + (4 + 2 * _STAGES) * 8
+    return (1024 + -(-struct // 128) * 128
+            + _STAGES * 2 * _groups_met(_DX_TILE, pool) * 64 * 4 + 16 * c)
+
+
+def _dw_smem(cin_pad: int, pool: int) -> int:
+    """dw_smem_bytes: slack; the struct (_STAGES steps of 64 x cin_pad bf16,
+    the block's w (two 64-channel atoms of cin_pad rows), dz (2 buffers x 2
+    atoms of 64 x 64 bf16), the 128 channels' scalars, the db reduction
+    (2 x 4 x 64 fp32), 2 _STAGES + 1 mbarriers; padded to 128 bytes); each
+    stage's asel and dpsel tables (pool blocks met by 64 rows x 128
+    channels)."""
+    struct = (_STAGES * _DW_STEP * cin_pad * 2 + 2 * cin_pad * 64 * 2 + 2 * 2 * 64 * 64 * 2
+              + 16 * _DW_COLS + 4 * 2 * 4 * 64 + (2 * _STAGES + 1) * 8)
+    return (1024 + -(-struct // 128) * 128
+            + _STAGES * 2 * _groups_met(_DW_STEP, pool) * _DW_COLS * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def pool_bwd_plan(rows: int, cin: int, c: int, bf16: bool, pool: int,
+                  sms: int = SMS) -> PoolBwdPlan:
+    """The backward kernels' route and geometry for rows x (Cin -> C) in
+    pool blocks of `pool` rows.
+
+    bf16 with Cin <= 128 and Cin, C multiples of 8 (TMA reads 16-byte rows)
+    whose shared memory fits the card at this pool (each ring stage carries
+    the asel and dpsel of the pool blocks its rows meet: at PointNet's
+    widths pools from 6 rows; every driven shape: PointNet's 128 -> 1024 at
+    2048, the MSG branches' 32-128 -> 64-256 at 16-128) takes TMA + wgmma:
+    dx blocks walk chunks of 128-row tiles, dw blocks own 128 channels of C
+    over split-K chunks of 64-row steps, each launch in whole waves of one
+    block an SM (`split`). fp32 (the card-vs-CPU checks), ragged widths,
+    Cin > 128 and small pools take the tile route (64 x 128 tiles of
+    tile_mma.cuh, at most _DW_CHUNKS dw chunks). Shapes no route takes (rows
+    past the tile route's grid, empty widths, a pool that does not divide
+    the rows) raise ValueError."""
+    if not (1 <= rows <= _MAX_ROWS and cin >= 1 and c >= 1 and pool >= 1
+            and rows % pool == 0):
+        raise ValueError(f"dense_pool_stats kernel bounds exceeded: rows={rows} "
+                         f"Cin={cin} C={c} pool={pool}")
+    cin_pad = 64 if cin <= 64 else 128
+    if bf16 and cin % 8 == 0 and c % 8 == 0 and cin <= _WG_MAX_CIN \
+            and _dx_smem(cin_pad, c, pool) <= SMEM_LIMIT \
+            and _dw_smem(cin_pad, pool) <= SMEM_LIMIT:
+        dx_chunk, dx_chunks = split(rows, _DX_TILE, 1, sms)
+        dw_chunk, dw_chunks = split(rows, _DW_STEP, -(-c // _DW_COLS), sms)
+        return PoolBwdPlan(rows, cin, c, pool, "wgmma", cin_pad, dx_chunk, dx_chunks,
+                           dw_chunk, dw_chunks, _dx_smem(cin_pad, c, pool),
+                           _dw_smem(cin_pad, pool))
+    per = -(-rows // _DW_CHUNKS)
+    chunk = -(-per // _TILE_ROWS) * _TILE_ROWS
+    return PoolBwdPlan(rows, cin, c, pool, "tile", 0, _TILE_ROWS, -(-rows // _TILE_ROWS),
+                       chunk, -(-rows // chunk), 0, 0)
 
 
 def dense_pool_stats_reference(x, w, bias, sign, pen, pool: int):
@@ -93,19 +184,13 @@ def _launchers():
     fwd.restype = ctypes.c_int
     bwd = lib.dense_pool_stats_bwd_launch
     bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
-
-
-def _dw_chunk_rows(rows: int) -> int:
-    """Rows per dw block: whole 64-row tiles, at most _DW_CHUNKS chunks."""
-    per = -(-rows // _DW_CHUNKS)
-    return -(-per // _TILE_ROWS) * _TILE_ROWS
 
 
 def _forward_kernel(x, w, bias, sign, pen, pool):
@@ -134,12 +219,12 @@ def _forward_kernel(x, w, bias, sign, pen, pool):
 
 
 def dense_pool_stats_bwd(x, w, bias, sign, asel, dpsel, dssum, dssq, pool: int):
-    """The backward kernel of `dense_pool_stats` on CUDA tensors: rebuilds
+    """The backward kernels of `dense_pool_stats` on CUDA tensors: rebuild
     dz = dssum + 2 dssq z + sign * sparse(asel, dpsel) from the same rounded
-    z, casts it to x.dtype, and returns (dx in x.dtype, dw (Cin, C) fp32,
-    db (C,) fp32). Takes what the forward kernel takes plus asel (B, R/pool,
-    C) int32 and fp32 cotangents; anything else raises.
-    `dense_pool_stats_bwd.launches` counts its launches."""
+    z, cast it to x.dtype, and return (dx in x.dtype, dw (Cin, C) fp32,
+    db (C,) fp32), on `pool_bwd_plan`'s route. Takes what the forward kernel
+    takes plus asel (B, R/pool, C) int32 and fp32 cotangents; anything else
+    raises. `dense_pool_stats_bwd.launches` counts its calls."""
     device = _check(x, w, bias, sign, None, pool)
     if device.type != "cuda":
         raise ValueError("dense_pool_stats_bwd is the CUDA kernel; CPU tensors "
@@ -159,25 +244,26 @@ def dense_pool_stats_bwd(x, w, bias, sign, asel, dpsel, dssum, dssq, pool: int):
             or {t.device for t in (asel, dpsel, dssum, dssq)} != {device}:
         raise ValueError("dense_pool_stats_bwd takes contiguous tensors on x's device")
     rows = B * R
-    chunk = _dw_chunk_rows(rows)
-    n_chunks = -(-rows // chunk)
+    plan = pool_bwd_plan(rows, Cin, C, x.dtype == torch.bfloat16, pool,
+                         sm_count(device.index))
     dx = torch.empty_like(x)
     dw = torch.empty((Cin, C), dtype=torch.float32, device=device)
     db = torch.empty((C,), dtype=torch.float32, device=device)
-    dw_part = torch.empty((n_chunks, Cin, C), dtype=torch.float32, device=device)
-    db_part = torch.empty((n_chunks, C), dtype=torch.float32, device=device)
+    dw_part = torch.empty((plan.dw_chunks, Cin, C), dtype=torch.float32, device=device)
+    db_part = torch.empty((plan.dw_chunks, C), dtype=torch.float32, device=device)
     _, bwd = _launchers()
     with torch.cuda.device(device):
         err = bwd(
             _ptr(x), _ptr(w), _ptr(bias), _ptr(sign), _ptr(asel), _ptr(dpsel),
             _ptr(dssum), _ptr(dssq), _ptr(dx), _ptr(dw), _ptr(db),
-            _ptr(dw_part), _ptr(db_part), rows, Cin, C, pool, chunk,
-            int(x.dtype == torch.bfloat16),
+            _ptr(dw_part), _ptr(db_part), rows, Cin, C, pool,
+            _ROUTES.index(plan.route), plan.cin_pad, plan.dx_chunk_rows,
+            plan.dw_chunk_rows, int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(
-            f"dense_pool_stats_bwd kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dense_pool_stats_bwd kernel launch failed on the "
+                           f"{plan.route} route: CUDA error {err}")
     dense_pool_stats_bwd.launches += 1
     return dx, dw, db
 

@@ -10,9 +10,10 @@ on ties; a cloud with fewer valid points than `npoint` repeats valid points.
 A cloud with no valid point gives index 0 in every slot (the TPU kernel
 writes N, out of range, in slot 0).
 
-The kernel is csrc/fps.cu; its note states the design and the bound.
-`farthest_point_sample` launches it for CUDA tensors and takes the plain
-version `fps_reference` only for CPU tensors.
+The kernels are csrc/fps.cu; its note states the design and the bound.
+`farthest_point_sample` launches one for CUDA tensors, on the route
+`fps_plan` picks from the shape alone, and takes the plain version
+`fps_reference` only for CPU tensors.
 
 FPS is chaotic: one flipped near-tie changes every later index. Both
 versions compute the squared distance as separate rounded operations in the
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +32,48 @@ from pointcloud_tpu_torch.ops import _build
 from pointcloud_tpu_torch.ops.geometry import index_points
 
 _MAX_POINTS = 1 << 29  # N and the scratch's 4N floats stay C ints
+_BLOCK_POINTS = 12_288  # a block's points: the block route's shared memory
+_CLUSTER_THREADS = 512  # (csrc/fps.cu kClusterThreads x kSlots = _BLOCK_POINTS)
+_CLUSTER_MAX = 16  # blocks of a cluster (a non-portable size above 8)
+_ROUTES = ("block", "cluster", "scratch")  # csrc/fps.cu kRoute*
+
+
+class FpsPlan(NamedTuple):
+    """The route and launch geometry of one `farthest_point_sample` call."""
+    route: str  # "block", "cluster" or "scratch"
+    threads: int  # threads of a block
+    cluster: int  # blocks a cloud (1 but on the cluster route)
+    per_block: int  # points a block owns
+    smem: int  # dynamic shared memory of a block, bytes
+    scratch_floats: int  # floats of global scratch a cloud (scratch route)
+
+
+@functools.lru_cache(maxsize=256)
+def fps_plan(B: int, N: int) -> FpsPlan:
+    """The kernel route for B clouds of N points (csrc/fps.cu):
+
+    - block (N <= 12,288): one block per cloud, (x, y, z, mind) in shared
+      memory, 1024 threads above 4096 points, else 256; many clouds fill
+      the card (PointNet2's levels, the MSG levels, `encode`);
+    - cluster (N <= 16 x 12,288 = 196,608, the sensor's cloud): one cloud
+      over a thread block cluster of ceil(N / 12,288) blocks of 512 threads,
+      the points split evenly, each block's slice in registers (24 points a
+      thread) and its coordinates in shared memory (12 bytes a point);
+    - scratch (larger N): one block per cloud over an L2-resident global
+      scratch of 16 bytes a point.
+
+    Shapes no route takes (B < 1, N < 1, N >= 2^29) raise ValueError. The
+    choice depends on the shape alone; a launch the card refuses raises and
+    never falls through to another route."""
+    if not (B >= 1 and 1 <= N < _MAX_POINTS):
+        raise ValueError(f"farthest_point_sample kernel bounds exceeded: B={B} N={N}")
+    if N <= _BLOCK_POINTS:
+        return FpsPlan("block", 1024 if N > 4096 else 256, 1, N, 16 * N, 0)
+    if N <= _CLUSTER_MAX * _BLOCK_POINTS:
+        cl = -(-N // _BLOCK_POINTS)
+        per = -(-N // cl)
+        return FpsPlan("cluster", _CLUSTER_THREADS, cl, per, 12 * per, 0)
+    return FpsPlan("scratch", 1024, 1, N, 0, 4 * N)
 
 
 def _first_valid(valid):
@@ -68,10 +112,8 @@ def fps_reference(xyz, npoint: int, mask=None):
 def _library():
     lib = _build.load("fps")
     lib.fps_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
+                               + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
     lib.fps_launch.restype = ctypes.c_int
-    lib.fps_scratch_floats.argtypes = [ctypes.c_int]
-    lib.fps_scratch_floats.restype = ctypes.c_int
     return lib
 
 
@@ -80,8 +122,9 @@ def farthest_point_sample(xyz, npoint: int, mask=None):
 
     xyz (B, N, C >= 3), mask (B, N) bool (True = valid) or None. Returns
     int32 (B, npoint). CPU tensors take the plain version. CUDA tensors
-    launch the kernel, which takes contiguous fp32 clouds; anything else
-    raises. `farthest_point_sample.launches` counts the kernel's launches.
+    launch the kernel on `fps_plan(B, N)`'s route, which takes contiguous
+    fp32 clouds; anything else raises. `farthest_point_sample.launches`
+    counts the kernel's launches.
     """
     if xyz.dim() != 3 or xyz.shape[2] < 3:
         raise ValueError(f"farthest_point_sample takes xyz (B, N, C >= 3); "
@@ -106,26 +149,22 @@ def farthest_point_sample(xyz, npoint: int, mask=None):
         raise TypeError(f"farthest_point_sample kernel takes fp32; got {xyz.dtype}")
     if not all(t.is_contiguous() for t in (xyz, mask) if t is not None):
         raise ValueError("farthest_point_sample kernel takes contiguous tensors")
-    if not (B >= 1 and 1 <= N < _MAX_POINTS):
-        raise ValueError(f"farthest_point_sample kernel bounds exceeded: "
-                         f"B={B} N={N} C={C}")
+    plan = fps_plan(B, N)
 
     out = torch.empty((B, npoint), dtype=torch.int32, device=device)
     lib = _library()
-    # (x, y, z, mind) of each point lives in shared memory when the cloud
-    # fits, else in this scratch
-    floats = lib.fps_scratch_floats(N)
-    work = (torch.empty((B, floats), dtype=torch.float32, device=device)
-            if floats else None)
+    work = (torch.empty((B, plan.scratch_floats), dtype=torch.float32, device=device)
+            if plan.scratch_floats else None)
     with torch.cuda.device(device):
         err = lib.fps_launch(
             xyz.data_ptr(), C, None if mask is None else mask.data_ptr(),
-            B, N, npoint, None if work is None else work.data_ptr(),
+            B, N, npoint, _ROUTES.index(plan.route), plan.threads, plan.cluster,
+            plan.per_block, None if work is None else work.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"farthest_point_sample kernel launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"farthest_point_sample kernel launch failed on the "
+                           f"{plan.route} route: CUDA error {err}")
     farthest_point_sample.launches += 1
     return out
 

@@ -48,18 +48,16 @@ from typing import NamedTuple
 import torch
 
 from pointcloud_tpu_torch.ops import _build
+from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT, SMS, sm_count, split
 
 EPS = 1e-5
 _SENT = -1e9  # the pooled value of a group without a valid row
 _TILE_ROWS = 64
 _MAX_CHUNKS = 2048  # row chunks of a forward or fp32 da launch (gridDim.y)
 _DW_BLOCKS = 528  # blocks an fp32 dw launch aims for (4 per SM)
-_SMS = 132  # streaming multiprocessors of an H100 SXM
 _WG_TILE = 128  # rows and channels of a bf16 (wgmma) da or dw tile
 _WG_DEPTH = 64  # rows of one dw stage: the split-K granule
-_WG_WAVES = 4  # waves of blocks a bf16 launch may take (one resident an SM)
 _MAX_ROWS = 2**31 - 1
-_SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on an H100
 RES_NONE, RES_BNRELU, RES_DENSE = 0, 1, 2
 
 
@@ -298,27 +296,9 @@ class BwdPlan(NamedTuple):
                 "dw_part": (self.dw_chunks, self.cd, self.cu)}
 
 
-def _split(rows: int, granule: int, blocks_per_chunk: int, sms: int) -> tuple:
-    """(chunk rows, chunks): whole granules a chunk, the `blocks_per_chunk`
-    tiles of every chunk one block each, one block resident an SM. Of the
-    counts that fit _WG_WAVES waves, the one whose waves times granules a
-    block is least (the fewest chunks on a tie): a last wave that is mostly
-    idle costs a whole wave."""
-    granules = -(-rows // granule)
-    best = None
-    most = min(granules, max(1, _WG_WAVES * sms // blocks_per_chunk))
-    for want in range(1, most + 1):
-        per = -(-granules // want)
-        chunks = -(-granules // per)
-        cost = -(-chunks * blocks_per_chunk // sms) * per
-        if best is None or cost < best[0]:
-            best = (cost, per * granule, chunks)
-    return best[1], best[2]
-
-
 @functools.lru_cache(maxsize=256)
 def bwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
-             sms: int = _SMS) -> BwdPlan:
+             sms: int = SMS) -> BwdPlan:
     """The launch plan of one backward pass of rows x (cd -> cu).
 
     bf16 (TMA + wgmma): da blocks own chunks of pairs of 128-row tiles for
@@ -331,9 +311,9 @@ def bwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
     ldh, lda = _round_up(cu, 8), _round_up(cd, 8)
     if bf16:
         # the two consumers of a da block take its 128-row tiles in turn
-        da_chunk, da_chunks = _split(rows, 2 * _WG_TILE, -(-cd // _WG_TILE), sms)
+        da_chunk, da_chunks = split(rows, 2 * _WG_TILE, -(-cd // _WG_TILE), sms)
         dw_cols = 192 if cd >= 512 else _WG_TILE
-        dw_chunk, dw_chunks = _split(
+        dw_chunk, dw_chunks = split(
             rows, _WG_DEPTH, -(-cu // _WG_TILE) * -(-cd // dw_cols), sms)
         return BwdPlan(rows, cd, cu, input_layer, ldh, lda,
                        input_layer and cd % 8 != 0, cu % 8 != 0, _WG_TILE, da_chunk,
@@ -344,11 +324,6 @@ def bwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
         -(-rows // max(1, -(-_DW_BLOCKS // tiles))), _TILE_ROWS))
     return BwdPlan(rows, cd, cu, input_layer, ldh, cd, False, False, _TILE_ROWS,
                    da_chunk, -(-rows // da_chunk), dw_chunk, -(-rows // dw_chunk), 128)
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _device_of(name, *tensors):
@@ -447,7 +422,7 @@ def _fwd_smem(cd: int, cu: int, pr: int, wn: int, stages: int, slots: int) -> in
 
 @functools.lru_cache(maxsize=256)
 def fwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
-             sms: int = _SMS) -> FwdPlan:
+             sms: int = SMS) -> FwdPlan:
     """The launch plan of one forward product pass of rows x (cd -> cu).
 
     bf16 (TMA + wgmma): a block keeps a panel of activated input rows
@@ -461,7 +436,7 @@ def fwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
     stages. Of that, a second panel slot where one fits (the next panel's
     TMA load then overlaps the products), then the most ring stages (up to
     4), then the most slots (up to 4); one block resident an SM, chunks of
-    whole panels in whole waves (`_split`). TMA reads w and writes h in 16-byte rows and the
+    whole panels in whole waves (`split`). TMA reads w and writes h in 16-byte rows and the
     activated operand is formed in 16-byte chunks of channels, so cu (and cd
     below a BatchNorm) must be a multiple of 8: no driven path has another
     width, and the others (and fp32, which reaches the passes only in the
@@ -473,10 +448,10 @@ def fwd_plan(rows: int, cd: int, cu: int, bf16: bool, input_layer: bool,
             for wn in ((128, 64) if cu > wide else (64,)):
                 fits = [(min(slots, 2), stages, slots)
                         for stages in range(least, 5) for slots in range(1, 5)
-                        if _fwd_smem(cd, cu, pr, wn, stages, slots) <= _SMEM_LIMIT]
+                        if _fwd_smem(cd, cu, pr, wn, stages, slots) <= SMEM_LIMIT]
                 if fits:
                     _, stages, slots = max(fits)
-                    chunk, chunks = _split(rows, pr, 1, sms)
+                    chunk, chunks = split(rows, pr, 1, sms)
                     return FwdPlan(rows, cd, cu, input_layer, pr, wn,
                                    wn if pr == 128 else 2 * wn, stages, slots, chunk,
                                    chunks, _fwd_smem(cd, cu, pr, wn, stages, slots))
@@ -489,7 +464,7 @@ def _mm_stats_kernel(x, sc, w, res=None, write_r=False):
     Cu = w.shape[1]
     rows = B * R
     plan = fwd_plan(rows, Cd, Cu, x.dtype == torch.bfloat16, sc is None,
-                    _sm_count(x.device.index))
+                    sm_count(x.device.index))
     mode, src, rsc = _res_parts(res)
     if plan.panel_rows:  # 16-byte loads, TMA: aligned operands
         x, sc, w, src, rsc = map(_aligned, (x, sc, w, src, rsc))
@@ -739,7 +714,7 @@ def chain_bwd_pass(h_up, uc, w, a_in, sc_down=None, dz=None, dosel=None,
     _check_kernel("chain_bwd_pass", (a_in, h_up, w, dz, src, skip_dense),
                   (uc, sc_down, dosel, rsc, skip_dosel), (amax, skip_amax))
     plan = bwd_plan(B * R, Cd, Cu, a_in.dtype == torch.bfloat16, sc_down is None,
-                    _sm_count(device.index))
+                    sm_count(device.index))
     dh = _bwd_dh(plan, h_up, uc, dz, dosel, amax, pool)
     dzd, sdse, a_up = _bwd_da(plan, dh, w, a_in, sc_down, need_dzd, res, skip_pool,
                               skip_dense, pool)

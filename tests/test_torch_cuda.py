@@ -33,6 +33,7 @@ from pointcloud_tpu_torch.ops import (
     emd_match,
     eps_schedule,
     farthest_point_sample,
+    fps_plan,
     fps_reference,
     group_gather,
     group_gather_reference,
@@ -46,6 +47,7 @@ from pointcloud_tpu_torch.ops import (
     mm_stats_reference,
     nn_sweep,
     nn_sweep_reference,
+    pool_bwd_plan,
     scatter_rows,
     scatter_rows_reference,
     sinkhorn,
@@ -328,12 +330,13 @@ def fps_case(dev, seed, B, N, C=3, masked=True):
 
 
 @pytest.mark.parametrize("B,N,K", [(4, 2048, 512), (3, 512, 128), (2, 5000, 300),
-                                   (1, 20000, 256), (2, 100, 150)])
+                                   (1, 20000, 256), (2, 100, 150), (1, 200000, 64)])
 @pytest.mark.parametrize("masked", [False, True])
 def test_fps_matches_plain_and_is_deterministic(dev, B, N, K, masked):
     """Equal indices (the same rounded operations in the same order); the
-    shared-memory paths (256 and 1024 threads), the global-scratch path
-    (N > 12288) and an under-full cloud (K > N)."""
+    block route (256 and 1024 threads), the cluster route (N = 20000: two
+    blocks), the global-scratch route (N > 196,608) and an under-full cloud
+    (K > N)."""
     xyz, mask = fps_case(dev, N, B, N, masked=masked)
     got = farthest_point_sample(xyz, K, mask)
     again = farthest_point_sample(xyz, K, mask)
@@ -869,10 +872,10 @@ def test_fwd_products_match_plain_and_are_deterministic(dev, case, dtype, sms,
     panels and the launch several chunks."""
     B, R, Cd, Cu, mode, write_r = case
     if sms is not None:
-        monkeypatch.setattr(tpf, "_sm_count", lambda index: sms)
+        monkeypatch.setattr(tpf, "sm_count", lambda index: sms)
     args, kw = fwd_inputs(dev, sum(case[:4]), B, R, Cd, Cu, mode, dtype)
     plan = tpf.fwd_plan(B * R, Cd, Cu, dtype == torch.bfloat16, mode == "input",
-                        sms or tpf._sm_count(dev.index))
+                        sms or tpf.sm_count(dev.index))
     wgmma = dtype == torch.bfloat16 and Cu % 8 == 0 and (mode == "input" or Cd % 8 == 0)
     assert (plan.panel_rows > 0) == wgmma
     if sms is not None and wgmma:
@@ -901,7 +904,7 @@ def test_fwd_kernel_rejects_what_it_does_not_take(dev, monkeypatch):
     fewer ring stages than the kernel has, makes the launch fail rather than
     run."""
     (x, sc, w), _ = fwd_inputs(dev, 0, 2, 128, 64, 64, tpf.RES_NONE, torch.bfloat16)
-    plan = tpf.fwd_plan(256, 64, 64, True, False, tpf._sm_count(dev.index))
+    plan = tpf.fwd_plan(256, 64, 64, True, False, tpf.sm_count(dev.index))
     for bad in (plan._replace(chunk_rows=100), plan._replace(slots=9),
                 plan._replace(stages=0)):
         monkeypatch.setattr(tpf, "fwd_plan", lambda *a, _p=bad: _p)
@@ -1391,3 +1394,138 @@ def test_group_gather_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
         group_gather(xyz, feats, cents, mask.cpu(), 8, 0.3)
     with pytest.raises(ValueError):
         group_gather(xyz, feats, cents, mask, 0, 0.3)
+
+
+# ---- fps on a thread block cluster, the dense-pool backward on TMA + wgmma ----
+
+def cluster_fps_case(dev, kind):
+    """(xyz, mask, K) of one cluster-route case; xyz in the unit cube."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    if kind == "sensor":  # the sensor's shape, about half its points masked
+        xyz = torch.rand((1, 196608, 3), generator=g, device=dev)
+        return xyz, torch.rand((1, 196608), generator=g, device=dev) > 0.5, 2048
+    if kind == "cross-block ties":  # copies 20,000 apart: two blocks apart
+        xyz = torch.rand((1, 40000, 3), generator=g, device=dev)
+        xyz[:, 20000:] = xyz[:, :20000]
+        return xyz, None, 1024
+    if kind == "ragged":  # 13 blocks of 11,539 points, the last 11,533
+        xyz = torch.rand((2, 150001, 3), generator=g, device=dev)
+        return xyz, torch.rand((2, 150001), generator=g, device=dev) > 0.3, 512
+    if kind == "first masked":
+        xyz = torch.rand((2, 30000, 6), generator=g, device=dev)
+        mask = torch.rand((2, 30000), generator=g, device=dev) > 0.2
+        mask[:, :15000] = False  # the first valid point lies in the second block
+        return xyz, mask, 256
+    if kind == "all masked":
+        xyz = torch.rand((2, 30000, 3), generator=g, device=dev)
+        mask = torch.rand((2, 30000), generator=g, device=dev) > 0.2
+        mask[1] = False
+        return xyz, mask, 64
+    if kind == "under-full":  # 100 valid points for 256 slots
+        xyz = torch.rand((1, 50000, 3), generator=g, device=dev)
+        mask = torch.zeros((1, 50000), dtype=torch.bool, device=dev)
+        mask[0, torch.randperm(50000, generator=g, device=dev)[:100]] = True
+        return xyz, mask, 256
+    assert kind == "K = 1"
+    xyz = torch.rand((3, 70000, 3), generator=g, device=dev)
+    mask = torch.rand((3, 70000), generator=g, device=dev) > 0.5
+    mask[1, :60000] = False
+    return xyz, mask, 1
+
+
+@pytest.mark.parametrize("kind", ["sensor", "cross-block ties", "ragged", "first masked",
+                                  "all masked", "under-full", "K = 1"])
+def test_fps_cluster_route_matches_plain_and_is_deterministic(dev, kind):
+    """The cluster route: indices equal to the plain version's, two runs
+    bit-equal; ties between blocks go to the lower index, slot 0 is the
+    first valid point over all blocks, a cloud without one gives zeros, an
+    under-full cloud repeats valid points."""
+    xyz, mask, K = cluster_fps_case(dev, kind)
+    assert fps_plan(xyz.shape[0], xyz.shape[1]).route == "cluster"
+    got = farthest_point_sample(xyz, K, mask)
+    again = farthest_point_sample(xyz, K, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, fps_reference(xyz, K, mask))
+    if kind == "all masked":
+        assert (got[1] == 0).all()
+    if mask is not None and kind != "all masked":
+        assert bool(torch.gather(mask, 1, got.long()).all())
+    if kind == "first masked":
+        assert (got[:, 0] >= 15000).all()
+    if kind == "cross-block ties":  # both copies of a point are never taken
+        assert len(set((got[0] % 20000).tolist())) == K
+
+
+MSG_BRANCHES = [(32, 64, 512, 16), (64, 128, 512, 32), (96, 128, 512, 128),
+                (64, 128, 128, 32), (128, 256, 128, 64), (128, 256, 128, 128)]
+
+
+def check_pool_bwd(dev, seed, B, R, Cin, C, pool, dtype, masked):
+    """dense_pool_stats_bwd against autograd through the plain version, at
+    the forward kernel's own selection (both sides route each pooled
+    gradient to the same row), two runs bit-equal: dw and db within 1e-3
+    (fp32: 1e-4), dx within 2e-2 in bf16 (1e-4 in fp32), relative to the
+    largest entry; bf16 db against the fp32 sum of the plain dz before its
+    cast, as the kernel sums it."""
+    x, w, b, s, pen = dense_case(dev, seed, B, R, Cin, C, dtype, masked)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    psel, asel, _, _ = dense_pool_stats(x, w, b, s, pen, pool)
+    dp = torch.randn(psel.shape, generator=g, device=dev).to(dtype).float()
+    dss = torch.randn((C,), generator=g, device=dev) / (B * R)
+    dsq = torch.randn((C,), generator=g, device=dev) / (B * R)
+    got = dense_pool_stats_bwd(x, w, b, s, asel, dp, dss, dsq, pool)
+    again = dense_pool_stats_bwd(x, w, b, s, asel, dp, dss, dsq, pool)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    z = (torch.matmul(x.float(), w.float()) + b.float()).to(dtype).float()
+    sparse = torch.zeros((B, R // pool, pool, C), device=dev)
+    sparse.scatter_(2, asel.long()[:, :, None, :], (dp * s)[:, :, None, :])
+    dz = dss + 2 * dsq * z + sparse.reshape(B, R, C)
+    rx = (dz.to(dtype).float() @ w.float().t()).to(dtype)
+    rw = x.float().reshape(-1, Cin).t() @ dz.to(dtype).float().reshape(-1, C)
+    rb = dz.sum(dim=(0, 1))
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    for a, r, t in ((got[0], rx, tol if dtype == torch.float32 else 2e-2),
+                    (got[1], rw, tol), (got[2], rb, tol)):
+        assert a.dtype == r.dtype and a.shape == r.shape
+        assert (a.float() - r.float()).abs().max() <= t * r.float().abs().max()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_pool_bwd_pointnet_shape_matches_plain(dev, masked):
+    """PointNet's 128 -> 1024 at a pool of 2048 (two clouds) on TMA +
+    wgmma, with and without pen in the forward that picks asel."""
+    assert pool_bwd_plan(2 * 2048, 128, 1024, True, 2048).route == "wgmma"
+    check_pool_bwd(dev, 21, 2, 2048, 128, 1024, 2048, torch.bfloat16, masked)
+
+
+@pytest.mark.parametrize("cin,c,S,pool", MSG_BRANCHES)
+def test_pool_bwd_msg_branches_match_plain(dev, cin, c, S, pool):
+    """Each MSG branch's last layer (Cin -> C at its pool, S centroids, two
+    clouds), masked rows, on TMA + wgmma."""
+    assert pool_bwd_plan(2 * S * pool, cin, c, True, pool).route == "wgmma"
+    check_pool_bwd(dev, 22, 2, S * pool, cin, c, pool, torch.bfloat16, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pool_bwd_ragged_widths_match_plain(dev, dtype):
+    """C = 200 and Cin = 72 over 450 rows (a partial 128-row tile, a partial
+    64-channel chunk, Cin past one 64-channel atom): bf16 on TMA + wgmma,
+    fp32 on the tile route."""
+    plan = pool_bwd_plan(450, 72, 200, dtype == torch.bfloat16, 30)
+    assert plan.route == ("wgmma" if dtype == torch.bfloat16 else "tile")
+    check_pool_bwd(dev, 23, 3, 150, 72, 200, 30, dtype, True)
+
+
+@pytest.mark.parametrize("pool,route", [(6, "wgmma"), (4, "tile")])
+def test_pool_bwd_small_pools_match_plain(dev, pool, route):
+    """Pools of a few rows at 128 -> 1024: on TMA + wgmma a ring stage's
+    tables span many pool blocks (23 for dx at a pool of 6); smaller pools
+    take the tiles."""
+    assert pool_bwd_plan(2 * 480, 128, 1024, True, pool).route == route
+    check_pool_bwd(dev, 26, 2, 480, 128, 1024, pool, torch.bfloat16, True)
+
+
+def test_pool_bwd_fp32_pointnet_shape_matches_plain(dev):
+    assert pool_bwd_plan(2 * 2048, 128, 1024, False, 2048).route == "tile"
+    check_pool_bwd(dev, 24, 2, 2048, 128, 1024, 2048, torch.float32, True)
