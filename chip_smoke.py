@@ -8,7 +8,9 @@ lines:
   1. build every kernel in pointcloud_tpu_torch/csrc/ (one nvcc each, in
      parallel) into build/, or reuse the build; print the registers and
      spills of the chain's forward and backward kernels, fps's cluster
-     kernel and the dense-pool backward's TMA + wgmma kernels (ptxas -v);
+     kernel, the dense-pool forward's and backward's TMA + wgmma kernels and
+     the Sinkhorn sweep (ptxas -v), and the instructions the sweep's main
+     loop issues a pair (cuobjdump -sass);
   2. hold each kernel against its plain PyTorch version on the card (masks,
      fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
      equal indices, empty balls, k not a multiple of 8, the shared-memory
@@ -53,8 +55,9 @@ lines:
      "PointNet", "Cube"), an eval step and train steps at B=64 (target xyz + a
      class label); the PointNet2 autoencoder and segmenter with EMD, one eval
      and one train step each at B=64; the Sinkhorn kernel at the B=128 path's own inputs at the
-     training and the eval operating point; the fp32 EMD train step card vs
-     CPU; launch counts of a step asserted exactly;
+     training and the eval operating point, and dense_pool_stats at the
+     B=128 train path's own input; the fp32 EMD train step card vs CPU;
+     launch counts of a step asserted exactly;
  10. the PointMLP eval paths at full width: knn_group against its plain
      version (k of 1, 5, 24, 32, ragged N, masked and under-full clouds, no
      features, fp32 and bf16, with and without xyz, every stage's shape of
@@ -108,8 +111,9 @@ shape also as its dx and dw kernels' device times from a trace), with
 both Chamfer backward
 routes at the train step's shapes, the parts of each step and a
 torch.profiler trace of
-each train step (device time by kernel, busy and idle share, beside the
-host's enqueue time). For each path
+each train step and of the EMD eval step (device time by kernel, busy and
+idle share, beside the host's enqueue time; the dense-pool forward's and
+`sinkhorn`'s device time a step read from it). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
 13, encode, the sensor chain)
 every kernel's launch count is set
@@ -181,6 +185,12 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+# the redesigned kernels whose device time per step each trace reports:
+# name -> substrings of their profiler keys
+WATCH = {"dense_pool_stats fwd": ("pool_fwd_wgmma_kernel",),
+         "sinkhorn": ("::sweep_kernel", "::assign_kernel")}
+
+
 def trace_steps(step, x, y, untraced_ms, label, enqueue_ms=None):
     """torch.profiler trace of 3 more train steps: the 12 largest device
     kernels' times per step summed by name, and the device's
@@ -188,7 +198,9 @@ def trace_steps(step, x, y, untraced_ms, label, enqueue_ms=None):
     (`untraced_ms`) host-clock time and, where given, the host's own time
     to enqueue a step (`drive_train`): a step that runs at the host's pace
     still shows the device time it needs. The profiler slows the host, so
-    the idle share is stated against both clocks. Returns the busy ms."""
+    the idle share is stated against both clocks. Also the device time per
+    step of each WATCH kernel present, with its share of the busy time.
+    Returns the busy ms and those times ({name: (ms, launches) per step})."""
     from torch.profiler import ProfilerActivity, profile
 
     steps = 3
@@ -216,7 +228,15 @@ def trace_steps(step, x, y, untraced_ms, label, enqueue_ms=None):
     for ms, calls, key in rows[:12]:
         log(f"    {ms:9.3f} ms {100 * ms / busy:5.1f}% {calls:6.1f} calls/step  "
             f"{key[:100]}")
-    return busy
+    watched = {}
+    for name, keys in WATCH.items():
+        hit = [(ms, calls) for ms, calls, key in rows if any(k in key for k in keys)]
+        if hit:
+            watched[name] = (sum(h[0] for h in hit), sum(h[1] for h in hit))
+            log(f"  {label}: {name} {watched[name][0]:.3f} ms/step device time "
+                f"({100 * watched[name][0] / busy:.1f}% of busy, "
+                f"{watched[name][1]:.1f} CUDA launches/step; traced)")
+    return busy, watched
 
 
 def bound(ops, nbytes, peak_ops):
@@ -468,13 +488,15 @@ def compare_dense_pool(gen, x, w, b, s, pen, pool, acc_bound=False):
     `acc_bound` adds to the psel and gap tolerances the a-priori error bound
     of z's fp32 sums in either order, Cin 2^-24 (|x| |w| + |b|): on trained
     activations a pooled z whose terms cancel to round-off carries an error
-    larger than its own bf16 ulp.
+    larger than its own bf16 ulp (the paths' own inputs take it; the log
+    counts the pools that needed it).
     Returns the largest absolute errors of the forward (psel) and of the
     backward (dw), and the kernel's forward outputs."""
     from pointcloud_tpu_torch.ops import (
         dense_pool_stats,
         dense_pool_stats_bwd,
         dense_pool_stats_reference,
+        pool_fwd_plan,
     )
 
     (B, R, Cin), C, dtype, masked = x.shape, w.shape[1], x.dtype, pen is not None
@@ -486,6 +508,7 @@ def compare_dense_pool(gen, x, w, b, s, pen, pool, acc_bound=False):
     z = (torch.matmul(x.float(), w.float()) + b.float()).to(dtype).float()
     zs = (z * s - (0.0 if pen is None else pen[..., None]))
     top2 = torch.topk(zs.reshape(B, R // pool, pool, C), 2, dim=2).values
+    beyond = 0
     if dtype == torch.float32:
         ps_ok = (got[0] - want[0]).abs() <= 1e-4 * want[0].abs().max()
         gap = top2[:, :, 0] - top2[:, :, 1] > 1e-5 * top2[:, :, 0].abs()
@@ -497,8 +520,9 @@ def compare_dense_pool(gen, x, w, b, s, pen, pool, acc_bound=False):
             slack = torch.gather(a, 2, want[1].long()[:, :, None, :])[:, :, 0]
             slack_gap = 2 * a.amax(dim=2)
             del a
-        ps_ok = ((got[0].float() - want[0].float()).abs()
-                 <= bf16_ulp(want[0]) + slack)
+        ps_diff = (got[0].float() - want[0].float()).abs()
+        ps_ok = ps_diff <= bf16_ulp(want[0]) + slack
+        beyond = int((ps_diff > bf16_ulp(want[0])).sum())  # inside the slack only
         gap = top2[:, :, 0] - top2[:, :, 1] > bf16_ulp(top2[:, :, 0]) + slack_gap
     if not bool(ps_ok.all()):
         i = tuple((~ps_ok).nonzero()[0].tolist())
@@ -544,11 +568,74 @@ def compare_dense_pool(gen, x, w, b, s, pen, pool, acc_bound=False):
         raise AssertionError(f"dense_pool_stats_bwd {dtype}: dx {e_dx:.2e}, "
                              f"dw/db {e_dw:.2e} rel")
     err_bwd = float((kw - rw).abs().max())
+    route = pool_fwd_plan(B * R, Cin, C, dtype == torch.bfloat16, pool).route
     log(f"  dense_pool_stats {str(dtype)[6:]} B={B} R={R} Cin={Cin} C={C} "
-        f"pool={pool} pen={masked}: psel ok, asel equal off ties, ssum/ssq "
+        f"pool={pool} pen={masked} ({route} route): psel ok"
+        f"{f' ({beyond} of {got[0].numel()} pools past one ulp, inside the accumulation bound)' if acc_bound else ''}, asel equal off ties, ssum/ssq "
         f"rel {e_stats:.1e}; bwd dx rel {e_dx:.1e}, dw/db rel {e_dw:.1e}; "
         f"fwd and bwd two runs bit-equal")
     return err, err_bwd, got
+
+
+def pool_library_fwd(x, w, b, pool):
+    """bf16 matmul + each pool block's aminmax + the fp32 sums, the
+    composition that stores z: a yardstick timed here, never called by the
+    port. Returns the thunk."""
+    def run():
+        z = torch.matmul(x, w) + b
+        B, R, C = z.shape
+        zmin, zmax = torch.aminmax(z.reshape(B, R // pool, pool, C), dim=2)
+        zf = z.float()
+        return zmin, zmax, zf.sum(dim=(0, 1)), (zf * zf).sum(dim=(0, 1))
+    return run
+
+
+def pool_fwd_bound(x, C, pool, pen):
+    """The dense-pool forward's bound: one product at the dense bf16 rate;
+    bytes x, w and the bias read (bf16), pen read, psel (bf16) and asel
+    (int32) written, the sums written (fp32)."""
+    B, R, Cin = x.shape
+    return bound(2 * B * R * Cin * C,
+                 (B * R * Cin + Cin * C + C) * 2 + (0 if pen is None else B * R * 4)
+                 + B * (R // pool) * C * 6 + 2 * C * 4, PEAK_BF16_FLOPS)
+
+
+def pool_fwd_yardstick(gen, layer, x_raw, spec, label, err):
+    """The dense-pool forward at a PointNet train path's own dbnpool2 input
+    (one more forward in train mode): held against its plain version (the
+    accumulation bound), then its plan, time, plain and library time and
+    bound printed."""
+    from pointcloud_tpu_torch.ops import (
+        dense_pool_stats,
+        dense_pool_stats_reference,
+        pool_fwd_plan,
+    )
+
+    feats = {}
+    hook = layer.register_forward_pre_hook(
+        lambda m, inp: feats.__setitem__("x", inp[0].detach()))
+    with torch.no_grad():
+        spec.model(spec.in_transform(x_raw)[0], train=True)
+    hook.remove()
+    x = feats.pop("x").to(torch.bfloat16).contiguous()
+    w = layer.weight.detach().t().to(torch.bfloat16).contiguous()
+    b = layer.bias.detach().to(torch.bfloat16)
+    s = torch.where(layer.scale >= 0, 1.0, -1.0).float().detach()
+    (B, R, Cin), C = x.shape, w.shape[1]
+    e_fwd, _, _ = compare_dense_pool(gen, x, w, b, s, None, R, acc_bound=True)
+    err["dense_pool_stats"] = max(err["dense_pool_stats"], e_fwd)
+    torch.cuda.empty_cache()
+    k_ms = cuda_ms(lambda: dense_pool_stats(x, w, b, s, None, R), iters=10)
+    p_ms = cuda_ms(lambda: dense_pool_stats_reference(x, w, b, s, None, R), iters=3,
+                   warmup=1)
+    l_ms = cuda_ms(pool_library_fwd(x, w, b, R), iters=3, warmup=1)
+    bnd = pool_fwd_bound(x, C, R, None)
+    plan = pool_fwd_plan(B * R, Cin, C, True, R)
+    log(f"  dense_pool_stats fwd at {label}: B={B} R={R} Cin={Cin} C={C} bf16 "
+        f"({plan.route} route; {plan.chunks} chunks of {plan.chunk_rows} rows x "
+        f"{plan.col_blocks} channel blocks): kernel {k_ms:.3f} ms | plain {p_ms:.3f} ms | "
+        f"library matmul + aminmax + sums {l_ms:.3f} ms | bound {bnd[0]:.3f} ms ({bnd[1]})")
+    torch.cuda.empty_cache()
 
 
 def pool_bwd_bound(B, R, Cin, C, pool):
@@ -1157,7 +1244,8 @@ FWD_KERNELS = ("fwd_wgmma_kernel", "mm_stats_kernel")
 # fps's cluster route (csrc/fps.cu) and the dense-pool backward's TMA +
 # wgmma kernels (csrc/dense_bn_pool.cu)
 FPS_KERNELS = ("fps_cluster_kernel",)
-POOL_KERNELS = ("dx_wgmma_kernel", "dw_wgmma_kernel")
+POOL_KERNELS = ("pool_fwd_wgmma_kernel", "dx_wgmma_kernel", "dw_wgmma_kernel")
+SINKHORN_KERNELS = ("sweep_kernel",)
 
 
 def bwd_stages(a, kw):
@@ -1849,14 +1937,57 @@ def card_vs_cpu_pointnet2_train(seed, x_raw):
 
 def sinkhorn_bound(B, N, M, iters):
     """The larger of: one ex2 a pair in each of the 2 iters sweeps, on the
-    special-function units; ~13 fp32 operations a pair of a sweep and ~10 of
-    the last pass, on the CUDA cores; bytes (both clouds' xyz read once,
-    dists and assignment written once)."""
+    special-function units; the exponent's least fp32 work a pair of a
+    sweep, 3 FMAs and an add by the expansion of the distance (7 operations;
+    the kernel spends 3 subtractions and 4 FMAs to keep direct differences),
+    and ~10 operations a pair of the last pass, on the CUDA cores; bytes
+    (both clouds' xyz read once, dists and assignment written once)."""
     pairs = B * N * M
     t_sfu = 2 * iters * pairs / PEAK_SFU_OPS * 1e3
-    t_rest, by = bound((13 * 2 * iters + 10) * pairs,
+    t_rest, by = bound((7 * 2 * iters + 10) * pairs,
                        B * (N + M) * 12 + B * N * 8, PEAK_FP32_FLOPS)
     return (t_sfu, "operations") if t_sfu >= t_rest else (t_rest, by)
+
+
+def sweep_sass_loop():
+    """(instructions, ex2) of the common path of the main loop of sinkhorn's
+    sweep_kernel in the built library's SASS (cuobjdump -sass): of the spans
+    from a backward branch's target to the branch, the shortest of those
+    holding the most ex2, less the blocks a forward branch in it skips that
+    hold an FMNMX (the rescaling path: a chunk's maximum, taken when its sum
+    passes 2^64)."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from pointcloud_tpu_torch.ops import _build
+
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass",
+                           str(_build.library_path("sinkhorn"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    body = next(f for f in sass.split("Function : ")[1:]
+                if "12sweep_kernel" in f.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    best = None
+    for at, text in ins:
+        m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= at:
+            span = [(a, t) for a, t in ins if int(m.group(1), 16) <= a <= at]
+            ex2 = sum("MUFU.EX2" in t for _, t in span)
+            if ex2 and (best is None or (-ex2, len(span)) < (-best[1], len(best[0]))):
+                best = (span, ex2)
+    if best is None:
+        raise AssertionError("no loop with an ex2 in sweep_kernel's SASS")
+    span, cold = best[0], set()
+    for a, t in span:
+        m = re.search(r"@!?U?P\d\s+BRA\s+(0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) > a:
+            skipped = [b for b, u in span if a < b < int(m.group(1), 16)]
+            if any("FMNMX" in u for b, u in span if b in skipped):
+                cold.update(skipped)
+    hot = [t for a, t in span if a not in cold]
+    return len(hot), sum("MUFU.EX2" in t for t in hot)
 
 
 def compare_sinkhorn(x, y, eps, iters, anneal, label, err, share=0.995):
@@ -2042,6 +2173,7 @@ def emd_paths(seed, gen, x_raw, smi, err):
         eps_schedule,
         sinkhorn,
         sinkhorn_match,
+        sinkhorn_plan,
         sinkhorn_reference,
     )
     from pointcloud_tpu_torch.train import (
@@ -2075,6 +2207,8 @@ def emd_paths(seed, gen, x_raw, smi, err):
             or not bool(torch.isfinite(out).all()) or set(ev["logs"]) != ae_logs:
         raise AssertionError(f"EMD eval: loss {ev['loss']}, out {tuple(out.shape)}, "
                              f"logs {sorted(ev['logs'])}")
+    trace_steps(make_eval_step(spec), xe, xe, ev["ms"], f"PointNet + EMD eval step, "
+                f"B={B_EMD}")
 
     # the kernel at the path's own inputs: the decoder's output against its
     # target, at the training and at the eval operating point
@@ -2094,9 +2228,12 @@ def emd_paths(seed, gen, x_raw, smi, err):
         bnd = sinkhorn_bound(B_EMD, out.shape[1], y.shape[1], iters)
         kern[point] = (k_ms, p_ms, bnd, l_ms)
         torch.cuda.empty_cache()
+        plan = sinkhorn_plan(B_EMD, out.shape[1], y.shape[1])
         log(f"  sinkhorn B={B_EMD} N=M=2048, {point} point (eps {eps} x {iters}"
             f"{'' if anneal is None else f' from {anneal}'}; {2 * iters + 1} CUDA "
-            f"launches a call): kernel {k_ms:.3f} ms | plain {p_ms:.1f} ms | library "
+            f"launches a call; {plan.outputs} outputs a thread, q split "
+            f"{plan.split_x} / {plan.split_y}, {plan.blocks_x} / {plan.blocks_y} "
+            f"blocks a cloud): kernel {k_ms:.3f} ms | plain {p_ms:.1f} ms | library "
             f"emd.sinkhorn_match (stored cost, torch.logsumexp) {l_ms:.1f} ms | "
             f"bound {bnd[0]:.3f} ms ({bnd[1]}: one ex2 a pair at "
             f"{PEAK_SFU_OPS:.3g}/s)")
@@ -2117,6 +2254,8 @@ def emd_paths(seed, gen, x_raw, smi, err):
     fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, xe, xe)
     log(f"  train step parts (median of 3, CUDA events): forward + loss "
         f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
+    pool_fwd_yardstick(gen, spec.model.encoder.backbone.dbnpool2, xe, spec,
+                       f"the B={B_EMD} EMD train path's own input", err)
     del spec, opt, tstep
     torch.cuda.empty_cache()
 
@@ -3172,6 +3311,7 @@ def msg_train_path(seed, gen, x_raw, smi, err):
         dense_pool_stats_bwd,
         dense_pool_stats_reference,
         pool_bwd_plan,
+        pool_fwd_plan,
     )
     from pointcloud_tpu_torch.train import make_optimizer, make_train_step
 
@@ -3283,15 +3423,19 @@ def msg_train_path(seed, gen, x_raw, smi, err):
             *time_pool_bwd_parts(x, w, b, s, fwd_out[1], g_ps, g_s, pool),
             cuda_ms(pool_library_bwd(x, w, b, pool, g_ps, g_s), iters=2, warmup=1),
             pool_bwd_bound(x.shape[0], x.shape[1], x.shape[2], C, pool)[0],
-            pool_bwd_plan(x.shape[0] * x.shape[1], x.shape[2], C, True, pool).route))
+            pool_bwd_plan(x.shape[0] * x.shape[1], x.shape[2], C, True, pool).route,
+            pool_fwd_plan(x.shape[0] * x.shape[1], x.shape[2], C, True, pool).route,
+            pool_fwd_bound(x, C, pool, pen)[0],
+            cuda_ms(pool_library_fwd(x, w, b, pool), iters=2, warmup=1)))
         del fwd_out, g_ps
         torch.cuda.empty_cache()
     log("  dense_pool_stats at the six branches (R = S x pool rows a cloud, bf16; "
-        "kernel fwd | plain fwd | kernel bwd (dx + dw, device time traced) | library bwd "
-        "| bwd bound, ms): " + "; ".join(
+        "kernel fwd (route) | fwd bound | plain fwd | library fwd | kernel bwd (dx + dw, "
+        "device time traced) | library bwd | bwd bound, ms): " + "; ".join(
             f"pool {c[-1]} Cin={c[0].shape[2]} C={c[1].shape[1]} R={c[0].shape[1]}: "
-            f"{t[0]:.3f} | {t[1]:.3f} | {t[2]:.3f} ({t[3]:.3f} + {t[4]:.3f}, {t[7]}) | "
-            f"{t[5]:.3f} | {t[6]:.4f}" for c, t in zip(captured, times)))
+            f"{t[0]:.3f} ({t[8]}) | {t[9]:.4f} | {t[1]:.3f} | {t[10]:.3f} | {t[2]:.3f} "
+            f"({t[3]:.3f} + {t[4]:.3f}, {t[7]}) | {t[5]:.3f} | {t[6]:.4f}"
+            for c, t in zip(captured, times)))
     del captured
     torch.cuda.empty_cache()
     return {"counts": tr["counts"]}
@@ -3469,6 +3613,7 @@ def main(argv=None) -> int:
         nn_sweep,
         nn_sweep_reference,
         pool_bwd_plan,
+        pool_fwd_plan,
         scatter_rows,
         scatter_rows_reference,
     )
@@ -3494,12 +3639,18 @@ def main(argv=None) -> int:
     log(f"[build] {_build.sources()} -> {_build.BUILD_DIR}: {secs:.1f} s "
         f"({'built' if secs else 'reused'})")
     for source, names in (("mlp_chain", FWD_KERNELS + BWD_KERNELS),
-                          ("fps", FPS_KERNELS), ("dense_bn_pool", POOL_KERNELS)):
+                          ("fps", FPS_KERNELS), ("dense_bn_pool", POOL_KERNELS),
+                          ("sinkhorn", SINKHORN_KERNELS)):
         for kernel, regs, st, ld in _build.ptxas_report(source):
             name = next((k for k in names if k in kernel), None)
             if name:
                 log(f"  ptxas {name} {kernel[kernel.index(name) + len(name):][:40]}: "
                     f"{regs} registers, spills {st} B stored / {ld} B loaded")
+
+    n_ins, n_ex2 = sweep_sass_loop()
+    log(f"  SASS of sinkhorn's sweep_kernel (cuobjdump -sass): its innermost loop "
+        f"issues {n_ins} instructions for {n_ex2} ex2 on its common path, "
+        f"{n_ins / n_ex2:.2f} a pair")
 
     # ---- 2. kernels vs plain versions ----
     log("[kernels vs plain versions]")
@@ -3728,7 +3879,7 @@ def main(argv=None) -> int:
     Bt, Rt, Cin = dx_in.shape
     Cd = dw_in.shape[1]
     e_fwd, e_bwd, fwd_out = compare_dense_pool(gen, dx_in, dw_in, db_in, ds_in,
-                                               None, Rt)
+                                               None, Rt, acc_bound=True)
     err["dense_pool_stats"] = max(err["dense_pool_stats"], e_fwd)
     err["dense_pool_stats_bwd"] = max(err["dense_pool_stats_bwd"], e_bwd)
     torch.cuda.empty_cache()
@@ -3737,16 +3888,8 @@ def main(argv=None) -> int:
     d_plain = cuda_ms(lambda: dense_pool_stats_reference(
         dx_in, dw_in, db_in, ds_in, None, Rt), iters=3, warmup=1)
 
-    def dense_library():  # stores z; timed here, never called by the port
-        z = torch.matmul(dx_in, dw_in) + db_in
-        zmin, zmax = torch.aminmax(z, dim=1)
-        zf = z.float()
-        return zmin, zmax, zf.sum(dim=(0, 1)), (zf * zf).sum(dim=(0, 1))
-
-    d_lib = cuda_ms(dense_library, iters=3, warmup=1)
-    flops = 2 * Bt * Rt * Cin * Cd
-    d_bound = bound(flops, (Bt * Rt * Cin + Cin * Cd + Cd) * 2
-                    + Bt * Cd * (2 + 4) + 2 * Cd * 4, PEAK_BF16_FLOPS)
+    d_lib = cuda_ms(pool_library_fwd(dx_in, dw_in, db_in, Rt), iters=3, warmup=1)
+    d_bound = pool_fwd_bound(dx_in, Cd, Rt, None)
     g_ps = torch.randn(fwd_out[0].shape, generator=gen, device=dev)
     g_s = torch.randn((Cd,), generator=gen, device=dev) / (Bt * Rt)
     b_ms = cuda_ms(lambda: dense_pool_stats_bwd(
@@ -3767,7 +3910,10 @@ def main(argv=None) -> int:
                     warmup=1)
     b_bound = pool_bwd_bound(Bt, Rt, Cin, Cd, Rt)
     b_plan = pool_bwd_plan(Bt * Rt, Cin, Cd, True, Rt)
-    log(f"  dense_pool_stats fwd B={Bt} R={Rt} Cin={Cin} C={Cd} bf16: kernel "
+    f_plan = pool_fwd_plan(Bt * Rt, Cin, Cd, True, Rt)
+    log(f"  dense_pool_stats fwd B={Bt} R={Rt} Cin={Cin} C={Cd} bf16 ({f_plan.route} "
+        f"route; {f_plan.chunks} chunks of {f_plan.chunk_rows} rows x "
+        f"{f_plan.col_blocks} channel blocks, {f_plan.smem} B shared memory): kernel "
         f"{d_ms:.3f} ms | plain {d_plain:.3f} ms | library matmul + aminmax + "
         f"sums {d_lib:.3f} ms | bound {d_bound[0]:.3f} ms ({d_bound[1]})")
     log(f"  dense_pool_stats bwd ({b_plan.route} route; dx {b_plan.dx_chunks} blocks "

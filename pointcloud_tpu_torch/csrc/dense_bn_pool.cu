@@ -17,12 +17,31 @@
 // z and dz never reach device memory: each is recomputed tile by tile from x
 // and w and consumed in shared memory or registers.
 //
-// Design, forward. Every product runs on one 64 x 128 output tile per block
-// of 256 threads (tile_mma.cuh), staged through shared memory in depth chunks
-// of 32: bf16 operands go through the tensor cores with nvcuda::wmma
-// 16x16x16 tiles and fp32 accumulators; fp32 operands run on the CUDA cores
-// (4 x 8 outputs a thread), so fp32 stays fp32 (no TF32).
-//   forward  (launch 1): a block owns 128 channels and a chunk of 512 rows.
+// Design, forward. bf16 with Cin <= 128 and Cin, C multiples of 8, at a
+// pool of 16 or 32 rows or a multiple of 64 (every driven shape: PointNet's
+// 128 -> 1024 at 2048, the MSG branches' 32-128 -> 64-256 at 16-128;
+// ops/dense_bn_pool.py pool_fwd_plan) runs on TMA + wgmma
+// (pool_fwd_wgmma_kernel, its note below): a block owns 128 channels of C,
+// their w resident in shared memory (two 64-channel atoms, one a consumer
+// warpgroup), and a chunk of whole pool blocks whose 64-row x tiles a
+// producer streams by TMA (128-byte swizzle) through a ring of mbarriers.
+// z = x @ w is a wgmma product with fp32 accumulators in registers; the
+// epilogue reads the accumulator registers: z rounded to T after the bias,
+// the thread's column sums of z and z^2, its running (max, row) of
+// s z - pen. A pool block's
+// pairs are merged over lanes (shuffles) and warps (shared memory), lowest
+// row on ties, when its last tile is done. z never leaves the registers, no
+// pool spans two blocks (no atomics, no key decode), and the column sums go
+// to per-chunk partials summed by colsum_kernel (launch 2). The blocks of
+// one row chunk run side by side (channel blocks fastest), so the C / 128
+// reads of x mostly hit L2.
+//   fp32 (the card-vs-CPU checks), ragged widths and other pools take the
+//   tile route: every product on one 64 x 128 output tile per block of 256
+//   threads (tile_mma.cuh), staged through shared memory in depth chunks of
+//   32: bf16 operands through the tensor cores with nvcuda::wmma 16x16x16
+//   tiles and fp32 accumulators; fp32 operands on the CUDA cores (4 x 8
+//   outputs a thread), so fp32 stays fp32 (no TF32).
+//   fwd_kernel (launch 1): a block owns 128 channels and a chunk of 512 rows.
 //            Per 64-row tile it forms z in shared memory; each thread then
 //            walks one channel over 32 rows, adding to its sum and sum of
 //            squares and keeping a running (max, row) per pool block. The
@@ -92,10 +111,15 @@
 // Bound on the card: operations. The forward is one product, 2 rows Cin C
 // operations (1.37e11 at rows = 256 x 2048, Cin 128, C 1024: 0.139 ms at the
 // dense bf16 tensor-core rate of 989 TFLOP/s); its bytes (x once, w, the
-// pooled outputs) take 0.040 ms at 3.35 TB/s. The backward needs three such
-// products (z, dx, dw): 0.417 ms. The bf16 backward computes four (z once in
-// each launch): the bound's 4/3, to keep 2 GB of z and dz out of device
-// memory.
+// pooled outputs) take 0.040 ms at 3.35 TB/s. What keeps the TMA + wgmma
+// forward from it is its epilogue: ~8.5 issued instructions per z element
+// (bias, rounding, two sums, the signed value, the running max and row)
+// against 128 multiply-adds of the product at Cin 128, about as many issue
+// slots as the tensor cores take clocks; a consumer's epilogue runs beside
+// the other consumer's product. The backward needs three such products (z, dx,
+// dw): 0.417 ms. The bf16
+// backward computes four (z once in each launch): the bound's 4/3, to keep
+// 2 GB of z and dz out of device memory.
 
 #include <type_traits>
 
@@ -988,7 +1012,290 @@ __global__ void __launch_bounds__(kWgThreads, 1) dw_wgmma_kernel(
   }
 }
 
+// ---------------- forward, bf16: TMA + wgmma ----------------
+
+constexpr int kFwdStages = 6;  // ring stages of 64-row x tiles
+constexpr int kFwdTile = 64;   // rows of a tile: one m64 product a consumer
+
+// Shared memory of a forward block: the ring of x tiles (CP / 64 K-major
+// atoms of 64 rows each), the block's w (two 64-channel atoms, MN-major),
+// the pool reductions' (value, row) per [parity][consumer][warp][channel],
+// the column sums per [consumer][warp][sum, sq][channel] and the mbarriers.
+template <int CP>
+struct alignas(128) FwdSmem {
+  bf16 x[kFwdStages][CP / 64][kFwdTile * 64];
+  bf16 w[2][CP * 64];
+  float red_v[2][2][4][64];
+  int red_r[2][2][4][64];
+  float stat[2][4][2][64];
+  uint64_t full[kFwdStages], empty[kFwdStages], w_full;
+};
+template <int CP>
+constexpr int fwd_smem_bytes() {
+  return 1024 + static_cast<int>(sizeof(FwdSmem<CP>));
+}
+
+// (value, row) b replaces a if larger, or equal at a lower row: a total
+// order on distinct rows, so any merge order gives the same pair.
+__device__ __forceinline__ void pool_take(float& v, int& r, float v2, int r2) {
+  if (v2 > v || (v2 == v && r2 < r)) {
+    v = v2;
+    r = r2;
+  }
+}
+
+// One block: channels c0 = 128 blockIdx.x .. (two 64-channel atoms of w,
+// resident) over the chunk of rows blockIdx.y, walked in 64-row tiles that
+// the producer streams through a ring. Consumer g takes atom g of every tile;
+// where the block has one atom (C - c0 <= 64) and a tile holds whole pool
+// blocks (pool <= 64), the consumers take alternate tiles of atom 0 instead
+// (at larger pools consumer 1 idles). Per tile, z = x_tile @ w_atom
+// (m64n64, fp32 in registers), then the epilogue on the accumulator
+// registers: z rounded to bf16 after the bias, added to the thread's column
+// sums of z and z^2 (its rows in order), and folded into the thread's
+// running (max, row) of s z - pen per channel. At a pool block's last tile
+// the (max, row) pairs are merged over the 8 lanes of a channel pair
+// (shuffles), then over the warps that share the pool block (shared
+// memory), lowest row on ties, and written. The chunk holds whole pool
+// blocks, so no pool spans two blocks. At the end the sums are reduced over
+// lanes, warps and consumers in a fixed order into part[chunk, 0 / 1, :].
+// z never leaves the registers; the two consumers' products and epilogues
+// overlap each other.
+template <int CP>
+__global__ void __launch_bounds__(kWgThreads, 1) pool_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+    const bf16* __restrict__ bias, const float* __restrict__ sign,
+    const float* __restrict__ pen, bf16* __restrict__ psel, int* __restrict__ asel,
+    float* __restrict__ part, int64_t rows, int C, int pool, int chunk_rows) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<CP>& sm = *reinterpret_cast<FwdSmem<CP>*>(hopper::align1024(smem_raw));
+  const int c0 = blockIdx.x * kDwCols;
+  const int64_t r_begin = static_cast<int64_t>(blockIdx.y) * chunk_rows;
+  const int64_t r_end = rows < r_begin + chunk_rows ? rows : r_begin + chunk_rows;
+  const int tiles = static_cast<int>((r_end - r_begin + kFwdTile - 1) / kFwdTile);
+  const int atoms = min(2, (C - c0 + 63) / 64);
+  const bool alternate = atoms == 1 && pool <= kFwdTile;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      hopper::mbar_init(&sm.full[i], 1);
+      hopper::mbar_init(&sm.empty[i], atoms == 2 ? 8 : 4);  // the warps reading a stage
+    }
+    hopper::mbar_init(&sm.w_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // the warpgroup, broadcast from lane 0: ptxas then sees warp-uniform
+  // branches around the products
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWg, 0);
+
+  if (wg == 0) {  // producer
+    hopper::regs_release<40>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(&sm.w_full, atoms * CP * 64 * 2);
+      for (int a = 0; a < atoms; ++a)
+        hopper::tma_load_2d(sm.w[a], &map_w, &sm.w_full, c0 + 64 * a, 0);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < tiles; ++t) {
+        hopper::mbar_wait(&sm.empty[stage], phase ^ 1);
+        hopper::mbar_expect_tx(&sm.full[stage], CP / 64 * kAtom * 2);
+        for (int a = 0; a < CP / 64; ++a)
+          hopper::tma_load_2d(sm.x[stage][a], &map_x, &sm.full[stage], 64 * a,
+                              static_cast<int>(r_begin) + t * kFwdTile);
+        if (++stage == kFwdStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hopper::regs_claim<232>();
+  const int g = wg - 1;
+  const int tid = threadIdx.x % kWg, warp = tid / 32, lane = tid % 32;
+  const int rq = warp * 16 + lane / 4, cq = 2 * (lane % 4);
+  const int atom = alternate ? 0 : g;
+  const int t0 = alternate ? g : 0, dt = alternate ? 2 : 1;
+  const int mine = atom < atoms ? (tiles - t0 + dt - 1) / dt : 0;  // this consumer's tiles
+  const int cb = c0 + 64 * atom;  // the atom's first channel
+  // warps that share a pool block (1, 2 or 4) and pool blocks a tile holds
+  const int wpb = (pool < kFwdTile ? pool : kFwdTile) / 16, per_tile = 4 / wpb;
+  float bb[16], sg[16], sum[16], sq[16], best[16];
+  int brow[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int c = cb + 8 * (i / 2) + cq + (i % 2);
+    bb[i] = c < C ? __bfloat162float(bias[c]) : 0.f;
+    sg[i] = c < C ? sign[c] : 1.f;
+    sum[i] = sq[i] = 0.f;
+    best[i] = -INFINITY;
+    brow[i] = 0;
+  }
+  int reductions = 0;
+
+  // rows fit int32 (ops/dense_bn_pool.py _MAX_ROWS): the tile's row
+  // arithmetic stays 32-bit
+  const int row_begin = static_cast<int>(r_begin), row_end = static_cast<int>(r_end);
+  const int blocks = static_cast<int>(rows / pool), in_q = rq % pool;
+  // the epilogue of tile t from its accumulator fragment z; `at`: the tile's
+  // first row within its pool block (0 where pool <= 64)
+  const auto epilogue = [&](float (&z)[32], int t, int at) {
+    const int row0 = row_begin + t * kFwdTile, ra = row0 + rq;
+    // a 16-row warp slice lies in or past the rows: lane 0's answer, a
+    // warp-uniform branch around the reads of the accumulators
+    const bool ok = __shfl_sync(0xffffffffu, ra < row_end, 0);
+    const int in_a = at + in_q, in_b = in_a + 8;
+    if (at == 0) {  // a new pool block
+#pragma unroll
+      for (int i = 0; i < 16; ++i) best[i] = -INFINITY, brow[i] = in_a;
+    }
+    if (ok) {
+      const float npa = pen != nullptr ? -pen[ra] : -0.f;
+      const float npb = pen != nullptr ? -pen[ra + 8] : -0.f;  // ra + 8 < row_end
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        // rounded to bf16 in pairs and widened back by a shift and a mask
+        const uint32_t ha = pack_bf16(
+            make_float2(__fadd_rn(z[4 * j], bb[2 * j]), __fadd_rn(z[4 * j + 1], bb[2 * j + 1])));
+        const uint32_t hb = pack_bf16(make_float2(__fadd_rn(z[4 * j + 2], bb[2 * j]),
+                                                  __fadd_rn(z[4 * j + 3], bb[2 * j + 1])));
+        const float za[2] = {__uint_as_float(ha << 16), __uint_as_float(ha & 0xffff0000u)};
+        const float zb[2] = {__uint_as_float(hb << 16), __uint_as_float(hb & 0xffff0000u)};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * j + h;
+          sum[i] = __fadd_rn(__fadd_rn(sum[i], za[h]), zb[h]);
+          sq[i] = __fmaf_rn(zb[h], zb[h], __fmaf_rn(za[h], za[h], sq[i]));
+          // s z - pen in one rounding (s z is exact), strict: the lower row
+          // wins ties (-0 and +0 compare equal)
+          const float va = __fmaf_rn(sg[i], za[h], npa);
+          if (va > best[i]) best[i] = va, brow[i] = in_a;
+          const float vb = __fmaf_rn(sg[i], zb[h], npb);
+          if (vb > best[i]) best[i] = vb, brow[i] = in_b;
+        }
+      }
+    }
+    if (at + kFwdTile < pool) return;  // the pool block goes on
+    // the pool block's (max, row): the 8 lanes of a channel pair, then its warps
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        pool_take(best[i], brow[i], __shfl_xor_sync(0xffffffffu, best[i], off),
+                  __shfl_xor_sync(0xffffffffu, brow[i], off));
+    }
+    const int blk0 = row0 / pool;
+    if (wpb == 1) {  // a warp holds a whole pool block
+      const int64_t blk = blk0 + warp;
+      if (lane < 4 && blk < blocks) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = cb + 8 * j + cq;
+          if (c < C) {
+            *reinterpret_cast<__nv_bfloat162*>(psel + blk * C + c) =
+                __floats2bfloat162_rn(best[2 * j] + 0.f, best[2 * j + 1] + 0.f);
+            *reinterpret_cast<int2*>(asel + blk * C + c) = make_int2(brow[2 * j], brow[2 * j + 1]);
+          }
+        }
+      }
+      return;
+    }
+    const int par = reductions++ & 1;
+    if (lane < 4) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int cl = 8 * (i / 2) + cq + (i % 2);
+        sm.red_v[par][g][warp][cl] = best[i];
+        sm.red_r[par][g][warp][cl] = brow[i];
+      }
+    }
+    hopper::named_sync(2 + g, kWg);
+    for (int e = tid; e < per_tile * 64; e += kWg) {
+      const int pb = e / 64, cl = e % 64, c = cb + cl;
+      const int64_t blk = blk0 + pb;  // pb = 0 where pool >= 64
+      float v = sm.red_v[par][g][pb * wpb][cl];
+      int r = sm.red_r[par][g][pb * wpb][cl];
+      for (int w = 1; w < wpb; ++w)
+        pool_take(v, r, sm.red_v[par][g][pb * wpb + w][cl], sm.red_r[par][g][pb * wpb + w][cl]);
+      if (c < C && blk < blocks) {
+        psel[blk * C + c] = __float2bfloat16_rn(v + 0.f);  // -0 as +0
+        asel[blk * C + c] = r;
+      }
+    }
+  };
+
+  // tile by tile: the product, waited for at once, then the stage released
+  // and the epilogue on the accumulators. (Issuing the next tile's product
+  // into a second accumulator before this epilogue makes ptxas serialize
+  // every wgmma, C7514: its reads of one buffer fall inside the other's
+  // pipeline stage; measured slower than this order.)
+  float acc[32];
+  if (mine > 0) hopper::mbar_wait(&sm.w_full, 0);
+  int at = (row_begin + t0 * kFwdTile) % pool;  // the tile's first row in its pool block
+  for (int i = 0; i < mine; ++i) {
+    const int t = t0 + i * dt, stage = t % kFwdStages;
+    hopper::mbar_wait(&sm.full[stage], (t / kFwdStages) & 1);
+    z_product<CP, kFwdTile>(acc, sm.x[stage], 0, sm.w[atom]);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[stage]);
+    epilogue(acc, t, pool > kFwdTile ? at : 0);
+    if ((at += dt * kFwdTile) >= pool) at -= pool;
+  }
+  // column sums: the 8 lanes of a channel pair, the warps in order, the
+  // consumers in order where they shared the atom
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+      sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
+    }
+  }
+  if (lane < 4) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int cl = 8 * (i / 2) + cq + (i % 2);
+      sm.stat[g][warp][0][cl] = sum[i];
+      sm.stat[g][warp][1][cl] = sq[i];
+    }
+  }
+  hopper::named_sync(1, 2 * kWg);
+  // consumer g writes atom g; where the consumers shared atom 0, consumer 0
+  // adds both in order (thread tid: sum or sum of squares of channel tid % 64)
+  if (atoms == 2 || g == 0) {
+    const int q = tid / 64, cl = tid % 64, c = c0 + 64 * g + cl;
+    float s = 0.f;
+    for (int h = atoms == 2 ? g : 0; h <= (atoms == 2 ? g : 1); ++h)
+      for (int w = 0; w < 4; ++w) s += sm.stat[h][w][q][cl];
+    if (c < C) part[(static_cast<int64_t>(blockIdx.y) * 2 + q) * C + c] = s;
+  }
+}
+
 bool misaligned(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) != 0; }
+
+template <int CP>
+int forward_wgmma(const bf16* x, const bf16* w, const bf16* bias, const float* sign,
+                  const float* pen, bf16* psel, int* asel, float* stats, float* part,
+                  int64_t rows, int cin, int C, int pool, int chunk_rows, cudaStream_t s) {
+  if (chunk_rows < 1 || chunk_rows % kFwdTile != 0 || chunk_rows % pool != 0 ||
+      rows % pool != 0 || pool < 16 || (pool % kFwdTile != 0 && kFwdTile % pool != 0) ||
+      misaligned(x) || misaligned(w) || fwd_smem_bytes<CP>() > kSmemLimit)
+    return kBadArgs;
+  CUtensorMap map_x, map_w;
+  if (!hopper::bf16_map(&map_x, x, cin, rows, cin, 64, kFwdTile) ||
+      !hopper::bf16_map(&map_w, w, C, cin, C, 64, CP))
+    return kBadArgs;
+  const void* kernel = reinterpret_cast<const void*>(&pool_fwd_wgmma_kernel<CP>);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         fwd_smem_bytes<CP>());
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunks = static_cast<int>((rows + chunk_rows - 1) / chunk_rows);
+  pool_fwd_wgmma_kernel<CP><<<dim3((C + kDwCols - 1) / kDwCols, chunks), kWgThreads,
+                              fwd_smem_bytes<CP>(), s>>>(map_x, map_w, bias, sign, pen, psel,
+                                                         asel, part, rows, C, pool, chunk_rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  colsum_kernel<<<blocks_for(2 * C), kThreads, 0, s>>>(part, stats, chunks, 2 * C);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int CP>
 int backward_wgmma(const bf16* x, const bf16* w, const int* asel, const float* dpsel,
@@ -1047,17 +1354,38 @@ int backward_wgmma(const bf16* x, const bf16* w, const int* asel, const float* d
 }  // namespace
 
 // Plain C entry points for ctypes. Device pointers of contiguous tensors;
-// is_bf16 picks T (bf16 when 1, fp32 when 0). Forward scratch: keys
-// (rows / pool * C) uint64 and part (n_chunks, 2, C) fp32; stats (2, C) fp32
-// receives ssum then ssq. Each returns the CUDA error of its launches (0 on
-// success; cudaErrorInvalidValue for a geometry its route does not take);
-// the caller checked shapes and bounds.
+// is_bf16 picks T (bf16 when 1, fp32 when 0). stats (2, C) fp32 receives
+// ssum then ssq; part (ceil(rows / chunk_rows), 2, C) fp32 is scratch. Each
+// returns the CUDA error of its launches (0 on success;
+// cudaErrorInvalidValue for a geometry its route does not take); the caller
+// checked shapes and bounds.
+// The forward. route 0 (tile): T from is_bf16, blocks of chunk_rows rows,
+// keys (rows / pool * C) uint64 scratch. route 1 (TMA + wgmma, bf16 only):
+// Cin <= 128 and C multiples of 8, cin_pad = 64 for Cin <= 64 else 128, a
+// pool of 16 or 32 rows or a multiple of 64, chunk_rows a multiple of 64 and
+// of the pool, x and w 16-byte aligned (ops/dense_bn_pool.py pool_fwd_plan);
+// keys unused.
 extern "C" int dense_pool_stats_fwd_launch(
     const void* x, const void* w, const void* bias, const float* sign,
     const float* pen, void* psel, int* asel, float* stats, void* keys,
     float* part, long long rows, int cin, int c, int pool, int chunk_rows,
-    int is_bf16, void* stream) {
+    int route, int cin_pad, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 1 || cin < 1 || c < 1 || pool < 1) return kBadArgs;
+  if (route == 1) {
+    if (!is_bf16 || cin % 8 != 0 || c % 8 != 0 || cin > 128 ||
+        cin_pad != (cin <= 64 ? 64 : 128))
+      return kBadArgs;
+    const auto* xb = static_cast<const bf16*>(x);
+    const auto* wb = static_cast<const bf16*>(w);
+    const auto* bb = static_cast<const bf16*>(bias);
+    auto* pb = static_cast<bf16*>(psel);
+    return cin_pad == 64 ? forward_wgmma<64>(xb, wb, bb, sign, pen, pb, asel, stats, part, rows,
+                                             cin, c, pool, chunk_rows, s)
+                         : forward_wgmma<128>(xb, wb, bb, sign, pen, pb, asel, stats, part,
+                                              rows, cin, c, pool, chunk_rows, s);
+  }
+  if (route != 0 || chunk_rows < 1) return kBadArgs;
   auto* k = static_cast<unsigned long long*>(keys);
   if (is_bf16) {
     return forward<bf16>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),

@@ -25,6 +25,7 @@ from pointcloud_tpu_torch.ops.dense_bn_pool import (  # noqa: F401
     dense_pool_stats_bwd,
     dense_pool_stats_reference,
     pool_bwd_plan,
+    pool_fwd_plan,
 )
 from pointcloud_tpu_torch.ops.emd import (  # noqa: F401
     auction_match,
@@ -93,6 +94,7 @@ from pointcloud_tpu_torch.ops.sinkhorn import (  # noqa: F401
     eps_schedule,
     matching_difference,
     sinkhorn,
+    sinkhorn_plan,
     sinkhorn_reference,
     top_two_gap,
 )

@@ -9,8 +9,9 @@ max-pool, so the kernels never store it (nor its gradient) in device memory.
 
 `dense_pool_stats` takes the plain version `dense_pool_stats_reference`
 (gradients from autograd) only for CPU tensors; for CUDA tensors it runs the
-forward kernel, and its backward runs `dense_pool_stats_bwd`, the backward
-kernels, on the route `pool_bwd_plan` picks from the shape and dtype.
+forward kernels on the route `pool_fwd_plan` picks from the shape and dtype,
+and its backward runs `dense_pool_stats_bwd`, the backward kernels, on the
+route `pool_bwd_plan` picks.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import torch
 from pointcloud_tpu_torch.ops import _build
 from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT, SMS, sm_count, split
 
-_FWD_CHUNK_ROWS = 512  # rows a forward block owns (csrc/dense_bn_pool.cu)
+_FWD_CHUNK_ROWS = 512  # rows a forward block owns on the tile route
+_FWD_TILE = 64  # rows of a wgmma forward tile (csrc kFwdTile)
+_FWD_STAGES = 6  # ring stages of the wgmma forward (csrc kFwdStages)
 _DW_CHUNKS = 64  # at most this many row chunks of dw partials (tile route)
 _TILE_ROWS = 64
 _MAX_ROWS = 65535 * _TILE_ROWS  # gridDim.y of the tile route's dx launch
@@ -119,6 +122,66 @@ def pool_bwd_plan(rows: int, cin: int, c: int, bf16: bool, pool: int,
                        chunk, -(-rows // chunk), 0, 0)
 
 
+class PoolFwdPlan(NamedTuple):
+    """Route and launch geometry of one `dense_pool_stats` forward call."""
+    rows: int
+    cin: int
+    c: int
+    pool: int
+    route: str  # "wgmma" (TMA + wgmma, bf16) or "tile" (tile_mma.cuh)
+    cin_pad: int  # wgmma: Cin rounded up to 64 or 128 (the x tile's width)
+    chunk_rows: int  # rows a block walks (wgmma: whole pool blocks and tiles)
+    chunks: int
+    col_blocks: int  # blocks across C (128 channels each)
+    smem: int  # wgmma: dynamic shared memory of a block, bytes
+
+
+def _fwd_smem(cin_pad: int) -> int:
+    """csrc/dense_bn_pool.cu fwd_smem_bytes: 1024 bytes of alignment slack;
+    the struct (_FWD_STAGES x tiles of 64 rows x cin_pad bf16, the block's w
+    (two 64-channel atoms of cin_pad rows), the pool reductions' value and
+    row (2 parities x 2 consumers x 4 warps x 64 channels, 4 bytes each),
+    the column sums (2 consumers x 4 warps x 2 x 64 fp32), 2 _FWD_STAGES + 1
+    mbarriers; padded to 128 bytes)."""
+    struct = (_FWD_STAGES * _FWD_TILE * cin_pad * 2 + 2 * cin_pad * 64 * 2
+              + 2 * (2 * 2 * 4 * 64 * 4) + 2 * 4 * 2 * 64 * 4 + (2 * _FWD_STAGES + 1) * 8)
+    return 1024 + -(-struct // 128) * 128
+
+
+@functools.lru_cache(maxsize=256)
+def pool_fwd_plan(rows: int, cin: int, c: int, bf16: bool, pool: int,
+                  sms: int = SMS) -> PoolFwdPlan:
+    """The forward kernels' route and geometry for rows x (Cin -> C) in
+    pool blocks of `pool` rows.
+
+    bf16 with Cin <= 128 and Cin, C multiples of 8 (TMA reads 16-byte rows)
+    at a pool of 16 or 32 rows or a multiple of 64 (a 16-row warp slice of
+    a tile never straddles two pool blocks; every driven shape: PointNet's
+    128 -> 1024 at 2048, the MSG branches' 32-128 -> 64-256 at 16-128) takes
+    TMA + wgmma: blocks of 128 channels of C over chunks of whole pool
+    blocks and 64-row tiles, in whole waves of one block an SM (`split`),
+    so that no pool block spans two blocks. fp32 (the card-vs-CPU checks),
+    ragged widths, Cin > 128 and other pools take the tile route (64 x 128
+    tiles of tile_mma.cuh over chunks of _FWD_CHUNK_ROWS rows, pool blocks
+    merged across chunks by an order-free atomicMax). Shapes no route takes
+    (rows past the tile route's grid, empty widths, a pool that does not
+    divide the rows) raise ValueError."""
+    if not (1 <= rows <= _MAX_ROWS and cin >= 1 and c >= 1 and pool >= 1
+            and rows % pool == 0):
+        raise ValueError(f"dense_pool_stats kernel bounds exceeded: rows={rows} "
+                         f"Cin={cin} C={c} pool={pool}")
+    col_blocks = -(-c // 128)
+    cin_pad = 64 if cin <= 64 else 128
+    if bf16 and cin % 8 == 0 and c % 8 == 0 and cin <= _WG_MAX_CIN and pool >= 16 \
+            and (pool % _FWD_TILE == 0 or _FWD_TILE % pool == 0) \
+            and _fwd_smem(cin_pad) <= SMEM_LIMIT:
+        chunk, chunks = split(rows, max(pool, _FWD_TILE), col_blocks, sms)
+        return PoolFwdPlan(rows, cin, c, pool, "wgmma", cin_pad, chunk, chunks,
+                           col_blocks, _fwd_smem(cin_pad))
+    return PoolFwdPlan(rows, cin, c, pool, "tile", 0, _FWD_CHUNK_ROWS,
+                       -(-rows // _FWD_CHUNK_ROWS), col_blocks, 0)
+
+
 def dense_pool_stats_reference(x, w, bias, sign, pen, pool: int):
     """Plain PyTorch version of `dense_pool_stats` (a port of
     pointcloud_tpu/ops/dense_bn_pool.py:401-425), with the kernel's single
@@ -180,7 +243,7 @@ def _launchers():
     lib = _build.load("dense_bn_pool")
     fwd = lib.dense_pool_stats_fwd_launch
     fwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     fwd.restype = ctypes.c_int
     bwd = lib.dense_pool_stats_bwd_launch
     bwd.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_longlong]
@@ -198,22 +261,25 @@ def _forward_kernel(x, w, bias, sign, pen, pool):
     C = w.shape[1]
     rows = B * R
     dev = x.device
-    n_chunks = -(-rows // _FWD_CHUNK_ROWS)
+    plan = pool_fwd_plan(rows, Cin, C, x.dtype == torch.bfloat16, pool,
+                         sm_count(dev.index))
     psel = torch.empty((B, R // pool, C), dtype=x.dtype, device=dev)
     asel = torch.empty((B, R // pool, C), dtype=torch.int32, device=dev)
     stats = torch.empty((2, C), dtype=torch.float32, device=dev)
-    keys = torch.empty((rows // pool, C), dtype=torch.int64, device=dev)
-    part = torch.empty((n_chunks, 2, C), dtype=torch.float32, device=dev)
+    keys = (torch.empty((rows // pool, C), dtype=torch.int64, device=dev)
+            if plan.route == "tile" else None)
+    part = torch.empty((plan.chunks, 2, C), dtype=torch.float32, device=dev)
     fwd, _ = _launchers()
     with torch.cuda.device(dev):
         err = fwd(
             _ptr(x), _ptr(w), _ptr(bias), _ptr(sign), _ptr(pen), _ptr(psel),
             _ptr(asel), _ptr(stats), _ptr(keys), _ptr(part), rows, Cin, C,
-            pool, _FWD_CHUNK_ROWS, int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream,
+            pool, plan.chunk_rows, _ROUTES.index(plan.route), plan.cin_pad,
+            int(x.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"dense_pool_stats kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dense_pool_stats kernel launch failed on the "
+                           f"{plan.route} route: CUDA error {err}")
     dense_pool_stats.launches += 1
     return psel, asel, stats[0], stats[1]
 

@@ -25,14 +25,59 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from pointcloud_tpu_torch.ops import _build
+from pointcloud_tpu_torch.ops._launch import SMS, sm_count
 
 _MAX_BATCH = 65535  # gridDim.y
 _MAX_ROWS = (1 << 31) // 3  # keeps every int32 index and offset in range
 _CHUNK_BYTES = 1 << 30  # cost matrices the plain version holds at a time
+_THREADS = 256  # threads of a sweep block (csrc/sinkhorn.cu kThreads)
+_OUTPUTS = 4  # outputs a thread (kOut)
+_SPLITS = (1, 2, 4, 8)  # q splits the sweep takes
+
+
+class SinkhornPlan(NamedTuple):
+    """Launch geometry of one `sinkhorn` call's sweeps: the g half-step
+    over y's M points (q over x), the f half-step over x's N points."""
+    B: int
+    N: int
+    M: int
+    outputs: int  # outputs a thread
+    split_x: int  # q split of the sweep whose outputs are x's points
+    blocks_x: int  # its blocks a cloud
+    split_y: int
+    blocks_y: int
+
+
+def _sweep_geometry(B: int, P: int, sms: int) -> tuple:
+    """(split, blocks a cloud) of a sweep over P outputs: the fewest q
+    groups whose blocks reach two a streaming multiprocessor, at most 8."""
+    for sp in _SPLITS:
+        blocks = -(-P // (_THREADS // sp * _OUTPUTS))
+        if B * blocks >= 2 * sms:
+            break
+    return sp, blocks
+
+
+@functools.lru_cache(maxsize=256)
+def sinkhorn_plan(B: int, N: int, M: int, sms: int = SMS) -> SinkhornPlan:
+    """The sweeps' geometry for B clouds of N against M points: _OUTPUTS
+    outputs a thread (one shared-memory read serves as many pairs), and the
+    q range of each staged tile split over 1, 2, 4 or 8 groups of warps
+    when B alone gives fewer than two blocks an SM (`_sweep_geometry`; the
+    groups' sums are merged in a fixed order). Shapes past the kernel's
+    index range (gridDim.y = B <= 65535, int32 offsets) or empty raise
+    ValueError."""
+    if not (1 <= B <= _MAX_BATCH and N >= 1 and M >= 1
+            and B * N <= _MAX_ROWS and B * M <= _MAX_ROWS):
+        raise ValueError(f"sinkhorn kernel bounds exceeded: B={B} N={N} M={M}")
+    split_x, blocks_x = _sweep_geometry(B, N, sms)
+    split_y, blocks_y = _sweep_geometry(B, M, sms)
+    return SinkhornPlan(B, N, M, _OUTPUTS, split_x, blocks_x, split_y, blocks_y)
 
 
 def eps_schedule(eps: float, iters: int, anneal_from: float | None = None):
@@ -145,7 +190,7 @@ def matching_difference(x, y, f, g, got, want):
 @functools.cache
 def _launcher():
     fn = _build.load("sinkhorn").sinkhorn_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -178,9 +223,9 @@ def sinkhorn(x, y, eps: float = 0.005, iters: int = 50,
 
     CPU tensors take the plain version. CUDA tensors launch the kernels, for
     every N and M (the TPU kernel's N % 64 gate was a tile limit of that
-    kernel) up to the int32 index range; anything else raises.
-    `sinkhorn.launches` counts the calls that launched the kernels (one call
-    enqueues 2 iters + 1 CUDA kernels).
+    kernel) up to the int32 index range, in the geometry of `sinkhorn_plan`;
+    anything else raises. `sinkhorn.launches` counts the calls that launched
+    the kernels (one call enqueues 2 iters + 1 CUDA kernels).
     """
     device = _check(x, y, iters)
     schedule = eps_schedule(eps, int(iters), anneal_from)
@@ -189,8 +234,7 @@ def sinkhorn(x, y, eps: float = 0.005, iters: int = 50,
     if device.type != "cuda":
         raise ValueError(f"sinkhorn runs on CPU or CUDA tensors, not {device}")
     B, N, M = x.shape[0], x.shape[1], y.shape[1]
-    if not (B <= _MAX_BATCH and B * N <= _MAX_ROWS and B * M <= _MAX_ROWS):
-        raise ValueError(f"sinkhorn kernel bounds exceeded: B={B} N={N} M={M}")
+    plan = sinkhorn_plan(B, N, M, sm_count(device.index))
     x3 = x[..., :3].detach().float().contiguous()
     y3 = y[..., :3].detach().float().contiguous()
     f = torch.zeros((B, N), dtype=torch.float32, device=device)
@@ -201,8 +245,9 @@ def sinkhorn(x, y, eps: float = 0.005, iters: int = 50,
     with torch.cuda.device(device):  # the library launches on the current one
         err = launch(
             x3.data_ptr(), y3.data_ptr(), f.data_ptr(), g.data_ptr(),
-            dists.data_ptr(), assignment.data_ptr(), schedule.data_ptr(),
-            int(iters), B, N, M, torch.cuda.current_stream(device).cuda_stream,
+            dists.data_ptr(), assignment.data_ptr(),
+            schedule.data_ptr(), int(iters), B, N, M, plan.split_x, plan.split_y,
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"sinkhorn kernel launch failed: CUDA error {err}")

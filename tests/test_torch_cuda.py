@@ -48,10 +48,12 @@ from pointcloud_tpu_torch.ops import (
     nn_sweep,
     nn_sweep_reference,
     pool_bwd_plan,
+    pool_fwd_plan,
     scatter_rows,
     scatter_rows_reference,
     sinkhorn,
     sinkhorn_match,
+    sinkhorn_plan,
     sinkhorn_reference,
     preextract_pool_fused,
     preextract_pool_reference,
@@ -1529,3 +1531,179 @@ def test_pool_bwd_small_pools_match_plain(dev, pool, route):
 def test_pool_bwd_fp32_pointnet_shape_matches_plain(dev):
     assert pool_bwd_plan(2 * 2048, 128, 1024, False, 2048).route == "tile"
     check_pool_bwd(dev, 24, 2, 2048, 128, 1024, 2048, torch.float32, True)
+
+
+# ---- the dense-pool forward on TMA + wgmma, and the Sinkhorn sweep's plan ----
+
+def check_pool_fwd(x, w, b, s, pen, pool, route):
+    """dense_pool_stats' forward on `route`, twice (bit-equal), against the
+    plain version: bf16 psel within 1 bf16 ulp of |psel| (the tensor cores'
+    sum order can flip one rounding of z), asel equal wherever the
+    runner-up lies more than 1 ulp below, ssum / ssq within 1e-3 relative
+    to the largest entry; fp32 psel, ssum, ssq within 1e-4 relative and asel
+    equal off 1e-5 gaps. Returns (kernel outputs, plain outputs)."""
+    B, R, Cin = x.shape
+    C = w.shape[1]
+    assert pool_fwd_plan(B * R, Cin, C, x.dtype == torch.bfloat16, pool).route == route
+    got = dense_pool_stats(x, w, b, s, pen, pool)
+    again = dense_pool_stats(x, w, b, s, pen, pool)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = dense_pool_stats_reference(x, w, b, s, pen, pool)
+    assert got[0].dtype == x.dtype and got[1].dtype == torch.int32
+    assert got[0].shape == got[1].shape == (B, R // pool, C)
+    z = (torch.matmul(x.float(), w.float()) + b.float()).to(x.dtype).float()
+    zs = z * s - (0.0 if pen is None else pen[..., None])
+    top2 = torch.topk(zs.reshape(B, R // pool, pool, C), 2, dim=2).values
+    if x.dtype == torch.float32:
+        tol = 1e-4 * want[0].abs().max()
+        gap = top2[:, :, 0] - top2[:, :, 1] > 1e-5 * top2[:, :, 0].abs()
+        assert (got[0] - want[0]).abs().max() <= tol
+        stat_tol = 1e-4
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want[0].float().abs().clamp_min(1e-30))) - 7)
+        assert ((got[0].float() - want[0].float()).abs() <= ulp).all()
+        top_ulp = torch.exp2(torch.floor(torch.log2(top2[:, :, 0].abs().clamp_min(1e-30))) - 7)
+        gap = top2[:, :, 0] - top2[:, :, 1] > top_ulp
+        stat_tol = 1e-3
+    assert torch.equal(got[1][gap], want[1][gap])
+    for a, r in zip(got[2:], want[2:]):
+        assert (a - r).abs().max() <= stat_tol * r.abs().max()
+    return got, want
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_pool_fwd_pointnet_shape_matches_plain(dev, masked):
+    """PointNet's 128 -> 1024 at a pool of 2048 (two clouds), with and
+    without pen, on TMA + wgmma."""
+    check_pool_fwd(*dense_case(dev, 31, 2, 2048, 128, 1024, torch.bfloat16, masked),
+                   2048, "wgmma")
+
+
+@pytest.mark.parametrize("cin,c,S,pool", MSG_BRANCHES)
+def test_pool_fwd_msg_branches_match_plain(dev, cin, c, S, pool):
+    """Each MSG branch's last layer (Cin -> C at its pool, S centroids, two
+    clouds), masked rows, on TMA + wgmma: Cin 32 / 96 padded by TMA's zero
+    fill, C = 64 on one channel atom (the consumers alternate tiles),
+    pools of 16 and 32 under a tile, 64 and 128 over one or two."""
+    check_pool_fwd(*dense_case(dev, 32, 2, S * pool, cin, c, torch.bfloat16, True),
+                   pool, "wgmma")
+
+
+@pytest.mark.parametrize("cin,c,pool", [(128, 1024, 2048), (32, 64, 16), (64, 128, 32),
+                                        (128, 256, 128)])
+def test_pool_fwd_fully_masked_pool_block(dev, cin, c, pool):
+    """Every row of pool block 1 of cloud 0 masked (pen 1e9): s z - 1e9
+    rounds to -1e9 on all of them, a tie the lowest row wins (row 0), as in
+    the plain version."""
+    x, w, b, s, _ = dense_case(dev, 33, 2, 4 * pool, cin, c, torch.bfloat16, False)
+    pen = torch.zeros((2, 4 * pool), device=dev)
+    pen[0, pool:2 * pool] = 1e9
+    got, want = check_pool_fwd(x, w, b, s, pen, pool, "wgmma")
+    assert torch.equal(got[1][0, 1], want[1][0, 1])
+    assert bool((got[1][0, 1] == 0).all())
+    assert torch.equal(got[0][0, 1].float(), want[0][0, 1].float())
+
+
+@pytest.mark.parametrize("cin,c,pool,rows", [
+    (128, 1024, 2048, (5, 37, 84, 1500, 2047)),  # warps, tiles, the last row
+    (128, 256, 128, (3, 50, 64, 127)),  # both tiles of a pool of 128
+    (64, 128, 32, (17, 20, 31)),  # the two warps of a pool of 32
+    (32, 64, 16, (1, 9, 15)),  # lanes of one warp; consumers alternate tiles
+])
+def test_pool_fwd_planted_ties_take_the_lowest_row(dev, cin, c, pool, rows):
+    """Equal maxima planted in one pool block of each cloud (copies of one
+    row, scaled to dominate; copies give equal z bit for bit) in different
+    lanes, warps and tiles: wherever the copies are the maximum, asel is
+    the lowest copy in both versions."""
+    x, w, b, s, _ = dense_case(dev, 34, 2, 2 * pool, cin, c, torch.bfloat16, False)
+    x[:, pool + rows[0]] *= 8.0
+    for r in rows[1:]:
+        x[:, pool + r] = x[:, pool + rows[0]]
+    got, want = check_pool_fwd(x, w, b, s, None, pool, "wgmma")
+    planted = want[1][:, 1] == rows[0]
+    assert bool(planted.any())
+    assert bool((got[1][:, 1][planted] == rows[0]).all())
+
+
+def test_pool_fwd_negative_and_positive_zero_tie(dev):
+    """A pool block whose maximum is zero, reached as -0 (s = -1, z = +0,
+    pen = +0) on a lower row and as +0 (pen = -0) on a higher one: they
+    compare equal, so the lower row wins, as torch.max's first index."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    B, R, cin, c, pool = 2, 256, 64, 128, 128
+    x = torch.rand((B, R, cin), generator=g, device=dev).add_(0.1).bfloat16()
+    w = torch.rand((cin, c), generator=g, device=dev).add_(0.1).div_(cin).bfloat16()
+    b = torch.zeros((c,), device=dev, dtype=torch.bfloat16)
+    s = -torch.ones((c,), device=dev)  # s z < 0 but on the zero rows
+    pen = torch.zeros((B, R), device=dev)
+    zero_rows = (pool + 9, pool + 40, pool + 100)
+    for r in zero_rows:
+        x[:, r] = 0.0
+    pen[:, zero_rows[1]] = -0.0  # -(+0) - (-0) = +0 on the middle row
+    got, want = check_pool_fwd(x, w, b, s, pen, pool, "wgmma")
+    assert bool((got[1][:, 1] == 9).all()) and bool((want[1][:, 1] == 9).all())
+    assert bool((got[0][:, 1].float() == 0).all())
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.float32, (2, 2048, 128, 1024, 2048)),
+                                         (torch.bfloat16, (3, 150, 72, 200, 30)),
+                                         (torch.float32, (3, 150, 72, 200, 30))])
+def test_pool_fwd_tile_route_matches_plain(dev, dtype, shape):
+    """fp32 (the card-vs-CPU checks) and Cin = 72, C = 200 at a pool of 30
+    (a pool that no warp slice fits) keep the tile route."""
+    B, R, cin, c, pool = shape
+    check_pool_fwd(*dense_case(dev, 36, B, R, cin, c, dtype, True), pool, "tile")
+
+
+# name: (B, N, M, eps, iters, anneal, scale, offset, split_x); the clouds
+# are uniform in offset + [-scale / 2, scale / 2]^3
+SINKHORN_PLANS = {
+    "N != M, one cloud (8 groups)": (1, 1500, 2500, 0.005, 50, None, 1.0, 0.0, 8),
+    "N and M no thread count divides": (2, 1021, 997, 0.005, 50, None, 1.0, 0.0, 8),
+    "B = 1024, no split": (1024, 64, 64, 0.01, 30, None, 1.0, 0.0, 1),
+    "annealed to eps 0.002": (4, 700, 700, 0.002, 60, 0.1, 1.0, 0.0, 8),
+    "one iteration": (4, 256, 256, 0.005, 1, None, 1.0, 0.0, 8),
+    "a cloud over [-50, 50], eps scaled with it": (2, 1024, 1024, 50.0, 50, None, 100.0,
+                                                    0.0, 8),
+    "a unit cloud 50 from the origin": (2, 1024, 1024, 0.005, 50, None, 1.0, 50.0, 8),
+    "the AE + EMD batch's split": (128, 2048, 2048, 0.005, 50, None, 1.0, 0.0, 2),
+}
+
+
+@pytest.mark.parametrize("name", SINKHORN_PLANS)
+def test_sinkhorn_plans_match_plain(dev, name):
+    """`sinkhorn` at each geometry of `sinkhorn_plan` (q splits of 1, 2 and
+    8 groups, ragged tiles and blocks), at the eps rule's ends, on a cloud
+    100 wide (the unit problem scaled by 100, eps by 100^2: the same
+    matching, scores and rounding 10^4 larger) and on a unit cloud 50 from
+    the origin (where a distance formed as |a|^2 - 2 a.b + |b|^2 would
+    round at 10^4 times the distances that matter): two runs bit-equal; at
+    least 99.5% of the rows equal to the plain version's (90% after one
+    iteration, whose ties are structural), the others within 1e-6 in score;
+    dists within 1e-6 where the rows agree."""
+    B, N, M, eps, iters, anneal, scale, offset, split_x = SINKHORN_PLANS[name]
+    assert sinkhorn_plan(B, N, M).split_x == split_x
+    rng = np.random.default_rng(41)
+    x = torch.from_numpy((rng.random((B, N, 3), dtype=np.float32) - 0.5) * scale + offset)
+    y = torch.from_numpy((rng.random((B, M, 3), dtype=np.float32) - 0.5) * scale + offset)
+    x, y = x.to(dev), y.to(dev)
+    got = sinkhorn(x, y, eps, iters, anneal)
+    again = sinkhorn(x, y, eps, iters, anneal)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    *want, f, g = sinkhorn_reference(x, y, eps_schedule(eps, iters, anneal))
+    same, gap, d_err = matching_difference(x, y, f, g, got, want)
+    share = 0.9 if iters == 1 else 0.995
+    assert same >= share and gap <= 1e-6 and d_err <= 1e-6, (same, gap, d_err)
+
+
+@pytest.mark.parametrize("B,N", [(1, 700), (3, 512)])
+def test_sinkhorn_identical_clouds_give_the_identity_when_split(dev, B, N):
+    """y = x at a q split of 8 groups of warps (one cloud of 700 points,
+    three of 512): the identity, every distance 0."""
+    x, _ = sinkhorn_case(dev, 42, B, N, N, 3)
+    assert sinkhorn_plan(B, N, N).split_x == 8
+    d, a = sinkhorn(x, x, 0.002, 100)
+    assert torch.equal(a, torch.arange(N, device=dev, dtype=torch.int32).expand(B, N))
+    assert float(d.max()) <= 1e-6
