@@ -2,20 +2,24 @@
 """Drive the PyTorch/CUDA port (pointcloud_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --kernel-times --step-times  # fps and nn_sweep alone
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
   1. build every kernel in pointcloud_tpu_torch/csrc/ (one nvcc each, in
      parallel) into build/, or reuse the build; print the registers and
-     spills of the chain's forward and backward kernels, fps's cluster
-     kernel, the dense-pool forward's and backward's TMA + wgmma kernels and
-     the Sinkhorn sweep (ptxas -v), and the instructions the sweep's main
-     loop issues a pair (cuobjdump -sass);
+     spills of the chain's forward and backward kernels, fps's block and
+     cluster kernels, nn_sweep's wgmma kernel (and its wgmma serialization
+     warnings), the dense-pool forward's and backward's TMA + wgmma kernels
+     and the Sinkhorn sweep (ptxas -v), the instructions the sweep's main
+     loop issues a pair and those of a step of fps's block kernel
+     (cuobjdump -sass);
   2. hold each kernel against its plain PyTorch version on the card (masks,
      fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
      equal indices, empty balls, k not a multiple of 8, the shared-memory
      and global paths, and fps's cluster route at the sensor's shape with
-     ties between blocks and at a ragged N; for the four passes of the
+     ties between blocks and at a ragged N; nn_sweep at C = 1, 3, 6, 7, 8,
+     with several target chunks and a ragged 2049 x 31 pair; for the four passes of the
      Dense-BN-ReLU-pool chain depths 6 / 131 / 259, ragged widths (bf16
      widths that are no multiple of 8 take the tile kernel, the rest TMA +
      wgmma), pools of 4 / 32 / 128, a fully
@@ -28,6 +32,9 @@ lines:
   3. the eval path at full width: create_model("Autoencoder", "PointNet",
      "Cube", loss_override="chamfer") and its eval step at B=512 x 2048
      points x 6 dims (bf16 activations), plus `encode` on one cloud;
+     nn_sweep at the step's output and target, timed, its expansion costs
+     against direct differences over every pair (the largest error and the
+     indices that differ from the direct argmin);
   4. the train path at full width: make_optimizer + make_train_step at
      bench.py's B=256 x 2048 x 6, bf16, one fixed batch, 1 warm-up step and
      10 chained steps; a second instance from the same seed and batch takes
@@ -39,11 +46,15 @@ lines:
      B=256 x 2048 x 6 (bf16), `encode` on one cloud, and the sensor's
      FilterBBox -> SampleFurthestPoints(2048) on one cloud of 3 cameras x
      256 x 256 points (its FPS indices card vs CPU equal; the route, the
-     cluster and the time a step beside the bound);
+     cluster and the time a step beside the bound); fps timed at every shape
+     a driven path launches it at (PointNet2's levels at B=256, the MSG
+     levels and PointMLP's stages at B=32, `encode` at B=1), a step's time
+     beside the bound;
   7. check the outputs: finite values of the right shapes, the kernel-path
      loss vs the plain version's, and the fp32 models' eval steps (PointNet
-     and PointNet2) and train steps (PointNet and PointNet2), and the STN
-     heads in train mode on distinct clouds, on the card vs on the CPU;
+     and PointNet2) and train steps (PointNet and PointNet2; the first
+     step's nn_sweep indices against direct differences logged), and the
+     STN heads in train mode on distinct clouds, on the card vs on the CPU;
   8. the PointNet2 train path at full width: make_optimizer +
      make_train_step for the PointNet2 autoencoder at B=256 x 2048 x 6,
      bf16, one fixed batch, 1 warm-up step and 10 chained steps, with the
@@ -296,11 +307,13 @@ def rel_err(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def check_nn_sweep(gen, B, N, M, C):
+def check_nn_sweep(gen, B, N, M, C, far_masked=False):
     """nn_sweep's kernel vs its plain version with ~10% of points masked, a
     batch element whose x points are all masked (element 1), one whose y
-    points are all masked (element 2), and exact ties. Returns the largest
-    value error over valid points."""
+    points are all masked (element 2), and exact ties. far_masked: x point 0
+    is masked and lies 1e3 out in every dimension (y point 9, valid, at 1.5,
+    is its clear nearest), so the kernel's centre must not be a masked
+    point. Returns the largest value error over valid points."""
     from pointcloud_tpu_torch.ops import nn_sweep, nn_sweep_reference
     from pointcloud_tpu_torch.ops.geometry import pairwise_sqdist
 
@@ -315,6 +328,11 @@ def check_nn_sweep(gen, B, N, M, C):
     ym = torch.rand((B, M), generator=gen, device=dev) > 0.1
     xm[:, [3, 11, N - 1]] = True
     ym[:, [5, 7, M - 1]] = True
+    if far_masked:
+        x[:, 0] = 1e3
+        xm[:, 0] = False
+        y[:, 9] = 1.5
+        ym[:, 9] = True
     xm[1] = False
     ym[2] = False
 
@@ -343,9 +361,32 @@ def check_nn_sweep(gen, B, N, M, C):
     if not (bool((got[1][tie_x, 11] == 7).all())
             and bool((got[3][tie_y, 5] == 3).all())):
         raise AssertionError("an exact tie must go to the first index")
-    log(f"  nn_sweep C={C} B={B} N={N} M={M}: max |value err| {err:.3e}; "
+    log(f"  nn_sweep C={C} B={B} N={N} M={M}{', x[:, 0] masked 1e3 out' if far_masked else ''}: "
+        f"max |value err| {err:.3e}; "
         f"argmins equal off ties; masked rows >= 1e10; ties to first index")
     return err
+
+
+def nn_sweep_bound(B, N, M, C):
+    """The larger of the cost products (2 directions x B N M pairs x K deep,
+    2 flops each, at the bf16 tensor-core rate; K = 6C + 6 padded to 16) and
+    the epilogue's compare and two selects a pair-direction at the fp32
+    rate; bytes: both clouds read once, 8 bytes written a point."""
+    from pointcloud_tpu_torch.ops.nn_sweep import nn_depth
+
+    pairs = 2 * B * N * M
+    t_mma = bound(pairs * 2 * nn_depth(C), 0, PEAK_BF16_FLOPS)[0]
+    t_epi = bound(pairs * 3, 0, PEAK_FP32_FLOPS)[0]
+    t_bytes = bound(0, B * (N + M) * (C * 4 + 8), PEAK_FP32_FLOPS)[0]
+    worst = max(t_mma, t_epi, t_bytes)
+    return worst, ("bytes" if worst == t_bytes else "operations")
+
+
+def nn_direct_bound(B, N, M, C):
+    """The first version's bound, for comparison: C subtractions, C
+    multiplications, C-1 additions and a comparison a pair-direction on
+    the CUDA cores at the fp32 rate."""
+    return bound(2 * B * N * M * 3 * C, 0, PEAK_FP32_FLOPS)[0]
 
 
 def twice_equal(name, fn):
@@ -799,6 +840,7 @@ def card_vs_cpu_train(seed, x_raw, loss_override="chamfer", first_tol=1e-5,
     0.38, 0.21 on an NVIDIA H100), so it passes 1e-2 for the three steps
     (measured there: 0, 2.4e-4, 2.9e-3)."""
     from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.ops import chamfer as tchamfer
     from pointcloud_tpu_torch.train import (
         create_model,
         make_optimizer,
@@ -819,11 +861,15 @@ def card_vs_cpu_train(seed, x_raw, loss_override="chamfer", first_tol=1e-5,
         step = make_train_step(spec, make_optimizer(spec))
         xd = xs.to(next(spec.model.parameters()).device)
         ls = []
-        for i in range(3):
-            ls.append(float(step(xd, xd)[0]))
-            if i == 0:
-                grads.append({k: p.grad.detach().float().cpu()
-                              for k, p in spec.model.named_parameters()})
+        with recording(tchamfer, "nn_sweep") as nn_calls:
+            for i in range(3):
+                ls.append(float(step(xd, xd)[0]))
+                if i == 0:
+                    grads.append({k: p.grad.detach().float().cpu()
+                                  for k, p in spec.model.named_parameters()})
+        if xd.is_cuda and nn_calls:
+            nn_expansion_error(*(t.detach() for t in nn_calls[0][0][:2]),
+                               "the fp32 PointNet first train step's Chamfer inputs")
         losses.append(ls)
     top = max(float(g.abs().max()) for g in grads[1].values())
     zero = zero_gradient_biases(specs[1].model)
@@ -1074,6 +1120,9 @@ def pointnet2_path(seed, gen, x_raw, smi, err):
         f"{f_plain:.3f} ms | library none (no PyTorch call selects points "
         f"sequentially) | bound {f_bound[0]:.4f} ms ({f_bound[1]}; {K - 1} "
         f"serial steps)")
+    # fps at every shape a driven path launches it at, on clouds of a
+    # generator of its own (`gen` goes on to draw the paths' clouds)
+    fps_driven_times(torch.Generator(device=dev).manual_seed(seed + 7))
 
     # ball grouping at both levels; SA2's (the heaviest) goes to `kernels`
     ball = {}
@@ -1241,9 +1290,11 @@ BWD_KERNELS = ("bwd_dh_kernel", "bwd_da_wgmma_kernel", "bwd_dw_wgmma_kernel",
                "bwd_da_f32_kernel", "bwd_dw_f32_kernel")
 # and of its forward products: the TMA + wgmma kernel, the tile kernel
 FWD_KERNELS = ("fwd_wgmma_kernel", "mm_stats_kernel")
-# fps's cluster route (csrc/fps.cu) and the dense-pool backward's TMA +
-# wgmma kernels (csrc/dense_bn_pool.cu)
-FPS_KERNELS = ("fps_cluster_kernel",)
+# fps's register routes (csrc/fps.cu), the Chamfer sweep's wgmma kernel
+# (csrc/nn_sweep.cu) and the dense-pool backward's TMA + wgmma kernels
+# (csrc/dense_bn_pool.cu)
+FPS_KERNELS = ("fps_block_kernel", "fps_cluster_kernel")
+NN_KERNELS = ("nn_sweep_kernel",)
 POOL_KERNELS = ("pool_fwd_wgmma_kernel", "dx_wgmma_kernel", "dw_wgmma_kernel")
 SINKHORN_KERNELS = ("sweep_kernel",)
 
@@ -1882,6 +1933,7 @@ def card_vs_cpu_pointnet2_train(seed, x_raw):
     relative (Adam's first step amplifies round-off entries, as in that
     test)."""
     from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.ops import chamfer as tchamfer
     from pointcloud_tpu_torch.ops import farthest_point_sample
     from pointcloud_tpu_torch.train import (
         create_model,
@@ -1907,11 +1959,15 @@ def card_vs_cpu_pointnet2_train(seed, x_raw):
         step = make_train_step(spec, make_optimizer(spec))
         xd = xs.to(d)
         ls = []
-        for i in range(3):
-            ls.append(float(step(xd, xd)[0]))
-            if i == 0:
-                grads.append({k: p.grad.detach().float().cpu()
-                              for k, p in spec.model.named_parameters()})
+        with recording(tchamfer, "nn_sweep") as nn_calls:
+            for i in range(3):
+                ls.append(float(step(xd, xd)[0]))
+                if i == 0:
+                    grads.append({k: p.grad.detach().float().cpu()
+                                  for k, p in spec.model.named_parameters()})
+        if d == "cuda":
+            nn_expansion_error(*(t.detach() for t in nn_calls[0][0][:2]),
+                               "the fp32 PointNet2 first train step's Chamfer inputs")
         losses.append(ls)
     worst = {"before": 0.0, "past": 0.0}  # the two pooled levels, the rest
     for k, want in grads[1].items():
@@ -1988,6 +2044,43 @@ def sweep_sass_loop():
                 cold.update(skipped)
     hot = [t for a, t in span if a not in cold]
     return len(hot), sum("MUFU.EX2" in t for t in hot)
+
+
+def fps_step_sass(threads, slots):
+    """The step loop of fps_block_kernel<threads, slots> in the built
+    library's SASS (cuobjdump -sass): the backward branch's span that holds a
+    barrier. Returns its instruction count and the counts of barriers,
+    redux.sync, shared-memory loads and stores, and fp32 instructions."""
+    import re
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from pointcloud_tpu_torch.ops import _build
+
+    sass = subprocess.run([f"{CUDA_HOME}/bin/cuobjdump", "-sass",
+                           str(_build.library_path("fps"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    tag = f"16fps_block_kernelILi{threads}ELi{slots}EE"
+    body = next(f for f in sass.split("Function : ")[1:]
+                if tag in f.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2)) for m in
+           re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    loops = []
+    for at, text in ins:
+        m = re.search(r"\bBRA\s+(0x[0-9a-f]+)", text)
+        if m and int(m.group(1), 16) <= at:
+            span = [t for a, t in ins if int(m.group(1), 16) <= a <= at]
+            if any("BAR.SYNC" in t for t in span):
+                loops.append(span)
+    if not loops:
+        raise AssertionError(f"no loop with a barrier in {tag}'s SASS")
+    span = min(loops, key=len)
+    count = {"BAR": "BAR.SYNC", "REDUX": "REDUX", "LDS": "LDS", "STS": "STS"}
+    out = {k: sum(v in t for t in span) for k, v in count.items()}
+    out["fp32"] = sum(bool(re.search(r"\b(FADD|FMUL|FFMA|FMNMX|FSETP|FSEL)\b", t))
+                      for t in span)
+    out["all"] = len(span)
+    return out
 
 
 def compare_sinkhorn(x, y, eps, iters, anneal, label, err, share=0.995):
@@ -3579,6 +3672,262 @@ def loss_spread(seeds, steps, orders):
             torch.cuda.empty_cache()
 
 
+# (label, B, N, K) of every fps launch shape a driven path makes: PointNet2's
+# two SA levels at bench.py's batch, the MSG levels and PointMLP's (and
+# Elite's) four stages at the PointMLP batch, and `encode` on one cloud
+# (PointNet2's and MSG's two levels, then PointMLP's four stages)
+FPS_DRIVEN = (("PointNet2 SA1", B_PN2, 2048, 512), ("PointNet2 SA2", B_PN2, 512, 128),
+              ("MSG level 1", 32, 2048, 512), ("MSG level 2", 32, 512, 128),
+              ("PointMLP stage 1", 32, 2048, 1024), ("PointMLP stage 2", 32, 1024, 512),
+              ("PointMLP stage 3", 32, 512, 256), ("PointMLP stage 4", 32, 256, 128),
+              ("encode SA1 / MSG level 1", 1, 2048, 512),
+              ("encode SA2 / MSG level 2", 1, 512, 128),
+              ("encode PointMLP stage 1", 1, 2048, 1024),
+              ("encode PointMLP stage 2", 1, 1024, 512),
+              ("encode PointMLP stage 3", 1, 512, 256),
+              ("encode PointMLP stage 4", 1, 256, 128))
+
+
+def fps_driven_times(gen):
+    """fps at every FPS_DRIVEN shape on unit-cube clouds: indices equal to
+    the plain version's, then the kernel's mean device time over 10 calls,
+    the time a serial step (ms / (K - 1)) and the bound. Returns
+    {label: (ms, plain ms, bound)}; the plain version is timed only at SA1."""
+    from pointcloud_tpu_torch.ops import farthest_point_sample, fps_plan, fps_reference
+
+    out = {}
+    for label, B, N, K in FPS_DRIVEN:
+        xyz = torch.rand((B, N, 3), generator=gen, device="cuda")
+        got = farthest_point_sample(xyz, K)
+        if not torch.equal(got, fps_reference(xyz, K)):
+            raise AssertionError(f"fps differs from the plain version at {label}")
+        ms = cuda_ms(lambda: farthest_point_sample(xyz, K), iters=10)
+        plain = (cuda_ms(lambda: fps_reference(xyz, K), iters=2, warmup=1)
+                 if label == "PointNet2 SA1" else None)
+        bnd = fps_bound(B, N, K)
+        p = fps_plan(B, N)
+        geometry = ", ".join(f"{f} {getattr(p, f)}" for f in p._fields
+                             if f in ("route", "threads", "slots"))
+        out[label] = (ms, plain, bnd)
+        log(f"  fps {label}: B={B} N={N} K={K} ({geometry}): kernel {ms:.4f} ms, "
+            f"{1e3 * ms / (K - 1):.3f} us a step | bound {bnd[0]:.4f} ms ({bnd[1]})"
+            + ("" if plain is None else f" | plain {plain:.3f} ms"))
+    return out
+
+
+def nn_sweep_costs(x, y):
+    """Every pair's raw expansion cost as the nn_sweep kernel forms it
+    (before the clamp), through the library's diagnostic entry
+    nn_sweep_costs_launch: (cost_x (B, N, M), cost_y (B, M, N)) fp32 of
+    contiguous fp32 CUDA clouds, no masks. Counts no launch."""
+    import ctypes
+
+    from pointcloud_tpu_torch.ops import _build, nn_plan
+
+    fn = _build.load("nn_sweep").nn_sweep_costs_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    (B, N, C), M = x.shape, y.shape[1]
+    plan = nn_plan(B, N, M, C, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    outs = [torch.empty(shape, dtype=dt, device=x.device)
+            for shape, dt in (((B, N), torch.float32), ((B, N), torch.int32),
+                              ((B, M), torch.float32), ((B, M), torch.int32),
+                              ((B, N, M), torch.float32), ((B, M, N), torch.float32))]
+    err = fn(x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in outs[:4]), B, N, M, C,
+             plan.chunk, plan.splits, plan.smem, outs[4].data_ptr(), outs[5].data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nn_sweep_costs_launch failed: CUDA error {err}")
+    return outs[4], outs[5]
+
+
+def nn_expansion_error(x, y, label, group=16):
+    """The kernel's expansion costs (nn_sweep_costs) against direct fp32
+    differences over every pair of x (B, N, C) and y (B, M, C), `group`
+    clouds at a time: the largest |expansion - direct| of each direction,
+    and the count of indices nn_sweep returns that differ from the direct
+    differences' first argmin, with the largest direct-cost gap such a
+    query's choice leaves. Returns (largest error, differing indices)."""
+    from pointcloud_tpu_torch.ops import nn_sweep
+
+    err, flips, gap = 0.0, 0, 0.0
+    for i in range(0, x.shape[0], group):
+        xs, ys = x[i:i + group], y[i:i + group]
+        cx, cy = nn_sweep_costs(xs, ys)
+        d = torch.zeros_like(cx)
+        for c in range(x.shape[-1]):
+            diff = xs[:, :, None, c] - ys[:, None, :, c]
+            d += diff * diff
+        err = max(err, float((cx - d).abs().max()),
+                  float((cy - d.transpose(1, 2)).abs().max()))
+        del cx, cy
+        _, ax, _, ay = nn_sweep(xs, ys)
+        for got, dd in ((ax, d), (ay, d.transpose(1, 2))):
+            best, arg = torch.min(dd, dim=2)
+            off = got.long() != arg
+            flips += int(off.sum())
+            if bool(off.any()):
+                chosen = torch.gather(dd, 2, got.long()[..., None])[..., 0]
+                gap = max(gap, float((chosen - best)[off].max()))
+        del d
+    log(f"  nn_sweep expansion vs direct differences, {label}: largest |cost "
+        f"error| {err:.3e} over {2 * x.shape[0] * x.shape[1] * y.shape[1]} "
+        f"pair-directions; {flips} indices differ from the direct argmin (largest "
+        f"direct-cost gap of such a choice {gap:.3e})")
+    return err, flips
+
+
+def wgmma_warnings(source):
+    """ptxas's notes that it serialized wgmma products (C7511 / C7514 /
+    C7518) in the build of csrc/<source>.cu this process made."""
+    from pointcloud_tpu_torch.ops import _build
+
+    return [ln.strip() for ln in _build._logs.get(source, "").splitlines()
+            if any(code in ln for code in ("C7511", "C7514", "C7518"))]
+
+
+def ptxas_notes(sources):
+    """Print each kernel's registers and spills from the build's ptxas
+    report, and the build's wgmma serialization warnings, of the named
+    csrc/ sources (nothing if the build was reused)."""
+    from pointcloud_tpu_torch.ops import _build
+
+    for source in sources:
+        for kernel, regs, st, ld in _build.ptxas_report(source):
+            log(f"  ptxas {source}: {kernel[:90]}: {regs} registers, spills {st} B "
+                f"stored / {ld} B loaded")
+        notes = wgmma_warnings(source)
+        log(f"  ptxas {source}: {len(notes)} wgmma serialization warnings"
+            + "".join(f"\n    {n[:160]}" for n in notes[:4]))
+
+
+def fps_block_launch(xyz, K, threads, slots):
+    """fps's block route at a geometry of the caller's (threads x slots >=
+    N), through the library's C entry: int32 (B, K) of a contiguous fp32
+    CUDA cloud, no mask. Counts no launch."""
+    from pointcloud_tpu_torch.ops import fps as tfps
+
+    B, N, C = xyz.shape
+    out = torch.empty((B, K), dtype=torch.int32, device=xyz.device)
+    err = tfps._library().fps_launch(
+        xyz.data_ptr(), C, None, B, N, K, 0, threads, slots, 1, N, None, out.data_ptr(),
+        torch.cuda.current_stream(xyz.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fps block route {threads} x {slots}: CUDA error {err}")
+    return out
+
+
+def fps_geometries(gen):
+    """The block route at every block size (64-512 threads, slots a multiple
+    of 4 up to 24) beside the plan's, at PointNet2's SA1 and SA2 (B=256),
+    PointMLP's four stages (B=32) and `encode` (B=1, N=2048 and 512):
+    indices equal, mean device time of 10 calls each."""
+    from pointcloud_tpu_torch.ops import fps_plan, fps_reference
+    from pointcloud_tpu_torch.ops import fps as tfps
+
+    for B, N, K in ((B_PN2, 2048, 512), (B_PN2, 512, 128), (32, 2048, 1024),
+                    (32, 1024, 512), (32, 512, 256), (32, 256, 128), (1, 2048, 512),
+                    (1, 512, 128)):
+        xyz = torch.rand((B, N, 3), generator=gen, device="cuda")
+        want = fps_reference(xyz, K)
+        row = []
+        for threads in tfps._BLOCK_THREADS:
+            slots = -(-N // (4 * threads)) * 4
+            if slots > tfps._MAX_SLOTS:
+                continue
+            if not torch.equal(fps_block_launch(xyz, K, threads, slots), want):
+                raise AssertionError(f"fps block route {threads} x {slots} differs")
+            ms = cuda_ms(lambda: fps_block_launch(xyz, K, threads, slots), iters=10)
+            row.append(f"{threads} x {slots}: {ms:.4f} ms ({1e3 * ms / (K - 1):.3f} us "
+                       f"a step)")
+        log(f"  fps block geometries B={B} N={N} K={K} (plan "
+            f"{fps_plan(B, N).threads} x {fps_plan(B, N).slots}): " + "; ".join(row))
+
+
+def kernel_times(seed):
+    """The two kernels' times alone, on clouds drawn from `seed`: fps at
+    every driven shape and at the sensor's (a cluster of 16), nn_sweep at
+    the eval step's B=512 x 2048 x 6 (values held against the plain version
+    on the first 8 clouds)."""
+    from pointcloud_tpu_torch.ops import (
+        _build,
+        farthest_point_sample,
+        nn_sweep,
+        nn_sweep_reference,
+    )
+    from pointcloud_tpu_torch.ops import fps as tfps
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"[kernel times] {smi}")
+    ptxas_notes(("nn_sweep", "fps"))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    fps_driven_times(gen)
+    # a port before the register block route (to time a parent commit beside
+    # this one) has no block geometries to compare
+    if hasattr(tfps, "_BLOCK_THREADS"):
+        fps_geometries(gen)
+    s_xyz = torch.rand((1, 196608, 3), generator=gen, device="cuda")
+    s_mask = torch.rand((1, 196608), generator=gen, device="cuda") > 0.5
+    s_ms = cuda_ms(lambda: farthest_point_sample(s_xyz, 2048, s_mask), iters=5)
+    log(f"  fps sensor: B=1 N=196608 K=2048: kernel {s_ms:.4f} ms, "
+        f"{1e3 * s_ms / 2047:.3f} us a step")
+    x = torch.rand((B_MAIN, 2048, 6), generator=gen, device="cuda")
+    y = torch.rand((B_MAIN, 2048, 6), generator=gen, device="cuda")
+    got, want = nn_sweep(x[:8], y[:8]), nn_sweep_reference(x[:8], y[:8])
+    e = max(float((got[j] - want[j]).abs().max()) for j in (0, 2))
+    if e > 1e-5:
+        raise AssertionError(f"nn_sweep differs from the plain version by {e}")
+    ms = cuda_ms(lambda: nn_sweep(x, y), iters=10)
+    log(f"  nn_sweep B={B_MAIN} N=M=2048 C=6: kernel {ms:.4f} ms | max |value err| "
+        f"on 8 clouds {e:.2e}")
+    # every query's nearest target is itself, at a cost within rounding of 0
+    _, ax, _, _ = nn_sweep(x[:8], x[:8])
+    if not torch.equal(ax.long(), torch.arange(2048, device="cuda").expand(8, -1)):
+        raise AssertionError("nn_sweep of a cloud against itself must find each point")
+    ms = cuda_ms(lambda: nn_sweep(x, x), iters=10)
+    log(f"  nn_sweep B={B_MAIN} N=M=2048 C=6, each cloud against itself: kernel {ms:.4f} ms")
+    # the tensor-core kernel's diagnostic entry (a parent's library may lack it)
+    if hasattr(_build.load("nn_sweep"), "nn_sweep_costs_launch"):
+        nn_expansion_error(x, y, f"unit-cube clouds B={B_MAIN} x 2048 x 6")
+
+
+def step_times(seed):
+    """The steps the two kernels serve, alone, through the public entry
+    points (weights and clouds from `seed`): the PointNet and PointNet2
+    autoencoders' eval steps at bench.py's B=512 and 256, the PointNet2 train
+    step at B=256 and the PointMLP eval step at B=32, all with Chamfer and
+    bf16; 20 chained eval steps (10 train steps after a warm-up) each, host
+    clock to a synchronize, and the median event-to-event step."""
+    from pointcloud_tpu_torch.train import (
+        create_model,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    log("[step times]")
+    for backbone, B, train in (("PointNet", B_MAIN, False), ("PointNet2", B_PN2, False),
+                               ("PointNet2", B_PN2, True), ("PointMLP", B_MLP, False)):
+        spec = create_model("Autoencoder", backbone, "Cube", loss_override="chamfer",
+                            device=dev, seed=seed)
+        x = raw_batch(gen, spec.scene, B, spec.scene.sample_points, dev)
+        if train:
+            r = drive_train(make_train_step(spec, make_optimizer(spec)), x, x, TRAIN_ITERS)
+        else:
+            r = drive_eval(make_eval_step(spec), x, ITERS)
+        per = r["per_iter"]
+        log(f"  {backbone} {'train' if train else 'eval'} step B={B}: {r['ms']:.3f} "
+            f"ms/step on the host clock, event-to-event median {per[len(per) // 2]:.3f} "
+            f"ms; launches {r['counts']}")
+        del spec, x, r
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3589,6 +3938,14 @@ def main(argv=None) -> int:
                          "--orders (see loss_spread); prints no result lines")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     ap.add_argument("--orders", type=int, nargs="+", default=[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only build, then time fps at every driven shape and "
+                         "nn_sweep at the eval shape (B=512 x 2048 x 6); "
+                         "prints no result lines")
+    ap.add_argument("--step-times", action="store_true",
+                    help="only build, then time the steps these two kernels "
+                         "serve (step_times); with --kernel-times, both; "
+                         "prints no result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3599,6 +3956,14 @@ def main(argv=None) -> int:
         from pointcloud_tpu_torch.ops import _build
         log(f"[build] {_build.build():.1f} s")
         loss_spread(args.seeds, args.loss_spread, args.orders)
+        return 0
+    if args.kernel_times or args.step_times:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        if args.kernel_times:
+            kernel_times(args.seed)
+        if args.step_times:
+            step_times(args.seed)
         return 0
 
     from pointcloud_tpu_torch import cfg
@@ -3639,7 +4004,8 @@ def main(argv=None) -> int:
     log(f"[build] {_build.sources()} -> {_build.BUILD_DIR}: {secs:.1f} s "
         f"({'built' if secs else 'reused'})")
     for source, names in (("mlp_chain", FWD_KERNELS + BWD_KERNELS),
-                          ("fps", FPS_KERNELS), ("dense_bn_pool", POOL_KERNELS),
+                          ("fps", FPS_KERNELS), ("nn_sweep", NN_KERNELS),
+                          ("dense_bn_pool", POOL_KERNELS),
                           ("sinkhorn", SINKHORN_KERNELS)):
         for kernel, regs, st, ld in _build.ptxas_report(source):
             name = next((k for k in names if k in kernel), None)
@@ -3647,6 +4013,14 @@ def main(argv=None) -> int:
                 log(f"  ptxas {name} {kernel[kernel.index(name) + len(name):][:40]}: "
                     f"{regs} registers, spills {st} B stored / {ld} B loaded")
 
+    log(f"  ptxas nn_sweep: {len(wgmma_warnings('nn_sweep'))} wgmma serialization "
+        f"warnings")
+    for threads, slots in ((256, 8), (128, 4), (64, 4)):
+        st = fps_step_sass(threads, slots)
+        log(f"  SASS of fps_block_kernel<{threads}, {slots}> (cuobjdump -sass): a step "
+            f"issues {st['all']} instructions ({st['fp32']} fp32 compute or compare), "
+            f"{st['REDUX']} redux.sync, {st['BAR']} barrier, {st['LDS']} shared loads, "
+            f"{st['STS']} shared stores")
     n_ins, n_ex2 = sweep_sass_loop()
     log(f"  SASS of sinkhorn's sweep_kernel (cuobjdump -sass): its innermost loop "
         f"issues {n_ins} instructions for {n_ex2} ex2 on its common path, "
@@ -3678,7 +4052,7 @@ def main(argv=None) -> int:
                      check_fps(gen, 8, 512, 128, masked=False),
                      check_fps(gen, 3, 700, 64, C=6),
                      check_fps(gen, 3, 100, 150),  # under-full: K > N
-                     check_fps(gen, 2, 5000, 256),  # 1024 threads
+                     check_fps(gen, 2, 5000, 256),  # 512 threads x 12 slots
                      check_fps(gen, 2, 20000, 256))  # a cluster of 2
     # the cluster route, with a generator of its own (`gen` goes on to draw
     # the paths' clouds): the sensor's shape (a cluster of 16, half the
@@ -3729,6 +4103,16 @@ def main(argv=None) -> int:
     check_sinkhorn(gen_emd, 2, 100, 100, 6, 0.002, 60, 0.1, err, identical=True)
     check_sinkhorn(gen_emd, 4, 128, 128, 3, 0.005, 1, None, err, share=0.9)
     check_sinkhorn(gen_emd, 2, 1500, 2500, 4, 0.005, 50, None, err)
+
+    # nn_sweep's other depths and a ragged pair, with a generator of their
+    # own: C = 1 (K = 16) and C = 7 (K = 48, no spare column), two target
+    # chunks at C = 7, a query tile of one row and one 31-column product
+    gen_nn = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    err["nn_sweep"] = max(err["nn_sweep"],
+                          check_nn_sweep(gen_nn, 4, 2048, 2048, 1),
+                          check_nn_sweep(gen_nn, 3, 1000, 2500, 7),
+                          check_nn_sweep(gen_nn, 3, 2049, 31, 6),
+                          check_nn_sweep(gen_nn, 4, 2048, 2048, 6, far_masked=True))
 
     # ---- 3. eval path at full width ----
     log("[eval path] Autoencoder / PointNet / Chamfer, scene Cube")
@@ -3785,13 +4169,12 @@ def main(argv=None) -> int:
         return d.min(dim=2), d.min(dim=1)
 
     nn_lib = cuda_ms(cdist_min, iters=3, warmup=1)
-    C = a.shape[-1]
-    nn_bound = bound(2 * B_MAIN * P * P * 3 * C,  # C sub, C mul, C-1 add, 1 cmp
-                     2 * B_MAIN * P * C * 4 + 2 * B_MAIN * P * (4 + 4),
-                     PEAK_FP32_FLOPS)
+    nn_bound = nn_sweep_bound(B_MAIN, P, P, a.shape[-1])
     log(f"  nn_sweep kernel {nn_ms:.3f} ms | plain version {nn_plain:.3f} ms | "
         f"library cdist().square() + min both ways {nn_lib:.3f} ms | bound "
-        f"{nn_bound[0]:.3f} ms ({nn_bound[1]})")
+        f"{nn_bound[0]:.3f} ms ({nn_bound[1]}; direct differences on the CUDA "
+        f"cores: {nn_direct_bound(B_MAIN, P, P, a.shape[-1]):.3f} ms)")
+    nn_expansion_error(a, b, f"the eval step's output and target, B={B_MAIN}")
     with torch.inference_mode():
         xn = spec.in_transform(x)[0]
         h = spec.model.encoder(xn)

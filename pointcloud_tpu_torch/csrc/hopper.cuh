@@ -1,8 +1,10 @@
 // Hopper building blocks (sm_90a) for the port's tensor-core kernels:
 // mbarriers, TMA tile loads and stores, wgmma shared-memory descriptors and
 // the bf16 m64n{64,128,192}k16 products with fp32 accumulators (A from
-// shared memory or, at widths 64 and 128, from registers). mlp_chain.cu and
-// dense_bn_pool.cu include this header.
+// shared memory or, at widths 64 and 128, from registers), and the host's
+// one-time shared-memory opt-in of a kernel (`allow_all_smem`). mlp_chain.cu,
+// dense_bn_pool.cu, nn_sweep.cu (unswizzled K-major operands that its own
+// threads stage, `desc_interleave`) and fps.cu include this header.
 //
 // Operand tiles live in shared memory in the 128-byte-swizzle layout that a
 // TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: a box of 64 bf16 (128
@@ -145,6 +147,16 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) |
          (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
          (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma descriptor of an unswizzled K-major tile at p: 8 x 16-byte core
+// matrices (8 rows of 8 bf16, 128 contiguous bytes), lbo bytes between the
+// two core matrices of a 16-deep step, sbo bytes between 8-row groups.
+__device__ __forceinline__ uint64_t desc_interleave(const void* p, uint32_t lbo,
+                                                    uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFFu) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFFu) >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -416,6 +428,27 @@ inline bool b32_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t
              strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Lets kKernel take all of a block's shared memory (227 KB beside its static
+// share) on the current device, once: the first launch of each kernel on a
+// device makes the driver calls, later ones none.
+template <auto kKernel>
+inline cudaError_t allow_all_smem() {
+  constexpr int kDevices = 64;
+  constexpr int kSmemPerBlock = 232448;
+  static bool done[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && done[dev]) return cudaSuccess;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kKernel);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemPerBlock - static_cast<int>(attr.sharedSizeBytes));
+  if (err == cudaSuccess && dev < kDevices) done[dev] = true;
+  return err;
 }
 
 }  // namespace hopper

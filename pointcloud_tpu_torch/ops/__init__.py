@@ -59,6 +59,7 @@ from pointcloud_tpu_torch.ops.knn_group import (  # noqa: F401
     knn_group_reference,
 )
 from pointcloud_tpu_torch.ops.nn_sweep import (  # noqa: F401
+    nn_plan,
     nn_sweep,
     nn_sweep_reference,
 )

@@ -32,9 +32,12 @@ from pointcloud_tpu_torch.ops import _build
 from pointcloud_tpu_torch.ops.geometry import index_points
 
 _MAX_POINTS = 1 << 29  # N and the scratch's 4N floats stay C ints
-_BLOCK_POINTS = 12_288  # a block's points: the block route's shared memory
-_CLUSTER_THREADS = 512  # (csrc/fps.cu kClusterThreads x kSlots = _BLOCK_POINTS)
+_MAX_SLOTS = 24  # points a thread keeps in registers (csrc/fps.cu kMaxSlots)
+_BLOCK_THREADS = (64, 128, 256, 512)  # the block route's block sizes
+_CLUSTER_THREADS = 512  # (csrc/fps.cu kClusterThreads)
+_BLOCK_POINTS = _CLUSTER_THREADS * _MAX_SLOTS  # 12,288: a block's points
 _CLUSTER_MAX = 16  # blocks of a cluster (a non-portable size above 8)
+_SCRATCH_THREADS = 1024
 _ROUTES = ("block", "cluster", "scratch")  # csrc/fps.cu kRoute*
 
 
@@ -42,6 +45,7 @@ class FpsPlan(NamedTuple):
     """The route and launch geometry of one `farthest_point_sample` call."""
     route: str  # "block", "cluster" or "scratch"
     threads: int  # threads of a block
+    slots: int  # points a thread keeps in registers (0 on the scratch route)
     cluster: int  # blocks a cloud (1 but on the cluster route)
     per_block: int  # points a block owns
     smem: int  # dynamic shared memory of a block, bytes
@@ -52,9 +56,17 @@ class FpsPlan(NamedTuple):
 def fps_plan(B: int, N: int) -> FpsPlan:
     """The kernel route for B clouds of N points (csrc/fps.cu):
 
-    - block (N <= 12,288): one block per cloud, (x, y, z, mind) in shared
-      memory, 1024 threads above 4096 points, else 256; many clouds fill
-      the card (PointNet2's levels, the MSG levels, `encode`);
+    - block (N <= 12,288): one block per cloud, (x, y, z, mind) in
+      registers, `slots` points a thread, and the coordinates in shared
+      memory (12 bytes a point): the smallest block (64, 128, 256 or 512
+      threads) that gives each thread at most 8 points (4 up to 1,024
+      points), and the fewest slots, a multiple of 4 and at most 24, that
+      cover the cloud (PointNet2's SA1 and PointMLP's stage 1, N = 2048:
+      256 x 8; N = 512: 128 x 4; N = 256: 64 x 4); a step's pass over the
+      slots is its longest part, so more warps of fewer slots won where
+      chip_smoke.py --kernel-times compared them; many clouds fill the
+      card (PointNet2's levels, the MSG levels), one (`encode`) runs on
+      one SM;
     - cluster (N <= 16 x 12,288 = 196,608, the sensor's cloud): one cloud
       over a thread block cluster of ceil(N / 12,288) blocks of 512 threads,
       the points split evenly, each block's slice in registers (24 points a
@@ -68,12 +80,15 @@ def fps_plan(B: int, N: int) -> FpsPlan:
     if not (B >= 1 and 1 <= N < _MAX_POINTS):
         raise ValueError(f"farthest_point_sample kernel bounds exceeded: B={B} N={N}")
     if N <= _BLOCK_POINTS:
-        return FpsPlan("block", 1024 if N > 4096 else 256, 1, N, 16 * N, 0)
+        per = 4 if N <= 1024 else 8
+        threads = next((t for t in _BLOCK_THREADS if t * per >= N), _BLOCK_THREADS[-1])
+        slots = -(-N // (4 * threads)) * 4
+        return FpsPlan("block", threads, slots, 1, N, 12 * N, 0)
     if N <= _CLUSTER_MAX * _BLOCK_POINTS:
         cl = -(-N // _BLOCK_POINTS)
         per = -(-N // cl)
-        return FpsPlan("cluster", _CLUSTER_THREADS, cl, per, 12 * per, 0)
-    return FpsPlan("scratch", 1024, 1, N, 0, 4 * N)
+        return FpsPlan("cluster", _CLUSTER_THREADS, _MAX_SLOTS, cl, per, 12 * per, 0)
+    return FpsPlan("scratch", _SCRATCH_THREADS, 0, 1, N, 0, 4 * N)
 
 
 def _first_valid(valid):
@@ -112,7 +127,7 @@ def fps_reference(xyz, npoint: int, mask=None):
 def _library():
     lib = _build.load("fps")
     lib.fps_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                               + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3)
+                               + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
     lib.fps_launch.restype = ctypes.c_int
     return lib
 
@@ -158,8 +173,8 @@ def farthest_point_sample(xyz, npoint: int, mask=None):
     with torch.cuda.device(device):
         err = lib.fps_launch(
             xyz.data_ptr(), C, None if mask is None else mask.data_ptr(),
-            B, N, npoint, _ROUTES.index(plan.route), plan.threads, plan.cluster,
-            plan.per_block, None if work is None else work.data_ptr(),
+            B, N, npoint, _ROUTES.index(plan.route), plan.threads, plan.slots,
+            plan.cluster, plan.per_block, None if work is None else work.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

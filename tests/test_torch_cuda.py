@@ -45,6 +45,7 @@ from pointcloud_tpu_torch.ops import (
     mlp_pool_reference,
     mm_stats,
     mm_stats_reference,
+    nn_plan,
     nn_sweep,
     nn_sweep_reference,
     pool_bwd_plan,
@@ -336,9 +337,9 @@ def fps_case(dev, seed, B, N, C=3, masked=True):
 @pytest.mark.parametrize("masked", [False, True])
 def test_fps_matches_plain_and_is_deterministic(dev, B, N, K, masked):
     """Equal indices (the same rounded operations in the same order); the
-    block route (256 and 1024 threads), the cluster route (N = 20000: two
-    blocks), the global-scratch route (N > 196,608) and an under-full cloud
-    (K > N)."""
+    block route (256 threads x 8 slots, 128 x 4, 512 x 12), the cluster route
+    (N = 20000: two blocks), the global-scratch route (N > 196,608) and an
+    under-full cloud (K > N)."""
     xyz, mask = fps_case(dev, N, B, N, masked=masked)
     got = farthest_point_sample(xyz, K, mask)
     again = farthest_point_sample(xyz, K, mask)
@@ -1707,3 +1708,164 @@ def test_sinkhorn_identical_clouds_give_the_identity_when_split(dev, B, N):
     d, a = sinkhorn(x, x, 0.002, 100)
     assert torch.equal(a, torch.arange(N, device=dev, dtype=torch.int32).expand(B, N))
     assert float(d.max()) <= 1e-6
+
+
+# ---- nn_sweep on the tensor cores, fps's block route in registers ----
+
+def direct_values(x, y, idx):
+    """The direct formula's value for each query of x (B, N, C) and its
+    chosen target idx (B, N) of y: fmaf(diff, diff, d) in dimension order,
+    each fmaf formed in float64 (the square of an fp32 difference is exact
+    there) and rounded once to fp32."""
+    t = torch.gather(y, 1, idx.long()[..., None].expand(-1, -1, y.shape[-1]))
+    d = torch.zeros(idx.shape, dtype=torch.float32, device=x.device)
+    for c in range(x.shape[-1]):
+        diff = (x[..., c] - t[..., c]).double()
+        d = (diff * diff + d.double()).float()
+    return d
+
+
+NN_EDGES = {  # kind: (B, N, M), masks
+    "ragged": ((3, 2049, 31), True),  # a one-row query tile, one 31-column product
+    "two chunks": ((2, 333, 3500), True),  # C >= 2: 3500 targets in 2-3 chunks
+    "x all masked": ((2, 300, 400), True),
+    "y all masked": ((2, 300, 400), True),
+    "one point": ((2, 1, 257), False),  # a cloud of one point
+    "duplicates": ((2, 600, 2600), False),  # exact ties within and across chunks
+    "far masked x[0]": ((3, 700, 900), True),  # a masked point 1e3 out is no centre
+}
+
+
+def nn_edge_case(dev, C, kind):
+    (B, N, M), masked = NN_EDGES[kind]
+    rng = np.random.default_rng(1000 + 10 * C + list(NN_EDGES).index(kind))
+    x = rng.random((B, N, C), dtype=np.float32)
+    y = rng.random((B, M, C), dtype=np.float32)
+    xm = ym = None
+    if masked:
+        xm = rng.random((B, N)) > 0.1
+        ym = rng.random((B, M)) > 0.1
+        if kind == "x all masked":
+            xm[1] = False
+        if kind == "y all masked":
+            ym[0] = False
+        if kind == "far masked x[0]":  # y point 9 is its clear nearest
+            x[:, 0] = 1e3
+            xm[:, 0] = False
+            y[:, 9] = 1.5
+            ym[:, 9] = True
+            xm[1, :5] = False  # the first valid x point is a later one
+            xm[2] = False  # no valid x point: the centre is y's first valid one
+    if kind == "duplicates":
+        y[:, M - 1] = y[:, 5]  # chunk 0 and the last chunk at C >= 2
+        x[:, 7] = y[:, 5]
+        y[:, 2101] = y[:, 2100]  # two copies inside one chunk
+        x[:, 9] = y[:, 2100]
+        x[:, N - 1] = x[:, 3]
+        y[:, 11] = x[:, 3]
+    t = (lambda a: None if a is None else torch.from_numpy(a).to(dev))
+    return t(x), t(y), t(xm), t(ym)
+
+
+@pytest.mark.parametrize("C", [1, 3, 6, 7, 8])
+@pytest.mark.parametrize("kind", list(NN_EDGES))
+def test_nn_sweep_tensor_core_edges(dev, C, kind):
+    """The wgmma kernel against the plain version on ragged tiles, several
+    target chunks, fully masked clouds on either side, a one-point cloud,
+    planted duplicates and a masked first x point 1e3 out, at depths K = 16,
+    32, 48 (C = 7: no spare column) and 64: values within 1e-5, masked and target-less queries >= 1e10,
+    indices equal wherever the float64 runner-up is 1e-5 farther, exact
+    ties to the first index; each value is the direct formula's for the
+    returned index; two runs bit-equal."""
+    x, y, xm, ym = nn_edge_case(dev, C, kind)
+    got = nn_sweep(x, y, xm, ym)
+    again = nn_sweep(x, y, xm, ym)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = nn_sweep_reference(x, y, xm, ym)
+    d64 = torch.cdist(x.double(), y.double()).square()
+    for v, i, q, t, qm, tm, dd in ((0, 1, x, y, xm, ym, d64),
+                                   (2, 3, y, x, ym, xm, d64.transpose(1, 2))):
+        B, nq = got[v].shape
+        qm = torch.ones((B, nq), dtype=torch.bool, device=dev) if qm is None else qm
+        tm = (torch.ones((B, t.shape[1]), dtype=torch.bool, device=dev)
+              if tm is None else tm)
+        has = tm.any(dim=1, keepdim=True).expand(B, nq)
+        ok = qm & has
+        if bool(ok.any()):
+            assert float((got[v] - want[v]).abs()[ok].max()) <= 1e-5
+            assert torch.equal(got[v][ok], direct_values(q, t, got[i])[ok])
+        assert bool((got[v][~ok] >= 1e10).all())
+        assert bool((got[i][~has] == 0).all())  # no valid target: index 0
+        masked = dd.masked_fill(~tm[:, None, :], 1e10)
+        if masked.shape[2] >= 2:
+            top = torch.topk(masked, 2, dim=2, largest=False)
+            clear = (top.values[..., 1] - top.values[..., 0] > 1e-5) & has
+            assert bool((got[i].long() == top.indices[..., 0])[clear].all())
+    if kind == "duplicates":
+        assert bool((got[1][:, 7] == 5).all()) and bool((got[1][:, 9] == 2100).all())
+        assert bool((got[3][:, 11] == 3).all())
+
+
+def test_nn_sweep_follows_its_plan(dev):
+    """The eval step's shape runs in one chunk of 2,048 targets a block and
+    one block a direction and batch element; a 3,500-target cloud at C = 8
+    in three chunks of 1,536: both give the plain version's values."""
+    assert nn_plan(512, 2048, 2048, 6)[1:4] == (2048, 1, 1)
+    plan = nn_plan(2, 333, 3500, 8)
+    assert (plan.chunk, plan.chunks) == (1536, 3)
+    x, y, _, _ = nn_edge_case(dev, 8, "two chunks")
+    got = nn_sweep(x, y)
+    want = nn_sweep_reference(x, y)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-5
+    assert float((got[2] - want[2]).abs().max()) <= 1e-5
+
+
+FPS_DRIVEN_SHAPES = [(256, 2048, 512), (256, 512, 128), (32, 2048, 1024),
+                     (32, 1024, 512), (32, 512, 256), (32, 256, 128), (1, 2048, 512),
+                     (1, 512, 128)]
+
+
+@pytest.mark.parametrize("B,N,K", FPS_DRIVEN_SHAPES)
+def test_fps_block_route_at_the_driven_shapes(dev, B, N, K):
+    """PointNet2's SA levels (B=256), the MSG levels and PointMLP's four
+    stages (B=32) and `encode` (B=1): indices equal to the plain version's,
+    two runs bit-equal, on clouds with duplicated points (exact ties)."""
+    assert fps_plan(B, N).route == "block"
+    xyz, _ = fps_case(dev, 100 + N, B, N, masked=False)
+    got = farthest_point_sample(xyz, K)
+    again = farthest_point_sample(xyz, K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, fps_reference(xyz, K))
+
+
+@pytest.mark.parametrize("N", [1, 2, 255, 256, 257, 1023, 1024, 1025, 2047, 2048, 2049,
+                               4096, 4097, 12287, 12288])
+def test_fps_block_route_at_slot_boundaries(dev, N):
+    """Clouds of threads x slots points and one more or less (padding slots
+    hold mind -1 and lose every tie), masked (point 0 of cloud 0 masked, the
+    last cloud fully masked: zeros) and under-full where K > N."""
+    plan = fps_plan(3, N)
+    assert plan.route == "block" and plan.threads * plan.slots >= N
+    K = min(300, 2 * N)
+    xyz, mask = fps_case(dev, 7 + N, 3, N, masked=True)
+    got = farthest_point_sample(xyz, K, mask)
+    again = farthest_point_sample(xyz, K, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, fps_reference(xyz, K, mask))
+    assert bool((got[-1] == 0).all())
+
+
+def test_fps_block_route_one_under_full_cloud(dev):
+    """B=1, 40 valid points of 600 for 128 slots: every valid point taken
+    once before any repeats, as the plain version does."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    xyz = torch.rand((1, 600, 3), generator=g, device=dev)
+    mask = torch.zeros((1, 600), dtype=torch.bool, device=dev)
+    mask[0, torch.randperm(600, generator=g, device=dev)[:40]] = True
+    got = farthest_point_sample(xyz, 128, mask)
+    assert torch.equal(got, fps_reference(xyz, 128, mask))
+    assert len(set(got[0, :40].tolist())) == 40
+    assert bool(torch.gather(mask, 1, got.long()).all())
