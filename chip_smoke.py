@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (pointcloud_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --kernel-times --step-times  # fps and nn_sweep alone
+    python3 chip_smoke.py --kernel-times --step-times  # kernels and steps alone
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
@@ -15,9 +15,11 @@ lines:
      loop issues a pair and those of a step of fps's block kernel
      (cuobjdump -sass);
   2. hold each kernel against its plain PyTorch version on the card (masks,
-     fully masked rows, exact ties, bf16 and fp32; for fps and ball_group
+     fully masked rows, exact ties, bf16 and fp32; scatter_rows at the
+     route's shape and at SA2's odd width with one target holding a third
+     of the rows (long buckets summed in pieces); for fps and ball_group
      equal indices, empty balls, k not a multiple of 8, the shared-memory
-     and global paths, and fps's cluster route at the sensor's shape with
+     and global paths (ball_group at 15,000 points), and fps's cluster route at the sensor's shape with
      ties between blocks and at a ragged N; nn_sweep at C = 1, 3, 6, 7, 8,
      with several target chunks and a ragged 2049 x 31 pair; for the four passes of the
      Dense-BN-ReLU-pool chain depths 6 / 131 / 259, ragged widths (bf16
@@ -40,7 +42,9 @@ lines:
      10 chained steps; a second instance from the same seed and batch takes
      40 chained steps, the last one's loss below the warm-up step's;
   5. the segment-sum route of the Chamfer backward: chamfer_distance(x, y)
-     .backward() at B=4, N=M=4096, C=6 (above the 6<<20 switch);
+     .backward() at B=4, N=M=4096, C=6 (above the 6<<20 switch); its
+     scatter_rows timed by events and, as the host's call time passes the
+     card's at this size, by its device time from a trace (index_add_ too);
   6. the PointNet2 path at full width: create_model("Autoencoder",
      "PointNet2", "Cube", loss_override="chamfer") and its eval step at
      B=256 x 2048 x 6 (bf16), `encode` on one cloud, and the sensor's
@@ -165,6 +169,9 @@ B_ROUTE, P_ROUTE = 4, 4096  # 16.8M cost elements per cloud: the segment-sum rou
 B_PN2 = 256  # bench.py's PointNet2 batch
 B_EMD = 128  # the AE + EMD train batch of benchmarks/config_step_bench.py
 B_SEG = 64  # its Segmenter batch; also the PointNet2 + EMD batch here
+# fp32 instructions a second: 128 lanes an SM issue one each a clock, and
+# the data sheet's fp32 rate counts an FMA as two operations
+PEAK_FP32_ISSUE = PEAK_FP32_FLOPS / 2
 # ex2 on the special-function units: 16 a clock an SM against 128 fp32 lanes
 # that do 2 operations each, so an eighth of half the fp32 rate
 PEAK_SFU_OPS = PEAK_FP32_FLOPS / 2 / 8
@@ -982,14 +989,15 @@ def fps_bound(B, N, K):
 
 def ball_bound(B, N, S, k, F, esize, idx, valid):
     """Bytes: xyz, features and centroids read once, grouped rows, idx and
-    valid written once. Operations: ~9 per distance test, over the points
-    this run's data makes the kernel test (up to the k-th in-ball point,
-    else all N)."""
+    valid written once. Operations: a distance test is 9 fp32 instructions
+    (3 differences, 3 products, 3 sums: rounded intrinsics, no FMA), counted
+    at the issue rate PEAK_FP32_ISSUE, over the points this run's data
+    makes the kernel test (up to the k-th in-ball point, else all N)."""
     scanned = torch.where(valid[..., -1], idx[..., -1].long() + 1, N)
     ops = 9 * float(scanned.sum())
     nbytes = (B * N * 3 * 4 + B * N * F * esize + B * S * 3 * 4
               + B * S * k * ((3 + F) * esize + 4 + 1))
-    return bound(ops, nbytes, PEAK_FP32_FLOPS)
+    return bound(ops, nbytes, PEAK_FP32_ISSUE)
 
 
 def sensor_cloud(gen, sc, dev):
@@ -1785,10 +1793,11 @@ def time_scatters(scattered, label, err):
                  0, off, src), iters=10, warmup=2),
              bound(Bs * R * C, Bs * R * (C * g.element_size() + 4) + Bs * n * C * 4,
                    PEAK_FP32_FLOPS))
+        dev_ms = sum(kernel_split(lambda: scatter_rows(g, idx, n)).values())
         log(f"  scatter_rows at {label}, B={Bs} R={R} -> n={n} C={C} "
             f"{str(g.dtype)[6:]}: rel err {e:.2e}, two runs bit-equal; kernel "
-            f"{t[0]:.3f} ms | plain {t[1]:.3f} ms | library index_add_ {t[2]:.3f} ms "
-            f"| bound {t[3][0]:.4f} ms ({t[3][1]})")
+            f"{t[0]:.3f} ms ({dev_ms:.4f} device, trace) | plain {t[1]:.3f} ms | "
+            f"library index_add_ {t[2]:.3f} ms | bound {t[3][0]:.4f} ms ({t[3][1]})")
         out.append(((Bs, R, n, C), *t))
         del got, want, off, src
     torch.cuda.empty_cache()
@@ -3844,11 +3853,300 @@ def fps_geometries(gen):
             f"{fps_plan(B, N).threads} x {fps_plan(B, N).slots}): " + "; ".join(row))
 
 
+def kernel_split(fn, calls=5):
+    """Device time a call of each CUDA kernel that fn() launches, from a
+    torch.profiler trace of `calls` calls after one warm-up: {kernel: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and not e.is_user_annotation:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name.removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.device_time_total / 1e3 / calls
+    return out
+
+
+def scatter_cases(seed):
+    """(label, g, idx, n, init) of scatter_rows at every shape a driven path
+    launches it at, the indices those of the path's own grouping on its own
+    clouds (random weights and clouds from `seed`), the rows random in the
+    path's dtype: the Chamfer backward's segment-sum route (B=4 x 4096, C=6,
+    fp32, with init: the y side's nearest-neighbour indices, as phase 5),
+    PointNet2's SA2 grouping gradient (B=256, C=131), PointMLP's four stages
+    (B=32, C=64-512) and MSG level 2's three branches (B=32, C=320), bf16.
+    Also MSG level 2's (xyz, feats, centroids) and branches, for
+    group_gather."""
+    from pointcloud_tpu_torch.ops import ball_group, group_gather, knn_group
+    from pointcloud_tpu_torch.ops.chamfer_bwd import gather_rows
+    from pointcloud_tpu_torch.train import create_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, y, gx, gy, ax, ay = nn_inputs(gen, B_ROUTE, P_ROUTE, P_ROUTE, 6, masked=False)
+    tx = 2.0 * gx[..., None] * (x - gather_rows(y, ax))
+    ty = 2.0 * gy[..., None] * (y - gather_rows(x, ay))
+    cases = [("the segment-sum route", (-ty).contiguous(), ay, P_ROUTE, tx)]
+
+    def rows(B, R, C):
+        return torch.randn((B, R, C), generator=gen, device=dev).to(torch.bfloat16)
+
+    spec = create_model("Autoencoder", "PointNet2", "Cube", loss_override="chamfer",
+                        device=dev, seed=seed)
+    xn = spec.in_transform(raw_batch(gen, spec.scene, B_PN2, 2048, dev))[0]
+    (_, _, _), (xyz, feats, cents) = sa_level_inputs(spec.model.encoder.backbone, xn)
+    sa2 = spec.model.encoder.backbone.SetAbstraction_1
+    with torch.inference_mode():
+        idx = ball_group(xyz, feats, cents, None, sa2.nsample, sa2.radius)[1]
+    B, S, k = idx.shape
+    cases.append(("PointNet2 SA2", rows(B, S * k, 3 + feats.shape[2]),
+                  idx.reshape(B, S * k), xyz.shape[1], None))
+    spec = create_model("Autoencoder", "PointMLP", "Cube", loss_override="chamfer",
+                        device=dev, seed=seed)
+    xn = spec.in_transform(raw_batch(gen, spec.scene, B_MLP, 2048, dev))[0]
+    for i, (xyz, feats, cents) in enumerate(
+            pointmlp_stage_inputs(spec.model.encoder.backbone, xn)):
+        with torch.inference_mode():
+            idx = knn_group(xyz, None, cents, None, K_MLP)[2]
+        B, S, k = idx.shape
+        cases.append((f"PointMLP stage {i + 1}", rows(B, S * k, feats.shape[2]),
+                      idx.reshape(B, S * k), xyz.shape[1], None))
+    spec = msg_spec(dev, seed)
+    bb = spec.model.encoder.backbone
+    xn = spec.in_transform(raw_batch(gen, spec.scene, B_MSG, 2048, dev))[0]
+    with torch.inference_mode():
+        level2 = msg_level_inputs(bb, xn)[1]
+    xyz, feats, cents = (t.clone() for t in level2)
+    branches = [(r, k) for lv, r, k in msg_branches(bb) if lv == 1]
+    for r, k in branches:
+        with torch.inference_mode():
+            idx = group_gather(xyz, None, cents, None, k, r)[2]
+        B, S, _ = idx.shape
+        cases.append((f"MSG level 2, r={r} k={k}", rows(B, S * k, feats.shape[2]),
+                      idx.reshape(B, S * k), xyz.shape[1], None))
+    return cases, (xyz, feats, cents, branches)
+
+
+def sa_level_inputs(bb, xn):
+    """(xyz, feats, centroids) of PointNet2's SA1 and SA2 ball groupings in
+    one eval forward of the backbone `bb` on normalised clouds xn, the
+    features bf16 as the path's."""
+    from pointcloud_tpu_torch.ops import ball_group, farthest_point_sample, index_points
+
+    xyz = xn[..., :3].contiguous()
+    feats = xn[..., 3:].to(torch.bfloat16).contiguous()
+    out = []
+    with torch.inference_mode():
+        for sa in (bb.SetAbstraction_0, bb.SetAbstraction_1):
+            cents = index_points(xyz, farthest_point_sample(xyz, sa.npoint))
+            out.append((xyz, feats, cents))
+            grouped, _, valid = ball_group(xyz, feats, cents, None, sa.nsample,
+                                           sa.radius)
+            xyz, feats = cents, sa.pool(grouped, valid).contiguous()
+    return [tuple(t.clone() for t in lv) for lv in out]
+
+
+def scatter_times(cases):
+    """scatter_rows at each case of scatter_cases: held against its plain
+    version (1e-4 relative, two runs bit-equal), timed (10 calls after 2
+    warm-ups) beside the library's index_add_ (atomics; timed here, never
+    called by the port) and the bound, and the device time of each of its
+    CUDA kernels from a trace (the sort / sum split where it has two).
+    Returns {label: (ms, library ms, (bound ms, by))}."""
+    from pointcloud_tpu_torch.ops import scatter_rows, scatter_rows_reference
+
+    dev = torch.device("cuda")
+    out = {}
+    for label, g, idx, n, init in cases:
+        got = twice_equal("scatter_rows", lambda: (scatter_rows(g, idx, n, init),))[0]
+        want = scatter_rows_reference(g, idx, n, init)
+        e = rel_err(got, want)
+        if e > 1e-4:
+            raise AssertionError(f"scatter_rows at {label} differs by {e:.2e} rel")
+        B, R, C = g.shape
+        off = (idx.long() + torch.arange(B, device=dev)[:, None] * n).reshape(-1)
+        src = g.reshape(-1, C).float()
+        base = (init.reshape(-1, C) if init is not None
+                else torch.zeros((B * n, C), device=dev))
+        ms = cuda_ms(lambda: scatter_rows(g, idx, n, init), iters=10)
+        lib = cuda_ms(lambda: base.clone().index_add_(0, off, src), iters=10)
+        bnd = bound(B * R * C, B * R * (C * g.element_size() + 4)
+                    + B * n * C * 4 * (1 if init is None else 2), PEAK_FP32_FLOPS)
+        split = kernel_split(lambda: scatter_rows(g, idx, n, init))
+        lens = torch.zeros(B * n, dtype=torch.int64, device=dev).index_add_(
+            0, off, torch.ones_like(off))
+        out[label] = (ms, lib, bnd)
+        log(f"  scatter_rows {label}: B={B} R={R} -> n={n} C={C} "
+            f"{str(g.dtype)[6:]}{' + init' if init is not None else ''} (buckets: "
+            f"mean {R / n:.1f}, largest {int(lens.max())}): rel err {e:.2e}, two "
+            f"runs bit-equal; kernel {ms:.4f} ms (device time by kernel, trace: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f") | library index_add_ {lib:.4f} ms | bound {bnd[0]:.4f} ms "
+            f"({bnd[1]})")
+        del got, want, off, src, base, lens
+    torch.cuda.empty_cache()
+    return out
+
+
+# the selection of the ball grouping as the first version ran it (16 warps a
+# block, a warp a centroid, the cloud staged by every block, the slots in
+# global memory), built alone to time the selection without the write
+BALL_SELECT_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "ball_select.cuh"
+namespace {
+constexpr int kWarps = 16;
+__global__ void __launch_bounds__(kWarps * 32)
+    select_kernel(const float* __restrict__ xyz, const float* __restrict__ cents,
+                  int n, int s_count, int k, float r2, int* idx) {
+  __shared__ float4 pts[ball_select::kMaxSharedPoints];
+  const int64_t b = blockIdx.y;
+  const float* xb = xyz + b * n * 3;
+  ball_select::stage_points(pts, xb, nullptr, n);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + warp;
+  if (s >= s_count) return;
+  const int64_t row = b * s_count + s;
+  ball_select::select_first_k<true>(pts, xb, nullptr, n, cents[3 * row],
+                                    cents[3 * row + 1], cents[3 * row + 2], r2, k,
+                                    idx + row * k, lane);
+}
+}  // namespace
+extern "C" int select_launch(const float* xyz, const float* cents, int b, int n,
+                             int s_count, int k, float r2, int* idx, void* stream) {
+  const dim3 grid((s_count + kWarps - 1) / kWarps, b);
+  select_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      xyz, cents, n, s_count, k, r2, idx);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def ball_select_only(xyz, feats, cents, k, radius):
+    """A callable that runs the ball grouping's staging and selection alone
+    on these inputs (no grouped rows written): the library's diagnostic
+    entry `ball_group_select_launch` on the launch `ball_group_plan` gives
+    the whole call, where the library has one, else a build of
+    BALL_SELECT_PROBE (the first version's selection)."""
+    import ctypes
+    import hashlib
+
+    from pointcloud_tpu_torch import ops
+    from pointcloud_tpu_torch.ops import _build
+
+    B, N, _ = xyz.shape
+    S = cents.shape[1]
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=xyz.device)
+    valid = torch.empty((B, S, k), dtype=torch.bool, device=xyz.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.load("ball_group")
+    if hasattr(lib, "ball_group_select_launch"):
+        p = ops.ball_group_plan(B, N, S, k, feats.shape[2], feats.dtype)
+        fn = lib.ball_group_select_launch
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        return lambda: fn(xyz.data_ptr(), cents.data_ptr(), None, B, N, S, k, r2,
+                          idx.data_ptr(), valid.data_ptr(), p.per_block, p.tile,
+                          int(p.route == "shared"), p.smem, stream)
+    src = _build.BUILD_DIR / "probe_ball_select.cu"
+    digest = hashlib.sha256(BALL_SELECT_PROBE.encode() + (
+        _build.CSRC_DIR / "ball_select.cuh").read_bytes()).hexdigest()[:12]
+    so = _build.BUILD_DIR / f"libprobe_ball_select-{digest}.so"
+    if not so.is_file():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src.write_text(BALL_SELECT_PROBE)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                        "-o", str(so), str(src)], check=True, capture_output=True,
+                       timeout=300)
+    fn = ctypes.CDLL(str(so)).select_launch
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float]
+                   + [ctypes.c_void_p] * 2)
+    return lambda: fn(xyz.data_ptr(), cents.data_ptr(), B, N, S, k, r2,
+                      idx.data_ptr(), stream)
+
+
+def ball_times(seed):
+    """ball_group at PointNet2's SA1 and SA2 (B=256, bf16) on the path's own
+    inputs (random weights and clouds from `seed`): equal to the plain
+    version, timed (10 calls) beside its staging + selection alone (the
+    rest is the write of the grouped rows), the cdist yardstick and the
+    bound; the mean number of points each centroid tests (up to its k-th
+    in-ball point, else all N). Returns {level: (ms, library ms, bound)}."""
+    from pointcloud_tpu_torch.ops import ball_group, ball_group_reference
+    from pointcloud_tpu_torch.train import create_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = create_model("Autoencoder", "PointNet2", "Cube", loss_override="chamfer",
+                        device=dev, seed=seed)
+    bb = spec.model.encoder.backbone
+    xn = spec.in_transform(raw_batch(gen, spec.scene, B_PN2, 2048, dev))[0]
+    out = {}
+    for lvl, sa, (xyz, feats, cents) in zip(
+            ("SA1", "SA2"), (bb.SetAbstraction_0, bb.SetAbstraction_1),
+            sa_level_inputs(bb, xn)):
+        args = (xyz, feats, cents, None, sa.nsample, sa.radius)
+        got = twice_equal("ball_group", lambda: ball_group(*args))
+        want = ball_group_reference(*args)
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"ball_group differs from the plain version at {lvl}")
+        B, N, F = feats.shape
+        S, k = cents.shape[1], sa.nsample
+        scanned = torch.where(got[2][..., -1], got[1][..., -1].long() + 1, N)
+        bnd = ball_bound(B, N, S, k, F, feats.element_size(), got[1], got[2])
+        ms = cuda_ms(lambda: ball_group(*args), iters=10)
+        sel = cuda_ms(ball_select_only(xyz, feats, cents, k, sa.radius), iters=10)
+        lib = cuda_ms(lambda: ball_library(xyz, feats, cents, k, sa.radius), iters=3,
+                      warmup=1)
+        out[lvl] = (ms, lib, bnd)
+        log(f"  ball_group {lvl}: B={B} N={N} S={S} k={k} F={F} bf16 r={sa.radius}: "
+            f"equal to the plain version; {float(scanned.float().mean()):.1f} points "
+            f"tested a centroid (mean), {float(got[2].float().mean()):.3f} of the "
+            f"slots in a ball; kernel {ms:.4f} ms = staging + selection "
+            f"{sel:.4f} ms + the rest {ms - sel:.4f} ms | library cdist + topk + "
+            f"gather {lib:.3f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})")
+        del got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def grouping_times(seed):
+    """The grouping kernels alone at every driven shape: ball_group
+    (ball_times), scatter_rows (scatter_times), and, re-timed beside them,
+    chamfer_bwd at the PointNet train step's shape and group_gather at MSG
+    level 2's three branches on that level's own inputs."""
+    from pointcloud_tpu_torch.ops import chamfer_bwd, group_gather
+
+    ball_times(seed)
+    cases, (xyz, feats, cents, branches) = scatter_cases(seed)
+    scatter_times(cases)
+    del cases
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    args = nn_inputs(gen, B_TRAIN, 2048, 2048, 6, masked=False)
+    compare_chamfer_bwd(args, "unmasked")
+    ms = cuda_ms(lambda: chamfer_bwd(*args), iters=10)
+    log(f"  chamfer_bwd B={B_TRAIN} N=M=2048 C=6: kernel {ms:.4f} ms")
+    for r, k in branches:
+        ms = cuda_ms(lambda: group_gather(xyz, feats, cents, None, k, r), iters=10)
+        log(f"  group_gather MSG level 2, r={r} k={k}: B={xyz.shape[0]} "
+            f"N={xyz.shape[1]} S={cents.shape[1]} F={feats.shape[2]} "
+            f"{str(feats.dtype)[6:]}: kernel {ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+
 def kernel_times(seed):
-    """The two kernels' times alone, on clouds drawn from `seed`: fps at
-    every driven shape and at the sensor's (a cluster of 16), nn_sweep at
-    the eval step's B=512 x 2048 x 6 (values held against the plain version
-    on the first 8 clouds)."""
+    """Kernels' times alone, on clouds drawn from `seed`: fps at every
+    driven shape and at the sensor's (a cluster of 16), nn_sweep at the eval
+    step's B=512 x 2048 x 6 (values held against the plain version on the
+    first 8 clouds), then the grouping kernels (grouping_times)."""
     from pointcloud_tpu_torch.ops import (
         _build,
         farthest_point_sample,
@@ -3892,6 +4190,9 @@ def kernel_times(seed):
     # the tensor-core kernel's diagnostic entry (a parent's library may lack it)
     if hasattr(_build.load("nn_sweep"), "nn_sweep_costs_launch"):
         nn_expansion_error(x, y, f"unit-cube clouds B={B_MAIN} x 2048 x 6")
+    del x, y
+    torch.cuda.empty_cache()
+    grouping_times(seed)
 
 
 def step_times(seed):
@@ -3939,9 +4240,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     ap.add_argument("--orders", type=int, nargs="+", default=[0])
     ap.add_argument("--kernel-times", action="store_true",
-                    help="only build, then time fps at every driven shape and "
-                         "nn_sweep at the eval shape (B=512 x 2048 x 6); "
-                         "prints no result lines")
+                    help="only build, then time fps at every driven shape, "
+                         "nn_sweep at the eval shape (B=512 x 2048 x 6), "
+                         "ball_group at SA1 / SA2, scatter_rows at every driven "
+                         "shape and the route, chamfer_bwd and group_gather "
+                         "(kernel_times); prints no result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps these two kernels "
                          "serve (step_times); with --kernel-times, both; "
@@ -4071,6 +4374,16 @@ def main(argv=None) -> int:
         check_ball_group(gen, 3, 300, 40, 5, 7, torch.float32, True, 0.3),
         check_ball_group(gen, 2, 5000, 64, 24, 4, torch.bfloat16, True, 0.1),
         check_ball_group(gen, 2, 256, 16, 8, 0, torch.float32, False, 0.5))
+    # SA2's odd width with a third of the rows on one target (long buckets
+    # summed in pieces) and ball_group's global route, with a generator of
+    # their own: `gen` goes on to draw the paths' clouds, and phase 5's
+    # gradients follow nn_sweep's indices, which may pick another nearest
+    # neighbour than the CPU at a near tie in other clouds
+    gen_grp = torch.Generator(device=dev).manual_seed(args.seed + 8)
+    err["scatter_rows"] = max(err["scatter_rows"],
+                              check_scatter_rows(gen_grp, 4, 8192, 512, 131))
+    err["ball_group"] = max(err["ball_group"], check_ball_group(
+        gen_grp, 2, 15000, 64, 24, 4, torch.bfloat16, True, 0.05))
     err.update(mm_stats=0.0, bnact_mm_stats=0.0, bn_pool=0.0, chain_bwd_pass=0.0)
     bf, f32 = torch.bfloat16, torch.float32
     # a generator of their own: `gen` goes on to draw the paths' clouds
@@ -4356,8 +4669,14 @@ def main(argv=None) -> int:
     yc = ry.cpu().requires_grad_()
     chamfer_distance(xc, yc).backward()
     e_route = max(rel_err(xg.grad.cpu(), xc.grad), rel_err(yg.grad.cpu(), yc.grad))
+    # a gradient follows each point's nearest neighbour: the card's indices
+    # against the CPU's direct differences
+    card_nn = nn_sweep(rx, ry)
+    cpu_nn = nn_sweep_reference(rx.cpu(), ry.cpu())
+    nn_off = sum(int((card_nn[j].cpu() != cpu_nn[j]).sum()) for j in (1, 3))
     log(f"  launches {route_counts}; gradients vs the CPU's plain route: rel "
-        f"err {e_route:.2e}")
+        f"err {e_route:.2e}; nearest-neighbour indices card vs CPU differing: "
+        f"{nn_off}")
     if e_route > 1e-4:
         raise AssertionError("segment-sum route gradients differ from the CPU")
     sargs = nn_inputs(gen, B_ROUTE, P_ROUTE, P_ROUTE, 6, masked=False)
@@ -4378,6 +4697,13 @@ def main(argv=None) -> int:
     log(f"  scatter_rows B={B_ROUTE} R=n={P_ROUTE} C=6 with init: kernel "
         f"{s_ms:.3f} ms | plain {s_plain:.3f} ms | library index_add_ "
         f"{s_lib:.3f} ms | bound {s_bound[0]:.4f} ms ({s_bound[1]})")
+    # at this size a call's host time passes the card's: the device times
+    # from a trace (the `kernels` line takes these)
+    s_ms = sum(kernel_split(lambda: scatter_rows(-ty_r, sargs[5], P_ROUTE,
+                                                 init=tx_r)).values())
+    s_lib = sum(kernel_split(lambda: s_init.clone().index_add_(0, s_off, s_src)).values())
+    log(f"  scatter_rows at the route, device time (trace): kernel {s_ms:.4f} ms | "
+        f"library clone + index_add_ {s_lib:.4f} ms")
     fused_big = cuda_ms(lambda: chamfer_bwd(*sargs), iters=10)
     seg_big = cuda_ms(lambda: nn_grads_segment_sum(*sargs), iters=10)
     log(f"  Chamfer backward routes at B={B_ROUTE}, {P_ROUTE}x{P_ROUTE} "

@@ -1,4 +1,4 @@
-// The first-k ball selection shared by ball_group.cu and group_gather.cu.
+// The first-k ball selection of ball_group.cu and group_gather.cu.
 //
 // A point is inside the ball of a centroid when ((pen + dx^2) + dy^2) + dz^2
 // <= r2, with d the centroid minus the point, pen = 1e9 on masked points and
@@ -73,6 +73,69 @@ __device__ __forceinline__ int select_first_k(
   for (int j = cnt + lane; j < k; j += 32) slots[j] = slot0;
   __syncwarp();
   return cnt;
+}
+
+// The same selection over a cloud staged in shared memory, for a block that
+// serves many centroids (ball_group.cu), for kCents centroids of a warp at
+// once: each point read from shared memory once serves all of them. Four
+// batches of 32 points a round, their tests in flight together; the slots
+// of a centroid placed only for a batch with one of its in-ball points;
+// without a mask no penalty add (0 + d^2 is d^2 exactly). The same points in
+// the same order, so the same slots as select_first_k; the sweep runs until
+// every centroid has k (it may test up to 127 points past a centroid's k-th
+// in-ball one, and past it for a centroid done sooner). Centroid m writes
+// slots[m * k ..] and returns its in-ball count (at most k) in cnt[m]; a
+// centroid whose cnt[m] starts at k is left alone.
+template <bool kMasked, int kCents>
+__device__ __forceinline__ void select_staged(const float4* shared_points, int n,
+                                              const float (&cx)[kCents][3], float r2,
+                                              int k, int* slots, int (&cnt)[kCents],
+                                              int lane) {
+  constexpr int kBatches = 4;
+  const unsigned lower = (1u << lane) - 1u;
+  bool busy = false;
+#pragma unroll
+  for (int m = 0; m < kCents; ++m) busy |= cnt[m] < k;
+  for (int base = 0; base < n && busy; base += 32 * kBatches) {
+    unsigned ball[kCents][kBatches];
+#pragma unroll
+    for (int u = 0; u < kBatches; ++u) {
+      const int i = base + 32 * u + lane;
+      const float4 p = i < n ? shared_points[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int m = 0; m < kCents; ++m) {
+        const float dx = __fsub_rn(cx[m][0], p.x);
+        const float dy = __fsub_rn(cx[m][1], p.y);
+        const float dz = __fsub_rn(cx[m][2], p.z);
+        float acc = kMasked ? __fadd_rn(p.w, __fmul_rn(dx, dx)) : __fmul_rn(dx, dx);
+        acc = __fadd_rn(acc, __fmul_rn(dy, dy));
+        acc = __fadd_rn(acc, __fmul_rn(dz, dz));
+        ball[m][u] = __ballot_sync(0xffffffffu, i < n && acc <= r2);
+      }
+    }
+    busy = false;
+#pragma unroll
+    for (int m = 0; m < kCents; ++m) {
+#pragma unroll
+      for (int u = 0; u < kBatches; ++u) {
+        if (ball[m][u] != 0u) {  // warp-uniform
+          const int rank = cnt[m] + __popc(ball[m][u] & lower);
+          if (((ball[m][u] >> lane) & 1u) && rank < k)
+            slots[m * k + rank] = base + 32 * u + lane;
+          cnt[m] += __popc(ball[m][u]);
+        }
+      }
+      busy |= cnt[m] < k;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int m = 0; m < kCents; ++m) {
+    cnt[m] = min(cnt[m], k);
+    const int slot0 = cnt[m] > 0 ? slots[m * k] : 0;
+    for (int j = cnt[m] + lane; j < k; j += 32) slots[m * k + j] = slot0;
+  }
+  __syncwarp();
 }
 
 }  // namespace ball_select

@@ -1,5 +1,5 @@
-// Deterministic bucketing of rows by target index, for the segment-sum
-// kernels (scatter_rows.cu, chamfer_bwd.cu).
+// Deterministic bucketing of rows by target index, for the fused Chamfer
+// backward (chamfer_bwd.cu).
 //
 // A segment-sum out[t] = sum_{r : idx[r] == t} g[r] written with fp32
 // atomicAdd gives different bits from run to run, because the order of the

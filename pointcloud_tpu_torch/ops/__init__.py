@@ -9,6 +9,7 @@ with its Sinkhorn kernel."""
 
 from pointcloud_tpu_torch.ops.ball_group import (  # noqa: F401
     ball_group,
+    ball_group_plan,
     ball_group_reference,
 )
 from pointcloud_tpu_torch.ops.chamfer import (  # noqa: F401
@@ -88,7 +89,9 @@ from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
 )
 from pointcloud_tpu_torch.ops.scatter_rows import (  # noqa: F401
     scatter_grouped,
+    scatter_plan,
     scatter_rows,
+    scatter_rows_mirror,
     scatter_rows_reference,
 )
 from pointcloud_tpu_torch.ops.sinkhorn import (  # noqa: F401

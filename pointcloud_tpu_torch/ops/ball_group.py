@@ -2,7 +2,8 @@
 
 Port of pointcloud_tpu/ops/pallas_kernels.py:_group_ball_smajor_kernel
 (`grouped_gather_ball`). The kernel is csrc/ball_group.cu; its note states
-the design and the bound. `ball_group` launches it for CUDA tensors and
+the design and the bound, and `ball_group_plan` sizes its launch from the
+shape alone. `ball_group` launches it for CUDA tensors and
 takes the plain version `ball_group_reference` only for CPU tensors. Its
 gradient (a port of `_gg_ball_bwd`) is one `scatter_rows` of the grouped
 cotangent back onto the points, on either device.
@@ -19,10 +20,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from pointcloud_tpu_torch.ops import _build
+from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT, SMS
 from pointcloud_tpu_torch.ops.geometry import (
     first_k_in_ball,
     index_points,
@@ -31,6 +34,66 @@ from pointcloud_tpu_torch.ops.geometry import (
 from pointcloud_tpu_torch.ops.scatter_rows import scatter_rows
 
 _MAX_BATCH = 65535  # gridDim.y
+_WARPS = 32  # csrc/ball_group.cu kWarps
+_CENTS = 2  # csrc/ball_group.cu kCents: centroids a warp selects at once
+_TILE = 1024  # largest tile of a warp's output run, bytes
+_SMEM_SM = 233_472  # shared memory of an H100 SM (228 KB)
+_BLOCKS_PER_SM = 2  # 2,048 threads an SM in blocks of 1,024
+
+
+class BallPlan(NamedTuple):
+    """The launch geometry of one `ball_group` call (csrc/ball_group.cu)."""
+    route: str  # "shared": the cloud staged in shared memory; "global": not
+    threads: int  # threads a block (a warp two centroids at a time)
+    per_block: int  # centroids a block
+    blocks: int  # blocks a cloud
+    tile: int  # bytes of a warp's tile of an output run
+    stage_feats: bool  # the features staged beside the points
+    smem: int  # dynamic shared memory a block, bytes, as the kernel lays it out
+
+
+@functools.lru_cache(maxsize=256)
+def ball_group_plan(B: int, N: int, S: int, k: int, F: int, dtype) -> BallPlan:
+    """The launch of `ball_group` for B clouds of N points with F feature
+    channels in `dtype` (fp32 or bf16; F = 0 without features), S centroids
+    and k slots each.
+
+    A block is 32 warps. Shared memory holds each warp's slots for its two
+    centroids (rounded to 16 bytes for the block), then each warp's tile:
+    the whole output run k * (3+F) elements and 16 bytes, at most 1 KB, but
+    at least a row and 16 bytes. On the shared route the cloud's points
+    follow as (x, y, z, pen), 16 bytes a point, and the features (N * F
+    elements) where they fit too. A cloud whose points do not fit takes the
+    global route. A block serves `per_block` centroids of one cloud (32 or
+    more unless S is smaller), and a cloud takes as many blocks as fill the
+    card's resident blocks once (each block stages the cloud again).
+
+    Raises ValueError for shapes no launch takes (B outside 1..65,535, N, S
+    or k below 1, F below 0, slots and tiles past the shared memory) and
+    TypeError for other dtypes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ball_group kernel takes fp32 or bf16 features; got {dtype}")
+    if not (1 <= B <= _MAX_BATCH and N >= 1 and S >= 1 and k >= 1 and F >= 0):
+        raise ValueError(f"ball_group kernel bounds exceeded: B={B} N={N} S={S} "
+                         f"k={k} F={F}")
+    esize = 2 if dtype == torch.bfloat16 and F > 0 else 4  # the output's
+    tile = max(min(_TILE, (-(-k * (3 + F) * esize // 16) + 1) * 16),
+               (-(-(3 + F) * esize // 16) + 1) * 16)
+    fixed = -(-_WARPS * _CENTS * k * 4 // 16) * 16 + _WARPS * tile
+    if fixed > SMEM_LIMIT:
+        raise ValueError(f"ball_group kernel: k={k} slots a warp exceed the shared "
+                         f"memory")
+    shared = fixed + 16 * N <= SMEM_LIMIT
+    smem = fixed + (16 * N if shared else 0)
+    stage_feats = shared and F > 0 and smem + N * F * esize <= SMEM_LIMIT
+    if stage_feats:
+        smem += N * F * esize
+    resident = max(1, min(_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024)))
+    blocks = max(1, min(-(-resident * SMS // B), S // _WARPS))
+    per_block = -(-S // blocks)
+    blocks = -(-S // per_block)
+    return BallPlan("shared" if shared else "global", _WARPS * 32, per_block, blocks,
+                    tile, stage_feats, smem)
 
 
 def ball_group_reference(xyz, feats, new_xyz, mask, k: int, radius: float):
@@ -50,7 +113,8 @@ def ball_group_reference(xyz, feats, new_xyz, mask, k: int, radius: float):
 def _launcher():
     fn = _build.load("ball_group").ball_group_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 4)
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -89,11 +153,9 @@ def _group(xyz, feats, new_xyz, mask, k: int, radius: float):
     if not all(t.is_contiguous() for t in (xyz, feats, new_xyz, mask)
                if t is not None):
         raise ValueError("ball_group kernel takes contiguous tensors")
-    if not (1 <= B <= _MAX_BATCH and N >= 1 and S >= 1):
-        raise ValueError(f"ball_group kernel bounds exceeded: B={B} N={N} S={S}")
-
     F = 0 if feats is None else feats.shape[2]
     dtype = torch.float32 if feats is None else feats.dtype
+    plan = ball_group_plan(B, N, S, k, F, dtype)
     grouped = torch.empty((B, S, k, 3 + F), dtype=dtype, device=device)
     idx = torch.empty((B, S, k), dtype=torch.int32, device=device)
     valid = torch.empty((B, S, k), dtype=torch.bool, device=device)
@@ -107,7 +169,8 @@ def _group(xyz, feats, new_xyz, mask, k: int, radius: float):
         err = launch(
             xyz.data_ptr(), ptr(feats), int(dtype == torch.bfloat16),
             new_xyz.data_ptr(), ptr(mask), B, N, S, k, F, r2,
-            grouped.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            grouped.data_ptr(), idx.data_ptr(), valid.data_ptr(), plan.per_block,
+            plan.tile, int(plan.route == "shared"), int(plan.stage_feats), plan.smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

@@ -13,6 +13,7 @@ import torch
 from pointcloud_tpu_torch.ops import (
     affine_scalars,
     ball_group,
+    ball_group_plan,
     ball_group_reference,
     bn_pool,
     bn_pool_reference,
@@ -50,7 +51,9 @@ from pointcloud_tpu_torch.ops import (
     nn_sweep_reference,
     pool_bwd_plan,
     pool_fwd_plan,
+    scatter_plan,
     scatter_rows,
+    scatter_rows_mirror,
     scatter_rows_reference,
     sinkhorn,
     sinkhorn_match,
@@ -61,6 +64,7 @@ from pointcloud_tpu_torch.ops import (
     up_scalars,
 )
 from pointcloud_tpu_torch.ops import preextract_fused as tpf
+from pointcloud_tpu_torch.ops.scatter_rows import PIECE
 
 pytestmark = pytest.mark.cuda
 
@@ -179,6 +183,98 @@ def test_scatter_rows_matches_plain_and_is_deterministic(dev, dtype, with_init):
     want = scatter_rows_reference(rows, idx, 300, init)
     assert torch.equal(got, again)
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def seg_rows(dev, seed, B, R, n, C, dtype, crowd=0):
+    """Rows and indices drawn with numpy (`crowd` of each cloud's first rows
+    onto target 3) and an fp32 init, on the card."""
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal((B, R, C)).astype(np.float32))
+    idx = rng.integers(0, n, (B, R)).astype(np.int32)
+    idx[:, :crowd] = 3
+    init = torch.from_numpy(rng.standard_normal((B, n, C)).astype(np.float32))
+    return g.to(dtype).to(dev), torch.from_numpy(idx).to(dev), init.to(dev)
+
+
+def assert_scatter_exact(got, g, idx, n, init):
+    """Bit-equal to the plain version on the CPU (index_add_ in row order)
+    where no bucket holds more than PIECE rows, to the kernel's order
+    (scatter_rows_mirror) everywhere, and within 1e-4 of the plain version."""
+    want = scatter_rows_mirror(g.cpu(), idx.cpu(), n,
+                               None if init is None else init.cpu())
+    assert torch.equal(got.cpu(), want)
+    plain = scatter_rows_reference(g.cpu(), idx.cpu(), n,
+                                   None if init is None else init.cpu())
+    assert (want - plain).abs().max() <= 1e-4 * plain.abs().max()
+
+
+@pytest.mark.parametrize("C,dtype", [(1, torch.float32), (6, torch.float32),
+                                     (131, torch.bfloat16), (512, torch.bfloat16),
+                                     (37, torch.bfloat16), (64, torch.bfloat16),
+                                     (320, torch.float32)])
+def test_scatter_rows_widths_match_the_cpu_bit_for_bit(dev, C, dtype):
+    """Every load width of the sum: fp32 and bf16 rows of 1 to 512 channels
+    (C=37 and 131 bf16 rows start on 2-byte boundaries: a channel a lane,
+    in 2 and 5 passes), with and without
+    init, two runs bit-equal, bit-equal to the CPU's index_add_ (no long
+    bucket here)."""
+    g, idx, init = seg_rows(dev, C, 3, 2000, 300, C, dtype)
+    for i in (None, init):
+        got = scatter_rows(g, idx, 300, i)
+        assert torch.equal(got, scatter_rows(g, idx, 300, i))
+        assert_scatter_exact(got, g, idx, 300, i)
+
+
+@pytest.mark.parametrize("C,dtype", [(6, torch.float32), (131, torch.bfloat16),
+                                     (64, torch.bfloat16)])
+def test_scatter_rows_one_bucket_holds_every_row(dev, C, dtype):
+    """R = 4096 rows of each cloud onto one target: the block's groups sum
+    pieces of PIECE rows in row order, added in piece order (the kernel's
+    fixed-shape tree, scatter_rows_mirror), 1e-4 of index_add_; the other
+    targets keep init."""
+    g, idx, init = seg_rows(dev, 7, 2, 4096, 64, C, dtype, crowd=4096)
+    got = scatter_rows(g, idx, 64, init)
+    assert torch.equal(got, scatter_rows(g, idx, 64, init))
+    assert_scatter_exact(got, g, idx, 64, init)
+    others = torch.arange(64, device=dev) != 3
+    assert torch.equal(got[:, others], init[:, others])
+
+
+def test_scatter_rows_empty_targets_and_dropped_indices(dev):
+    """Targets no row picks hold init (or zeros); rows whose index lies
+    outside [0, n) are dropped, as the TPU kernel's one-hot rows drop them."""
+    g, idx, init = seg_rows(dev, 9, 3, 700, 300, 6, torch.float32)
+    idx[:, ::5] = torch.where(idx[:, ::5] % 2 == 0, -1, 300)  # outside [0, n)
+    idx[idx == 17] = 18  # target 17 empty
+    keep = (idx >= 0) & (idx < 300)
+    for i in (None, init):
+        got = scatter_rows(g, idx, 300, i)
+        want = scatter_rows_reference((g * keep[..., None]).cpu(),
+                                      torch.where(keep, idx, 0).cpu(), 300,
+                                      None if i is None else i.cpu())
+        assert torch.equal(got.cpu(), want)  # the CPU's order: zero rows change nothing
+        assert torch.equal(got[:, 17], torch.zeros_like(got[:, 17]) if i is None
+                           else i[:, 17])
+
+
+def test_scatter_rows_one_cloud_of_65536_rows(dev):
+    g, idx, init = seg_rows(dev, 11, 1, 65536, 8192, 8, torch.bfloat16)
+    got = scatter_rows(g, idx, 8192, init)
+    assert torch.equal(got, scatter_rows(g, idx, 8192, init))
+    assert_scatter_exact(got, g, idx, 8192, init)
+
+
+def test_scatter_rows_rows_of_a_misaligned_base(dev):
+    """g starting 2 bytes past a 16-byte boundary: the plan's loads follow
+    the base's alignment (a channel a lane), the result is unchanged."""
+    g, idx, init = seg_rows(dev, 13, 2, 1000, 100, 64, torch.bfloat16)
+    flat = torch.empty(g.numel() + 1, dtype=g.dtype, device=dev)
+    shifted = flat[1:].view(g.shape)
+    shifted.copy_(g)
+    assert shifted.data_ptr() % 16 == 2
+    assert scatter_plan(2, 1000, 100, 64, torch.bfloat16, align=2).vec == 1
+    assert torch.equal(scatter_rows(shifted, idx, 100, init),
+                       scatter_rows(g, idx, 100, init))
 
 
 def test_chamfer_bwd_matches_plain_and_is_deterministic(dev):
@@ -376,6 +472,7 @@ def ball_case(dev, seed, B, N, S, F, dtype, masked):
                                             (512, 128, 64, 128, 0.4),
                                             (300, 40, 5, 7, 0.3),
                                             (5000, 64, 24, 4, 0.1),
+                                            (15000, 64, 24, 4, 0.05),
                                             (256, 16, 8, 0, 0.5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("masked", [False, True])
@@ -425,6 +522,70 @@ def test_pointnet2_kernels_reject_what_they_do_not_take(dev):
                    mask, 8, 0.3)
     with pytest.raises(ValueError):
         ball_group(xyz, feats, cents, mask.cpu(), 8, 0.3)
+
+
+@pytest.mark.parametrize("N,S,k,F,dtype,masked", [
+    (2048, 37, 32, 3, torch.bfloat16, True),  # S not a multiple of a block's
+    (512, 300, 64, 128, torch.bfloat16, False),
+    (300, 40, 5, 7, torch.bfloat16, True),  # runs of 100 bytes: ragged ends
+    (700, 33, 13, 0, torch.float32, True),  # no features, 156-byte runs
+    (15000, 20, 24, 128, torch.float32, True),  # the global route
+    (512, 128, 200, 3, torch.float32, False),  # k above every in-ball count
+    (400, 24, 9, 129, torch.bfloat16, True),  # rows 2-byte past a word, odd F
+    (300, 20, 6, 1100, torch.float32, False),  # a row wider than a 2 KB tile
+])
+def test_ball_group_staged_cloud_and_run_store(dev, N, S, k, F, dtype, masked):
+    """Several blocks a cloud, centroids past the last full pair of a warp,
+    runs not a multiple of 16 bytes, the global route, k above the in-ball
+    count and an empty ball: idx, valid and grouped bit-equal to the plain
+    version, two runs bit-equal."""
+    xyz, feats, cents, mask = ball_case(dev, N + S + k, 2, N, S, F, dtype, masked)
+    p = ball_group_plan(2, N, S, k, F, dtype)
+    assert p.route == ("global" if N == 15000 else "shared")
+    got = ball_group(xyz, feats, cents, mask, k, 0.2)
+    again = ball_group(xyz, feats, cents, mask, k, 0.2)
+    torch.cuda.synchronize()
+    want = ball_group_reference(xyz, feats, cents, mask, k, 0.2)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert (got[1][:, -1] == 0).all() and not got[2][:, -1].any()  # empty ball
+    if k == 200:
+        assert not got[2][..., -1].any()  # no ball holds 200 points
+
+
+def test_ball_group_sa2_gradient_through_the_new_scatter(dev):
+    """SA2's shape at B=4 (512 points, 128 centroids, k=64, 128 bf16
+    features): the gradient is one scatter_rows of 131-channel bf16 rows
+    (2-byte aligned, a channel a lane); equal to the CPU path's bit for bit
+    where no bucket passes PIECE rows (fp32 sums of bf16 rows in row order),
+    else within a bf16 ulp (1e-4 for fp32 xyz)."""
+    xyz, feats, cents, _ = ball_case(dev, 21, 4, 512, 128, 128, torch.bfloat16, False)
+    torch.manual_seed(1)
+    cw = torch.randn((4, 128, 64, 131), device=dev)
+
+    def grads(d):
+        f = feats.to(d).clone().requires_grad_()
+        x = xyz.to(d).clone().requires_grad_()
+        g = ball_group(x, f, cents.to(d), None, 64, 0.4)[0]
+        return torch.autograd.grad((g.float() * cw.to(d)).sum(), [x, f])
+
+    before = scatter_rows.launches
+    got = grads(dev)
+    assert scatter_rows.launches == before + 1
+    want = grads("cpu")
+    idx = ball_group(xyz, feats, cents, None, 64, 0.4)[1].reshape(4, -1).long()
+    idx = idx + 512 * torch.arange(4, device=dev)[:, None]
+    long_bucket = int(torch.bincount(idx.flatten()).max()) > PIECE
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if not long_bucket:  # every bucket in the CPU's order
+            assert torch.equal(g.cpu(), w)
+        elif w.dtype == torch.bfloat16:  # one bf16 rounding of nearby fp32 sums
+            ulp = torch.exp2(torch.floor(torch.log2(w.float().abs().clamp_min(1e-30))) - 7)
+            assert ((g.cpu().float() - w.float()).abs() <= ulp + 1e-6).all()
+        else:
+            assert (g.cpu() - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 # ---- the PointNet2 train slice's kernels ----
