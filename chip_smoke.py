@@ -13,7 +13,8 @@ lines:
      warnings), the dense-pool forward's and backward's TMA + wgmma kernels
      and the Sinkhorn sweep (ptxas -v), the instructions the sweep's main
      loop issues a pair and those of a step of fps's block kernel
-     (cuobjdump -sass);
+     (cuobjdump -sass), and the registers and spills of every knn_group and
+     group_gather kernel;
   2. hold each kernel against its plain PyTorch version on the card (masks,
      fully masked rows, exact ties, bf16 and fp32; scatter_rows at the
      route's shape and at SA2's odd width with one target holding a third
@@ -29,8 +30,13 @@ lines:
      the backward pass (dh, da, dw) against its plain stage; ball_group's
      gradient; for the Sinkhorn matching N != M, N not a multiple of 64,
      6-dim inputs, identical clouds, constant and annealed eps, one
-     iteration) and run each kernel twice on the same inputs: the results
-     must be bit-equal;
+     iteration; knn_group and group_gather at both sides of every route
+     boundary of their plans: the list capacity k = 32 / 33 / 64 / 65, the
+     largest cloud each plan stages in shared memory and one point more,
+     feature rows of 2, 6, 66 and 640 bytes, a feature base 2 bytes past a
+     16-byte boundary, S not a multiple of a block's centroids, exact ties,
+     masks, a fully masked cloud, an empty ball, with_xyz both ways) and run
+     each kernel twice on the same inputs: the results must be bit-equal;
   3. the eval path at full width: create_model("Autoencoder", "PointNet",
      "Cube", loss_override="chamfer") and its eval step at B=512 x 2048
      points x 6 dims (bf16 activations), plus `encode` on one cloud;
@@ -80,7 +86,10 @@ lines:
      B=32 x 2048 x 6 (bench.py's PointMLP batch, bf16) for PointMLP with
      Chamfer and PointMLP-Elite with its default EMD loss, 20 chained steps
      with exact launch counts, the stage-by-stage encoder time and `encode`
-     on one cloud; one eval step of the Segmenter on PointMLP-Elite at B=8;
+     on one cloud; knn_group at all four stages of both configurations' own
+     inputs, held and timed (CUDA events over launches through the C
+     entry); one eval step of the
+     Segmenter on PointMLP-Elite at B=8;
      the fp32 models card vs CPU at B=2 (equal FPS and kNN indices at every
      stage);
  11. the PointMLP train paths at full width: the residual mode of the four
@@ -106,7 +115,8 @@ lines:
      bf16): make_eval_step, 20 chained steps with exact launch counts, a
      trace, the level-by-level time, `encode`; fps at both levels, nn_sweep
      on the step's output and group_gather at its six branches of that
-     batch against their plain versions, group_gather timed; then
+     batch against their plain versions, group_gather timed (CUDA events
+     over launches through the C entry); then
      make_optimizer + make_train_step, a warm-up step and 10 chained steps
      with exact launch counts, the step's parts, a trace, and, at one more
      step's own inputs, against their plain versions: dense_pool_stats at
@@ -2431,18 +2441,35 @@ B_MLP = 32  # bench.py's PointMLP batch
 K_MLP = 24  # neighbours a group at every PointMLP stage
 
 
-def check_knn_group(gen, B, N, S, k, F, dtype, masked, with_xyz):
+def check_knn_group(gen, B, N, S, k, F, dtype, masked, with_xyz, ties=False,
+                    offset=0, route=None):
     """knn_group vs knn_group_reference: idx and the gathered rows equal
     (the same penalised distances, the same (distance, index) order, exact
     gathers), the kernel twice. Centroids on every (N // S)-th point; with
     masks ~30% of the points masked, cloud 1 under-full (3 valid points) and
-    cloud 2 without a valid point (every slot repeats slot 0). Returns the
-    largest |grouped error| (0)."""
-    from pointcloud_tpu_torch.ops import knn_group, knn_group_reference
+    cloud 2 without a valid point (every slot repeats slot 0). `ties`: every
+    fourth point copies the one before it (exact distance ties); `offset`:
+    the features start `offset` elements past an aligned base; `route`: the
+    plan's route the shape must take. Returns the largest |grouped error|
+    (0)."""
+    from pointcloud_tpu_torch.ops import knn_group, knn_group_plan, knn_group_reference
 
     dev = torch.device("cuda")
     xyz = torch.rand((B, N, 3), generator=gen, device=dev)
-    feats = torch.randn((B, N, F), generator=gen, device=dev).to(dtype) if F else None
+    if ties:
+        xyz[:, 3::4] = xyz[:, 2::4][:, :xyz[:, 3::4].shape[1]]
+    feats = None
+    if F:
+        flat = torch.randn(B * N * F + offset, generator=gen, device=dev).to(dtype)
+        feats = flat[offset:].view(B, N, F)
+    if route is not None:
+        row = F * (2 if dtype == torch.bfloat16 else 4)
+        word = next(w for w in (16, 8, 4, 2)
+                    if row % w == 0 and (feats is None or feats.data_ptr() % w == 0))
+        plan = knn_group_plan(B, N, S, k, F, dtype, word, with_xyz)
+        if plan.route != route:
+            raise AssertionError(f"knn_group B={B} N={N} S={S} k={k}: route "
+                                 f"{plan.route}, expected {route}")
     cents = xyz[:, :: max(1, N // S)][:, :S].contiguous()
     mask = None
     if masked:
@@ -2464,8 +2491,9 @@ def check_knn_group(gen, B, N, S, k, F, dtype, masked, with_xyz):
                        and bool((idx[2] == idx[2, :, :1]).all())):
         raise AssertionError("knn_group: slots past the valid count must repeat slot 0")
     log(f"  knn_group B={B} N={N} S={S} k={k} F={F} {str(dtype)[6:]} masked={masked} "
-        f"xyz={with_xyz}: idx and rows equal to the plain version's; two runs "
-        f"bit-equal")
+        f"xyz={with_xyz}{' ties' if ties else ''}"
+        f"{f' base +{offset}' if offset else ''}{f' ({route})' if route else ''}: idx "
+        f"and rows equal to the plain version's; two runs bit-equal")
     return 0.0 if len(got) == 1 else max(
         float((a.float() - w.float()).abs().max()) for a, w in zip(got[:-1], want[:-1]))
 
@@ -2527,6 +2555,53 @@ def check_knn_group_grad(gen, B, N, S, k, F, dtype, with_xyz):
     return worst
 
 
+def grouping_route_checks(gen, err):
+    """knn_group and group_gather at both sides of every route boundary of
+    their plans: the list capacity (k = 32 / 33 / 64 / 65), the shared /
+    global switch (the largest cloud each plan stages, and one point more),
+    feature rows of 2, 6, 66 and 640 bytes, a feature base 2 bytes past a
+    16-byte boundary (2-byte words), S not a multiple of a block's
+    centroids, exact ties, masks, a fully masked cloud, an empty ball,
+    with_xyz both ways; exactly equal to the plain versions, two runs
+    bit-equal."""
+    from pointcloud_tpu_torch.ops import group_gather_plan, knn_group_plan
+    from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT
+
+    bf, f32 = torch.bfloat16, torch.float32
+    # the largest clouds the two plans stage at these shapes
+    most_knn = (SMEM_LIMIT - knn_group_plan(3, 96, 20, 24, 3, bf, 2).smem
+                + 16 * 96) // 512 * 32
+    most_gg = (SMEM_LIMIT - group_gather_plan(2, 512, 20, 64, 640, 16, False).smem
+               + 16 * 512) // 16
+    err["knn_group"] = max(
+        err.get("knn_group", 0.0),
+        check_knn_group(gen, 3, 300, 40, 32, 16, bf, True, True, ties=True, route="list"),
+        check_knn_group(gen, 3, 300, 40, 33, 16, bf, True, False, ties=True, route="list"),
+        check_knn_group(gen, 3, 300, 40, 64, 16, f32, True, True, route="list"),
+        check_knn_group(gen, 3, 300, 40, 65, 16, f32, True, True, ties=True,
+                        route="rounds"),
+        check_knn_group(gen, 3, most_knn, 20, 24, 3, bf, True, False, route="list"),
+        check_knn_group(gen, 3, most_knn + 1, 20, 24, 3, bf, True, False,
+                        route="global"),
+        check_knn_group(gen, 3, 500, 37, 24, 1, bf, False, True, ties=True),  # 2-byte rows
+        check_knn_group(gen, 3, 500, 37, 24, 33, bf, True, False),  # 66-byte rows
+        check_knn_group(gen, 3, 700, 300, 24, 320, bf, True, True),  # 640-byte rows
+        check_knn_group(gen, 3, 700, 300, 24, 320, bf, False, False, offset=1),
+        check_knn_group(gen, 3, 2048, 1000, 24, 64, bf, True, False, ties=True))
+    err["group_gather"] = max(
+        err.get("group_gather", 0.0),
+        check_group_gather(gen, 2, most_gg, 20, 64, 320, bf, True, 0.2, False,
+                           route="shared"),
+        check_group_gather(gen, 2, most_gg + 1, 20, 64, 320, bf, True, 0.2, False,
+                           route="global"),
+        check_group_gather(gen, 3, 2048, 37, 16, 1, bf, True, 0.1, True),  # 2-byte rows
+        check_group_gather(gen, 3, 2048, 300, 32, 3, bf, True, 0.2, True),  # 6-byte rows
+        check_group_gather(gen, 3, 512, 100, 64, 33, bf, False, 0.3, False),  # 66-byte
+        check_group_gather(gen, 3, 512, 129, 128, 320, bf, True, 0.8, True),  # 640-byte
+        check_group_gather(gen, 3, 512, 129, 32, 320, bf, False, 0.4, True, offset=1),
+        check_group_gather(gen, 3, 2048, 512, 128, 3, f32, False, 0.4, False))
+
+
 def knn_library(xyz, feats, cents, k):
     """cdist + topk + gather, storing the (B, S, N) distance matrix: timed as
     a yardstick, never called by the port (topk does not promise the
@@ -2540,11 +2615,12 @@ def knn_library(xyz, feats, cents, k):
 
 def knn_bound(B, N, S, k, F, esize):
     """Bytes: xyz, features and centroids read once, the grouped rows and
-    idx written once. Operations: ~10 fp32 a (centroid, point) pair (3 sub,
-    3 mul, 3 add, 1 compare), every pair once."""
-    return bound(10.0 * B * S * N,
+    idx written once. Operations: every (centroid, point) pair is a distance
+    test, 9 fp32 instructions as ball_bound counts them, at the issue rate
+    PEAK_FP32_ISSUE."""
+    return bound(9.0 * B * S * N,
                  B * N * 3 * 4 + B * N * F * esize + B * S * 3 * 4
-                 + B * S * k * (F * esize + 4), PEAK_FP32_FLOPS)
+                 + B * S * k * (F * esize + 4), PEAK_FP32_ISSUE)
 
 
 def pointmlp_stage_inputs(bb, xn):
@@ -2676,11 +2752,13 @@ def pointmlp_paths(seed, gen, x_raw, smi):
     PointMLP with Chamfer and PointMLP-Elite with its default EMD loss at
     B=32 (eval steps, the stage-by-stage encoder time, `encode`), and the
     Segmenter on PointMLP-Elite at B=8 (one eval step, counts only);
-    knn_group at stages 1 and 4 of the B=32 path's own inputs against its
-    plain version, timed beside it, a library yardstick and its bound.
+    knn_group at every stage of the B=32 path's own inputs against its
+    plain version, timed (CUDA events over launches through the C entry)
+    beside it, a library
+    yardstick and its bound.
     Returns the numbers of the kernel's `kernels` entry and the bf16
     PointMLP spec."""
-    from pointcloud_tpu_torch.ops import knn_group, knn_group_reference
+    from pointcloud_tpu_torch.ops import knn_group, knn_group_plan, knn_group_reference
     from pointcloud_tpu_torch.train import create_model, make_eval_step
 
     dev = torch.device("cuda")
@@ -2735,9 +2813,9 @@ def pointmlp_paths(seed, gen, x_raw, smi):
             trace_steps(lambda a, _: spec.model.encode(a), one, None, lat[10],
                         f"{backbone} encode, 1 cloud")
 
-        # the kernel at stages 1 and 4 of this path's own inputs
+        # the kernel at every stage of this path's own inputs
         stages = pointmlp_stage_inputs(bb, xn)
-        for st in (0, 3):
+        for st in range(4):
             sx, sf, sc = stages[st]
             args = (sx, sf, sc, None, K_MLP)
             got = knn_group(*args)
@@ -2753,13 +2831,16 @@ def pointmlp_paths(seed, gen, x_raw, smi):
             torch.cuda.empty_cache()
             Bs, Ns, Ss, Fs = sx.shape[0], sx.shape[1], sc.shape[1], sf.shape[2]
             bnd = knn_bound(Bs, Ns, Ss, K_MLP, Fs, sf.element_size())
-            times = (cuda_ms(lambda: knn_group(*args), iters=10),
+            # through the C entry: a wrapper call's host time passes the
+            # card's at stages 3-4
+            times = (cuda_ms(knn_direct(sx, sf, sc, K_MLP), iters=20),
                      cuda_ms(lambda: knn_group_reference(*args), iters=2, warmup=1),
                      cuda_ms(lambda: knn_library(sx, sf, sc, K_MLP), iters=3,
                              warmup=1), bnd)
             out[(backbone, st + 1)] = times
             log(f"  knn_group {backbone} stage {st + 1} B={Bs} N={Ns} S={Ss} "
-                f"k={K_MLP} F={Fs} bf16: kernel {times[0]:.3f} ms | plain "
+                f"k={K_MLP} F={Fs} bf16 ({knn_group_plan(Bs, Ns, Ss, K_MLP, Fs, sf.dtype).route} "
+                f"route): kernel {times[0]:.4f} ms | plain "
                 f"{times[1]:.3f} ms | library cdist + topk + gather {times[2]:.3f} "
                 f"ms ({same:.4f} of the groups the same set) | bound "
                 f"{bnd[0]:.4f} ms ({bnd[1]})")
@@ -2795,6 +2876,7 @@ def pointmlp_kernel_checks(gen, err):
     stage's shape of the B=32 path (random inputs), and its gradient."""
     bf, f32 = torch.bfloat16, torch.float32
     err["knn_group"] = max(
+        err.get("knn_group", 0.0),
         check_knn_group(gen, 3, 100, 12, 1, 7, f32, True, True),
         check_knn_group(gen, 3, 100, 12, 5, 0, f32, True, True),
         check_knn_group(gen, 3, 300, 40, 32, 16, bf, True, False),
@@ -3125,18 +3207,32 @@ def msg_level_inputs(bb, xn):
     return out
 
 
-def check_group_gather(gen, B, N, S, k, F, dtype, masked, radius, with_xyz):
+def check_group_gather(gen, B, N, S, k, F, dtype, masked, radius, with_xyz, offset=0,
+                       route=None):
     """group_gather vs group_gather_reference: every output equal (the same
     membership test, first-k selection and exact gathers), the kernel twice.
     Centroids on every (N // S)-th point, the last one far outside the cloud
     (an empty ball: every slot point 0, none valid); with masks ~1/3 of the
-    points masked and the last cloud fully masked. Returns the largest
-    |gather error| (0)."""
-    from pointcloud_tpu_torch.ops import group_gather, group_gather_reference
+    points masked and the last cloud fully masked. `offset`: the features
+    start `offset` elements past an aligned base; `route`: the plan's route
+    the shape must take. Returns the largest |gather error| (0)."""
+    from pointcloud_tpu_torch.ops import group_gather, group_gather_plan, \
+        group_gather_reference
+    from pointcloud_tpu_torch.ops.group_gather import _word_bytes
 
     dev = torch.device("cuda")
     xyz = torch.rand((B, N, 3), generator=gen, device=dev)
-    feats = torch.randn((B, N, F), generator=gen, device=dev).to(dtype) if F else None
+    feats = None
+    if F:
+        flat = torch.randn(B * N * F + offset, generator=gen, device=dev).to(dtype)
+        feats = flat[offset:].view(B, N, F)
+    if route is not None:
+        row = F * (2 if dtype == torch.bfloat16 else 4)
+        plan = group_gather_plan(B, N, S, k, row,
+                                 _word_bytes(row, feats) if F else 16, with_xyz)
+        if plan.route != route:
+            raise AssertionError(f"group_gather B={B} N={N} S={S} k={k}: route "
+                                 f"{plan.route}, expected {route}")
     cents = xyz[:, :: max(1, N // S)][:, :S].clone()
     cents[:, -1] += 5.0
     mask = None
@@ -3159,8 +3255,9 @@ def check_group_gather(gen, B, N, S, k, F, dtype, masked, radius, with_xyz):
         raise AssertionError("group_gather: an empty ball must give point 0, invalid")
     fill = float(valid.float().mean())
     log(f"  group_gather B={B} N={N} S={S} k={k} F={F} {str(dtype)[6:]} "
-        f"masked={masked} r={radius} xyz={with_xyz}: every output equal to the "
-        f"plain version's ({fill:.2f} of the slots in a ball); two runs bit-equal")
+        f"masked={masked} r={radius} xyz={with_xyz}{f' base +{offset}' if offset else ''}"
+        f"{f' ({route})' if route else ''}: every output equal to the plain version's "
+        f"({fill:.2f} of the slots in a ball); two runs bit-equal")
     return max([0.0] + [float((a.float() - w.float()).abs().max())
                         for a, w in zip(got[:-2], want[:-2])])
 
@@ -3239,14 +3336,15 @@ def group_gather_library(xyz, feats, cents, k, radius):
 
 def group_gather_bound(B, N, S, k, F, esize, idx, valid):
     """Bytes: xyz, features and centroids read once; gathered xyz and
-    features, idx and valid written once. Operations: ~9 per distance test,
-    over the points this run's data makes the kernel test (up to the k-th
-    in-ball point, else all N)."""
+    features, idx and valid written once. Operations: a distance test is 9
+    fp32 instructions, counted at the issue rate PEAK_FP32_ISSUE as
+    ball_bound counts them, over the points this run's data makes the
+    kernel test (up to the k-th in-ball point, else all N)."""
     scanned = torch.where(valid[..., -1], idx[..., -1].long() + 1, N)
     ops = 9 * float(scanned.sum())
     nbytes = (B * N * 3 * 4 + B * N * F * esize + B * S * 3 * 4
               + B * S * k * (3 * 4 + F * esize + 4 + 1))
-    return bound(ops, nbytes, PEAK_FP32_FLOPS)
+    return bound(ops, nbytes, PEAK_FP32_ISSUE)
 
 
 def msg_kernel_checks(gen, err):
@@ -3254,6 +3352,7 @@ def msg_kernel_checks(gen, err):
     gradient."""
     bf, f32 = torch.bfloat16, torch.float32
     err["group_gather"] = max(
+        err.get("group_gather", 0.0),
         check_group_gather(gen, 3, 300, 40, 5, 7, f32, True, 0.3, True),
         check_group_gather(gen, 3, 300, 40, 5, 7, bf, True, 0.3, False),
         check_group_gather(gen, 3, 256, 16, 40, 0, f32, True, 0.2, True),  # F = 0
@@ -3376,16 +3475,16 @@ def msg_eval_path(seed, x_raw, smi, err):
             fill = float(got[3].float().mean())
             del got, want, lib
             torch.cuda.empty_cache()
-            rows[(lv + 1, r)] = (
-                cuda_ms(lambda: group_gather(*args), iters=10),
+            rows[(lv + 1, r)] = (  # through the C entry (knn_direct's reason)
+                cuda_ms(group_gather_direct(gx, gf, gc, k, r), iters=20),
                 cuda_ms(lambda: group_gather_reference(*args), iters=2, warmup=1),
                 cuda_ms(lambda: group_gather_library(gx, gf, gc, k, r), iters=3,
                         warmup=1), bnd)
             t = rows[(lv + 1, r)]
             log(f"  group_gather level {lv + 1} r={r} B={Bb} N={Nb} S={Sb} k={k} "
                 f"F={Fb} bf16 ({fill:.3f} of the slots in a ball): kernel "
-                f"{t[0]:.3f} ms | plain {t[1]:.3f} ms | library cdist + first-k + "
-                f"gather {t[2]:.3f} ms ({'the same' if same else 'other'} "
+                f"{t[0]:.4f} ms | plain {t[1]:.3f} ms | library "
+                f"cdist + first-k + gather {t[2]:.3f} ms ({'the same' if same else 'other'} "
                 f"memberships) | bound {bnd[0]:.4f} ms ({bnd[1]})")
     log(f"  group_gather, its 6 launches of one step together: kernel "
         f"{sum(t[0] for t in rows.values()):.3f} ms | plain "
@@ -4118,27 +4217,205 @@ def ball_times(seed):
     return out
 
 
+def grouping_cases(seed):
+    """The inputs of knn_group and group_gather at every launch of their
+    driven paths, the paths' own (random weights and clouds from `seed`):
+    PointMLP's and PointMLP-Elite's four stages at B=32, as (label, xyz,
+    feats, centroids), and the MSG autoencoder's six branches at B=32, as
+    (label, xyz, feats, centroids, k, radius)."""
+    from pointcloud_tpu_torch.train import create_model
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    knn = []
+    for backbone in ("PointMLP", "PointMLPE"):
+        spec = create_model("Autoencoder", backbone, "Cube", loss_override="chamfer",
+                            device=dev, seed=seed)
+        xn = spec.in_transform(raw_batch(gen, spec.scene, B_MLP, 2048, dev))[0]
+        for i, lv in enumerate(pointmlp_stage_inputs(spec.model.encoder.backbone, xn)):
+            knn.append((f"{backbone} stage {i + 1}", *(t.clone() for t in lv)))
+        del spec, xn
+    spec = msg_spec(dev, seed)
+    bb = spec.model.encoder.backbone
+    xn = spec.in_transform(raw_batch(gen, spec.scene, B_MSG, 2048, dev))[0]
+    with torch.inference_mode():
+        levels = msg_level_inputs(bb, xn)
+    levels = [tuple(t.clone() for t in lv) for lv in levels]
+    ball = [(f"MSG level {lv + 1}, r={r} k={k}", *levels[lv], k, r)
+            for lv, r, k in msg_branches(bb)]
+    del spec, xn
+    torch.cuda.empty_cache()
+    return knn, ball
+
+
+def _module(name):
+    """The port's ops module `name` (ops/__init__ binds the wrapper of the
+    same name over it)."""
+    import importlib
+
+    return importlib.import_module(f"pointcloud_tpu_torch.ops.{name}")
+
+
+def knn_direct(xyz, feats, cents, k, rows=True):
+    """A callable that launches knn_group's kernel on these inputs through
+    the library's C entry, into outputs made once: no wrapper checks,
+    allocations or counts, so a call's host time stays under the card's and
+    CUDA events read the device time. rows=False: the same launch (the plan
+    of the whole call) without features or xyz, the staging and selection
+    alone. A first version without a plan (a parent commit) launches the
+    same geometry whatever the rows."""
+    kg = _module("knn_group")
+    B, N, _ = xyz.shape
+    S, F = cents.shape[1], feats.shape[2]
+    esize = feats.element_size()
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=xyz.device)
+    gf = torch.empty((B, S, k, F), dtype=feats.dtype, device=xyz.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    fp, f, gp = (feats.data_ptr(), F, gf.data_ptr()) if rows else (None, 0, None)
+    word = next(w for w in (16, 8, 4, 2) if (F * esize) % w == 0
+                and feats.data_ptr() % w == 0 and gf.data_ptr() % w == 0)
+    if hasattr(kg, "knn_group_plan"):
+        tail = (word, *kg.plan_args(kg.knn_group_plan(B, N, S, k, F, feats.dtype, word)),
+                stream)
+        args = (xyz.data_ptr(), fp, esize, cents.data_ptr(), None, B, N, S, k, f,
+                idx.data_ptr(), None, gp, *tail)
+    else:
+        args = (xyz.data_ptr(), fp, esize, cents.data_ptr(), None, B, N, S, k, f,
+                int(rows and word == 16), idx.data_ptr(), None, gp, stream)
+    fn = kg._launcher()
+    return lambda: fn(*args)
+
+
+def group_gather_direct(xyz, feats, cents, k, radius, rows=True):
+    """As knn_direct, for group_gather (idx, valid and the grouped xyz
+    written; rows=False: idx and valid alone)."""
+    gg = _module("group_gather")
+    B, N, _ = xyz.shape
+    S = cents.shape[1]
+    row = feats.shape[2] * feats.element_size()
+    word = gg._word_bytes(row, feats)
+    dev = xyz.device
+    idx = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+    valid = torch.empty((B, S, k), dtype=torch.bool, device=dev)
+    gx = torch.empty((B, S, k, 3), dtype=torch.float32, device=dev)
+    gf = torch.empty((B, S, k, feats.shape[2]), dtype=feats.dtype, device=dev)
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    stream = torch.cuda.current_stream().cuda_stream
+    fp, gxp, gfp = ((feats.data_ptr(), gx.data_ptr(), gf.data_ptr()) if rows
+                    else (None, None, None))
+    if hasattr(gg, "group_gather_plan"):
+        plan = gg.plan_args(gg.group_gather_plan(B, N, S, k, row, word))
+        args = (xyz.data_ptr(), fp, word, row if rows else 0, cents.data_ptr(), None, B,
+                N, S, k, r2, gxp, gfp, idx.data_ptr(), valid.data_ptr(), *plan, stream)
+    else:
+        args = (xyz.data_ptr(), fp, word, row // word if rows else 0, cents.data_ptr(),
+                None, B, N, S, k, r2, gxp, gfp, idx.data_ptr(), valid.data_ptr(), stream)
+    fn = gg._launcher()
+    return lambda: fn(*args)
+
+
+def knn_times(cases):
+    """knn_group at each case of grouping_cases: equal to the plain version,
+    timed (CUDA events over 20 launches through the C entry, knn_direct)
+    beside its staging + selection alone (the rest is the write of the
+    rows), the plain version, the library yardstick and the bound. Returns
+    {label: (ms, plain ms, library ms, bound)}."""
+    from pointcloud_tpu_torch.ops import knn_group, knn_group_reference
+
+    out = {}
+    with torch.inference_mode():
+        for label, sx, sf, sc in cases:
+            args = (sx, sf, sc, None, K_MLP)
+            got = twice_equal("knn_group", lambda: knn_group(*args)[1:])
+            want = knn_group_reference(*args)[1:]
+            if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                raise AssertionError(f"knn_group differs from the plain version at "
+                                     f"{label}'s own inputs")
+            del got, want
+            B, N, F = sf.shape
+            S = sc.shape[1]
+            bnd = knn_bound(B, N, S, K_MLP, F, sf.element_size())
+            ms = cuda_ms(knn_direct(sx, sf, sc, K_MLP), iters=20)
+            sel = cuda_ms(knn_direct(sx, sf, sc, K_MLP, rows=False), iters=20)
+            plain = cuda_ms(lambda: knn_group_reference(*args), iters=2, warmup=1)
+            lib = cuda_ms(lambda: knn_library(sx, sf, sc, K_MLP), iters=3, warmup=1)
+            torch.cuda.empty_cache()
+            out[label] = (ms, plain, lib, bnd)
+            log(f"  knn_group {label}: B={B} N={N} S={S} k={K_MLP} F={F} "
+                f"{str(sf.dtype)[6:]}: equal to the plain version; kernel {ms:.4f} ms "
+                f"= staging + selection {sel:.4f} ms + the rest {ms - sel:.4f} ms | "
+                f"plain {plain:.3f} ms | library cdist + topk + gather {lib:.3f} ms | "
+                f"bound {bnd[0]:.4f} ms ({bnd[1]})")
+    log(f"  knn_group, a PointMLP forward's 4 launches: kernel "
+        f"{sum(out[f'PointMLP stage {i}'][0] for i in range(1, 5)):.4f} ms; "
+        f"Elite's {sum(out[f'PointMLPE stage {i}'][0] for i in range(1, 5)):.4f} ms")
+    return out
+
+
+def group_gather_times(cases):
+    """group_gather at each case of grouping_cases, as knn_times: equal to
+    the plain version, timed (group_gather_direct) beside its selection
+    alone, the plain version, the library yardstick and the bound (with the
+    points each centroid tests). Returns {label: (ms, plain ms, library ms,
+    bound)}."""
+    from pointcloud_tpu_torch.ops import group_gather, group_gather_reference
+
+    out = {}
+    with torch.inference_mode():
+        for label, gx, gf, gc, k, r in cases:
+            args = (gx, gf, gc, None, k, r)
+            got = twice_equal("group_gather", lambda: group_gather(*args))
+            want = group_gather_reference(*args)
+            if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                raise AssertionError(f"group_gather differs from the plain version at "
+                                     f"{label}'s own inputs")
+            B, N, F = gf.shape
+            S = gc.shape[1]
+            bnd = group_gather_bound(B, N, S, k, F, gf.element_size(), got[2], got[3])
+            scanned = float(torch.where(got[3][..., -1], got[2][..., -1].long() + 1,
+                                        N).float().mean())
+            fill = float(got[3].float().mean())
+            del got, want
+            ms = cuda_ms(group_gather_direct(gx, gf, gc, k, r), iters=20)
+            sel = cuda_ms(group_gather_direct(gx, gf, gc, k, r, rows=False), iters=20)
+            plain = cuda_ms(lambda: group_gather_reference(*args), iters=2, warmup=1)
+            lib = cuda_ms(lambda: group_gather_library(gx, gf, gc, k, r), iters=3,
+                          warmup=1)
+            torch.cuda.empty_cache()
+            out[label] = (ms, plain, lib, bnd)
+            log(f"  group_gather {label}: B={B} N={N} S={S} F={F} "
+                f"{str(gf.dtype)[6:]}: equal to the plain version; {scanned:.1f} "
+                f"points tested a centroid (mean), {fill:.3f} of the slots in a ball; "
+                f"kernel {ms:.4f} ms = staging + selection {sel:.4f} ms + the rest "
+                f"{ms - sel:.4f} ms | plain {plain:.3f} ms | library cdist + first-k "
+                f"+ gather {lib:.3f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})")
+    log(f"  group_gather, an MSG forward's 6 launches: kernel "
+        f"{sum(t[0] for t in out.values()):.4f} ms | bound "
+        f"{sum(t[3][0] for t in out.values()):.4f} ms")
+    return out
+
+
 def grouping_times(seed):
     """The grouping kernels alone at every driven shape: ball_group
-    (ball_times), scatter_rows (scatter_times), and, re-timed beside them,
-    chamfer_bwd at the PointNet train step's shape and group_gather at MSG
-    level 2's three branches on that level's own inputs."""
-    from pointcloud_tpu_torch.ops import chamfer_bwd, group_gather
+    (ball_times), scatter_rows (scatter_times), knn_group at PointMLP's and
+    Elite's four stages (knn_times), group_gather at the MSG autoencoder's
+    six branches (group_gather_times), and, re-timed beside them,
+    chamfer_bwd at the PointNet train step's shape."""
+    from pointcloud_tpu_torch.ops import chamfer_bwd
 
     ball_times(seed)
-    cases, (xyz, feats, cents, branches) = scatter_cases(seed)
+    cases, _ = scatter_cases(seed)
     scatter_times(cases)
     del cases
+    knn, ball = grouping_cases(seed)
+    knn_times(knn)
+    group_gather_times(ball)
+    del knn, ball
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     args = nn_inputs(gen, B_TRAIN, 2048, 2048, 6, masked=False)
     compare_chamfer_bwd(args, "unmasked")
     ms = cuda_ms(lambda: chamfer_bwd(*args), iters=10)
     log(f"  chamfer_bwd B={B_TRAIN} N=M=2048 C=6: kernel {ms:.4f} ms")
-    for r, k in branches:
-        ms = cuda_ms(lambda: group_gather(xyz, feats, cents, None, k, r), iters=10)
-        log(f"  group_gather MSG level 2, r={r} k={k}: B={xyz.shape[0]} "
-            f"N={xyz.shape[1]} S={cents.shape[1]} F={feats.shape[2]} "
-            f"{str(feats.dtype)[6:]}: kernel {ms:.4f} ms")
     torch.cuda.empty_cache()
 
 
@@ -4160,7 +4437,7 @@ def kernel_times(seed):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     log(f"[kernel times] {smi}")
-    ptxas_notes(("nn_sweep", "fps"))
+    ptxas_notes(("nn_sweep", "fps", "knn_group", "group_gather"))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     fps_driven_times(gen)
     # a port before the register block route (to time a parent commit beside
@@ -4196,12 +4473,13 @@ def kernel_times(seed):
 
 
 def step_times(seed):
-    """The steps the two kernels serve, alone, through the public entry
-    points (weights and clouds from `seed`): the PointNet and PointNet2
+    """The steps the redesigned kernels serve, alone, through the public
+    entry points (weights and clouds from `seed`): the PointNet and PointNet2
     autoencoders' eval steps at bench.py's B=512 and 256, the PointNet2 train
-    step at B=256 and the PointMLP eval step at B=32, all with Chamfer and
-    bf16; 20 chained eval steps (10 train steps after a warm-up) each, host
-    clock to a synchronize, and the median event-to-event step."""
+    step at B=256, the PointMLP, PointMLP-Elite and MSG eval steps at B=32,
+    all with Chamfer and bf16; 20 chained eval steps (10 train steps after a
+    warm-up) each, host clock to a synchronize, and the median
+    event-to-event step."""
     from pointcloud_tpu_torch.train import (
         create_model,
         make_eval_step,
@@ -4213,9 +4491,11 @@ def step_times(seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     log("[step times]")
     for backbone, B, train in (("PointNet", B_MAIN, False), ("PointNet2", B_PN2, False),
-                               ("PointNet2", B_PN2, True), ("PointMLP", B_MLP, False)):
-        spec = create_model("Autoencoder", backbone, "Cube", loss_override="chamfer",
-                            device=dev, seed=seed)
+                               ("PointNet2", B_PN2, True), ("PointMLP", B_MLP, False),
+                               ("PointMLPE", B_MLP, False), ("PointNet2MSG", B_MSG, False)):
+        spec = (msg_spec(dev, seed) if backbone == "PointNet2MSG" else
+                create_model("Autoencoder", backbone, "Cube", loss_override="chamfer",
+                             device=dev, seed=seed))
         x = raw_batch(gen, spec.scene, B, spec.scene.sample_points, dev)
         if train:
             r = drive_train(make_train_step(spec, make_optimizer(spec)), x, x, TRAIN_ITERS)
@@ -4243,12 +4523,13 @@ def main(argv=None) -> int:
                     help="only build, then time fps at every driven shape, "
                          "nn_sweep at the eval shape (B=512 x 2048 x 6), "
                          "ball_group at SA1 / SA2, scatter_rows at every driven "
-                         "shape and the route, chamfer_bwd and group_gather "
-                         "(kernel_times); prints no result lines")
-    ap.add_argument("--step-times", action="store_true",
-                    help="only build, then time the steps these two kernels "
-                         "serve (step_times); with --kernel-times, both; "
+                         "shape and the route, knn_group and group_gather at "
+                         "every driven launch, chamfer_bwd (kernel_times); "
                          "prints no result lines")
+    ap.add_argument("--step-times", action="store_true",
+                    help="only build, then time the steps the redesigned "
+                         "kernels serve (step_times); with --kernel-times, "
+                         "both; prints no result lines")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4328,6 +4609,7 @@ def main(argv=None) -> int:
     log(f"  SASS of sinkhorn's sweep_kernel (cuobjdump -sass): its innermost loop "
         f"issues {n_ins} instructions for {n_ex2} ex2 on its common path, "
         f"{n_ins / n_ex2:.2f} a pair")
+    ptxas_notes(("knn_group", "group_gather"))
 
     # ---- 2. kernels vs plain versions ----
     log("[kernels vs plain versions]")
@@ -4384,6 +4666,9 @@ def main(argv=None) -> int:
                               check_scatter_rows(gen_grp, 4, 8192, 512, 131))
     err["ball_group"] = max(err["ball_group"], check_ball_group(
         gen_grp, 2, 15000, 64, 24, 4, torch.bfloat16, True, 0.05))
+    # knn_group's and group_gather's route boundaries, with a generator of
+    # their own as well
+    grouping_route_checks(torch.Generator(device=dev).manual_seed(args.seed + 10), err)
     err.update(mm_stats=0.0, bnact_mm_stats=0.0, bn_pool=0.0, chain_bwd_pass=0.0)
     bf, f32 = torch.bfloat16, torch.float32
     # a generator of their own: `gen` goes on to draw the paths' clouds

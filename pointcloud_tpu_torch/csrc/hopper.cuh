@@ -1,10 +1,11 @@
 // Hopper building blocks (sm_90a) for the port's tensor-core kernels:
 // mbarriers, TMA tile loads and stores, wgmma shared-memory descriptors and
 // the bf16 m64n{64,128,192}k16 products with fp32 accumulators (A from
-// shared memory or, at widths 64 and 128, from registers), and the host's
-// one-time shared-memory opt-in of a kernel (`allow_all_smem`). mlp_chain.cu,
-// dense_bn_pool.cu, nn_sweep.cu (unswizzled K-major operands that its own
-// threads stage, `desc_interleave`) and fps.cu include this header.
+// shared memory or, at widths 64 and 128, from registers), 1-D bulk copies
+// and the host's one-time shared-memory opt-in of a kernel (`allow_all_smem`).
+// mlp_chain.cu, dense_bn_pool.cu, nn_sweep.cu (unswizzled K-major operands
+// that its own threads stage, `desc_interleave`), fps.cu and row_move.cuh
+// include this header.
 //
 // Operand tiles live in shared memory in the 128-byte-swizzle layout that a
 // TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: a box of 64 bf16 (128
@@ -108,6 +109,24 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
       : "memory");
+}
+// A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global src into shared dst; completes `bar`'s transactions.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// A 1-D bulk store of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared src to global dst, in this thread's bulk group.
+__device__ __forceinline__ void bulk_store_1d(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");

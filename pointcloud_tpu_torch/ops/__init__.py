@@ -53,10 +53,12 @@ from pointcloud_tpu_torch.ops.geometry import (  # noqa: F401
 )
 from pointcloud_tpu_torch.ops.group_gather import (  # noqa: F401
     group_gather,
+    group_gather_plan,
     group_gather_reference,
 )
 from pointcloud_tpu_torch.ops.knn_group import (  # noqa: F401
     knn_group,
+    knn_group_plan,
     knn_group_reference,
 )
 from pointcloud_tpu_torch.ops.nn_sweep import (  # noqa: F401

@@ -16,17 +16,21 @@ follows the TPU kernel: ((pen + dx^2) + dy^2) + dz^2 <= r2 on direct
 differences, pen = 1e9 on masked points, r2 = float32(radius**2) taken in
 double. The TPU kernel's limits (k <= 256, N <= 16384: its bf16 rank tile
 and index channels) do not apply here, and xyz is gathered exactly where
-the TPU's bf16 path carries it as split-bf16 hi + lo: any k >= 1, any N.
+the TPU's bf16 path carries it as split-bf16 hi + lo: any N, and k up to
+what a block's shared slots hold (1,806). `group_gather_plan` sizes the
+launch from the shape alone.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from pointcloud_tpu_torch.ops import _build
+from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT, SMS
 from pointcloud_tpu_torch.ops.geometry import (
     first_k_in_ball,
     index_points,
@@ -35,6 +39,93 @@ from pointcloud_tpu_torch.ops.geometry import (
 from pointcloud_tpu_torch.ops.scatter_rows import scatter_grouped
 
 _MAX_BATCH = 65535  # gridDim.y
+_WARPS = 32  # csrc/group_gather.cu kWarps
+_CENTS = (2, 1)  # centroids a warp may select at once
+_TILE = 4096  # largest tile of a warp's output runs, bytes
+_BULK_ROW = 256  # bytes of the narrowest row that bulk copies move faster
+_SMEM_SM = 233_472  # shared memory of an H100 SM (228 KB)
+_BLOCKS_PER_SM = 2  # 2,048 threads an SM in blocks of 1,024
+
+
+class GatherPlan(NamedTuple):
+    """The launch geometry of one `group_gather` call (csrc/group_gather.cu)."""
+    route: str  # "shared": the cloud staged in shared memory; "global": not
+    threads: int  # threads a block
+    cents: int  # centroids a warp selects at once
+    per_block: int  # centroids a block
+    blocks: int  # blocks a cloud
+    tile: int  # bytes of a warp's tile of an output run
+    bulk: bool  # feature rows by 1-D bulk copies (16-byte words, rows of 256 bytes up)
+    smem: int  # dynamic shared memory a block, bytes, as the kernel lays it out
+
+
+def _gather_smem(N: int, k: int, cents: int, tile: int, shared: bool) -> int:
+    """csrc/group_gather.cu's shared memory: 32 warps' mbarriers, 32 warps'
+    slots for `cents` centroids (rounded to 16 bytes for the block), 32
+    warps' tiles, and on the shared route 16 bytes a staged point."""
+    return (_WARPS * 8 + -(-_WARPS * cents * k * 4 // 16) * 16 + _WARPS * tile
+            + (16 * N if shared else 0))
+
+
+@functools.lru_cache(maxsize=256)
+def group_gather_plan(B: int, N: int, S: int, k: int, row_bytes: int, word: int = 16,
+                      with_xyz: bool = True) -> GatherPlan:
+    """The launch of `group_gather` for B clouds of N points whose feature
+    rows are `row_bytes` bytes (0 without features), moved as words of
+    `word` bytes (2, 4, 8 or 16: the widest that divides a row and both
+    base addresses), S centroids and k slots each; `with_xyz` asks for the
+    grouped xyz.
+
+    A block is 32 warps. Shared memory holds each warp's mbarrier, its
+    slots for the centroids it selects at once (rounded to 16 bytes for the
+    block), its tile: the longer run (the features' k rows, or the xyz
+    rows') and 16 bytes, a multiple of 32, at most 4 KB, less where the
+    slots leave less room; on the shared route the cloud's points follow as
+    (x, y, z, pen), 16 bytes a point. A cloud whose points do not fit takes
+    the global route. Of 1 or 2 centroids a warp and the blocks a cloud, the
+    plan takes the least waves of resident blocks times a warp's centroids
+    (the most centroids a warp on a tie, then the fewest blocks). Feature
+    rows of 16-byte words and 256 bytes or more go by bulk copies, the rest
+    as words (measured on the card: each way is the faster on its rows).
+
+    Raises ValueError for shapes no launch takes (B outside 1..65,535, N, S
+    or k below 1, row_bytes below 0 or not a whole number of words, `word`
+    not 2, 4, 8 or 16, slots past the shared memory)."""
+    if not (1 <= B <= _MAX_BATCH and N >= 1 and S >= 1 and k >= 1 and row_bytes >= 0
+            and word in (2, 4, 8, 16) and row_bytes % word == 0):
+        raise ValueError(f"group_gather kernel bounds exceeded: B={B} N={N} S={S} k={k} "
+                         f"row_bytes={row_bytes} word={word}")
+    run = max(k * row_bytes, 12 * k if with_xyz else 0)
+    want_tile = max(32, min(_TILE, -(-(run + 16) // 32) * 32))
+    best = None
+    for cents in _CENTS:
+        room = SMEM_LIMIT - _gather_smem(N, k, cents, 0, False)
+        tile = min(want_tile, room // _WARPS // 32 * 32)
+        if tile < 32:
+            continue
+        shared = _gather_smem(N, k, cents, tile, True) <= SMEM_LIMIT
+        smem = _gather_smem(N, k, cents, tile, shared)
+        resident = max(1, min(_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024)))
+        for want in range(1, max(1, min(-(-S // _WARPS), 4 * SMS)) + 1):
+            per_block = -(-S // want)
+            blocks = -(-S // per_block)
+            iters = -(-per_block // (_WARPS * cents))
+            waves = -(-B * blocks // (resident * SMS))
+            cost = (waves * iters * cents, -cents, blocks)
+            if best is None or cost < best[0]:
+                best = (cost, GatherPlan("shared" if shared else "global",
+                                         _WARPS * 32, cents, per_block, blocks, tile,
+                                         row_bytes >= _BULK_ROW and word == 16, smem))
+    if best is None:
+        raise ValueError(f"group_gather kernel: k={k} slots a warp exceed the shared "
+                         f"memory")
+    return best[1]
+
+
+def plan_args(p: GatherPlan) -> tuple:
+    """The plan as csrc/group_gather.cu's entry takes it, after `valid`."""
+    return (0 if p.route == "shared" else 1, p.cents, p.per_block, p.blocks, p.tile,
+            int(p.bulk), p.smem)
 
 
 def group_gather_reference(xyz, feats, new_xyz, mask, k: int, radius: float,
@@ -53,7 +144,8 @@ def _launcher():
     fn = _build.load("group_gather").group_gather_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -113,7 +205,8 @@ def _group(xyz, feats, new_xyz, mask, k: int, radius: float, with_xyz: bool):
     gf = (None if feats is None else
           torch.empty((B, S, k, feats.shape[2]), dtype=feats.dtype, device=device))
     row_bytes = 0 if feats is None else feats.shape[2] * feats.element_size()
-    word = _word_bytes(row_bytes, feats, gf) if row_bytes else 4
+    word = _word_bytes(row_bytes, feats, gf) if row_bytes else 16
+    plan = group_gather_plan(B, N, S, k, row_bytes, word, with_xyz)
     r2 = float(torch.tensor(radius * radius, dtype=torch.float32))  # exact in fp32
 
     def ptr(t):
@@ -122,9 +215,9 @@ def _group(xyz, feats, new_xyz, mask, k: int, radius: float, with_xyz: bool):
     launch = _launcher()
     with torch.cuda.device(device):
         err = launch(
-            xyz.data_ptr(), ptr(feats), word, row_bytes // word,
-            new_xyz.data_ptr(), ptr(mask), B, N, S, k, r2, ptr(gx), ptr(gf),
-            idx.data_ptr(), valid.data_ptr(),
+            xyz.data_ptr(), ptr(feats), word, row_bytes, new_xyz.data_ptr(),
+            ptr(mask), B, N, S, k, r2, ptr(gx), ptr(gf), idx.data_ptr(),
+            valid.data_ptr(), *plan_args(plan),
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

@@ -37,8 +37,10 @@ from pointcloud_tpu_torch.ops import (
     fps_plan,
     fps_reference,
     group_gather,
+    group_gather_plan,
     group_gather_reference,
     knn_group,
+    knn_group_plan,
     knn_group_reference,
     matching_difference,
     mlp_pool_bwd_reference,
@@ -64,6 +66,7 @@ from pointcloud_tpu_torch.ops import (
     up_scalars,
 )
 from pointcloud_tpu_torch.ops import preextract_fused as tpf
+from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT
 from pointcloud_tpu_torch.ops.scatter_rows import PIECE
 
 pytestmark = pytest.mark.cuda
@@ -1558,6 +1561,135 @@ def test_group_gather_counts_launches_rejects_and_keeps_the_cpu_rule(dev):
         group_gather(xyz, feats, cents, mask.cpu(), 8, 0.3)
     with pytest.raises(ValueError):
         group_gather(xyz, feats, cents, mask, 0, 0.3)
+
+
+# ---- the route boundaries of the redesigned kNN and legacy groupings ----
+
+def route_case(dev, seed, B, N, S, F, dtype, masked, ties=False, offset=0, far=False):
+    """Unit-cube clouds, centroids on every (N // S)-th point (the last one
+    far outside where `far`: an empty ball); `ties`: every fourth point
+    copies the one before it (exact distance ties); the features start
+    `offset` elements past an aligned base (offset 1 in bf16: 2-byte words);
+    with masks ~30% of the points masked and the last cloud fully masked."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    xyz = torch.rand((B, N, 3), generator=g, device=dev)
+    if ties:
+        xyz[:, 3::4] = xyz[:, 2::4][:, :xyz[:, 3::4].shape[1]]
+    feats = None
+    if F:
+        flat = torch.randn(B * N * F + offset, generator=g, device=dev).to(dtype)
+        feats = flat[offset:].view(B, N, F)
+    cents = xyz[:, :: max(1, N // S)][:, :S].clone()
+    if far:
+        cents[:, -1] += 5.0
+    mask = None
+    if masked:
+        mask = torch.rand((B, N), generator=g, device=dev) > 0.3
+        mask[-1] = False
+    return xyz, feats, cents.contiguous(), mask
+
+
+def assert_equal_twice(got, again, want):
+    for a, b, w in zip(got, again, want):
+        assert (a is None) == (b is None) == (w is None)
+        if w is not None:
+            assert torch.equal(a, b)
+            assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def feature_word(F, dtype, feats):
+    row = F * (2 if dtype == torch.bfloat16 else 4)
+    return next(w for w in (16, 8, 4, 2)
+                if row % w == 0 and (feats is None or feats.data_ptr() % w == 0))
+
+
+# (B, N, S, k, F, dtype, masked, with_xyz, ties, offset, route); N = -1 / -2:
+# the largest cloud the list route stages at this shape, and one point more
+KNN_ROUTES = [
+    (3, 300, 40, 32, 16, torch.bfloat16, True, True, True, 0, "list"),  # one key a lane
+    (3, 300, 40, 33, 16, torch.bfloat16, True, False, True, 0, "list"),  # two keys a lane
+    (3, 300, 40, 64, 16, torch.float32, True, True, False, 0, "list"),
+    (3, 300, 40, 65, 16, torch.float32, True, True, True, 0, "rounds"),  # past the list
+    (3, -1, 20, 24, 3, torch.bfloat16, True, False, False, 0, "list"),
+    (3, -2, 20, 24, 3, torch.bfloat16, True, False, False, 0, "global"),
+    (3, 500, 37, 24, 1, torch.bfloat16, False, True, True, 0, "list"),  # 2-byte rows
+    (3, 500, 37, 24, 3, torch.bfloat16, True, True, False, 0, "list"),  # 6-byte rows
+    (3, 500, 37, 24, 33, torch.bfloat16, True, False, False, 0, "list"),  # 66-byte rows
+    (3, 700, 300, 24, 320, torch.bfloat16, True, True, False, 0, "list"),  # 640-byte rows
+    (3, 700, 300, 24, 320, torch.bfloat16, False, False, True, 1, "list"),  # 2-byte base
+    (8, 2048, 1000, 24, 64, torch.bfloat16, True, False, True, 0, "list"),  # prefetched
+    (32, 2048, 1000, 24, 64, torch.bfloat16, True, True, True, 0, "list"),  # xyz: words
+    (32, 1024, 512, 40, 0, torch.float32, True, True, False, 0, "list"),  # 2 keys
+    (3, 40, 30, 24, 7, torch.float32, True, True, True, 0, "list"),  # two points a lane
+]
+
+
+@pytest.mark.parametrize("case", KNN_ROUTES)
+def test_knn_group_route_boundaries(dev, case):
+    """Both sides of the list capacity (k = 32 / 33 / 64 / 65) and of the
+    shared-memory switch, feature rows of 2 to 640 bytes, a feature base 2
+    bytes past a 16-byte boundary, S not a multiple of a block's centroids,
+    exact ties, masks and a fully masked cloud, with_xyz both ways: every
+    output equal to the plain version's, two runs bit-equal."""
+    B, N, S, k, F, dtype, masked, with_xyz, ties, offset, route = case
+    if N < 0:  # the list's largest cloud here (one centroid a warp): rows of 32
+        # points of 16 bytes past the rest
+        fixed = knn_group_plan(B, 96, S, k, F, dtype, 2).smem - 16 * 96
+        N = (SMEM_LIMIT - fixed) // 512 * 32 + (N == -2)
+    xyz, feats, cents, mask = route_case(dev, N + k + F, B, N, S, F, dtype, masked, ties,
+                                         offset)
+    p = knn_group_plan(B, N, S, k, F, dtype, feature_word(F, dtype, feats), with_xyz)
+    assert p.route == route
+    got = knn_group(xyz, feats, cents, mask, k, with_xyz)
+    again = knn_group(xyz, feats, cents, mask, k, with_xyz)
+    torch.cuda.synchronize()
+    assert_equal_twice(got, again, knn_group_reference(xyz, feats, cents, mask, k, with_xyz))
+    if masked:  # the fully masked cloud: every slot repeats slot 0
+        assert (got[2][-1] == got[2][-1, :, :1]).all()
+
+
+# (B, N, S, k, F, dtype, masked, with_xyz, offset, radius, route); N = -1 /
+# -2: the largest cloud the shared route stages at this shape, and one point
+# more
+GATHER_ROUTES = [
+    (3, -1, 20, 64, 320, torch.bfloat16, True, False, 0, 0.2, "shared"),
+    (3, -2, 20, 64, 320, torch.bfloat16, True, False, 0, 0.2, "global"),
+    (3, 2048, 37, 16, 1, torch.bfloat16, True, True, 0, 0.1, "shared"),  # 2-byte rows
+    (3, 2048, 300, 32, 3, torch.bfloat16, True, True, 0, 0.2, "shared"),  # 6-byte rows
+    (32, 2048, 300, 32, 3, torch.bfloat16, True, True, 0, 0.2, "shared"),  # 2 a warp
+    (3, 512, 100, 64, 33, torch.bfloat16, False, False, 0, 0.3, "shared"),  # 66-byte
+    (3, 512, 129, 128, 320, torch.bfloat16, True, True, 0, 0.8, "shared"),  # 640-byte
+    (3, 512, 129, 32, 320, torch.bfloat16, False, True, 1, 0.4, "shared"),  # 2-byte base
+    (3, 2048, 512, 128, 3, torch.float32, False, False, 0, 0.4, "shared"),
+    (3, 20, 4, 32, 3, torch.float32, True, True, 0, 0.5, "shared"),  # k above N
+]
+
+
+@pytest.mark.parametrize("case", GATHER_ROUTES)
+def test_group_gather_route_boundaries(dev, case):
+    """Both sides of the shared-memory switch, feature rows of 2 to 640
+    bytes, a feature base 2 bytes past a 16-byte boundary, S not a multiple
+    of a block's centroids, one and two centroids a warp, masks, a fully
+    masked cloud, an empty ball, with_xyz both ways: every output equal to
+    the plain version's, two runs bit-equal."""
+    B, N, S, k, F, dtype, masked, with_xyz, offset, radius, route = case
+    if N < 0:
+        fixed = group_gather_plan(B, 512, S, k, F * 2, 16, with_xyz).smem - 16 * 512
+        N = (SMEM_LIMIT - fixed) // 16 + (N == -2)
+    xyz, feats, cents, mask = route_case(dev, N + k + F, B, N, S, F, dtype, masked,
+                                         offset=offset, far=True)
+    row = F * (2 if dtype == torch.bfloat16 else 4)
+    p = group_gather_plan(B, N, S, k, row, feature_word(F, dtype, feats), with_xyz)
+    assert p.route == route and p.cents == (2 if B == 32 else 1)
+    got = group_gather(xyz, feats, cents, mask, k, radius, with_xyz)
+    again = group_gather(xyz, feats, cents, mask, k, radius, with_xyz)
+    torch.cuda.synchronize()
+    assert_equal_twice(got, again,
+                       group_gather_reference(xyz, feats, cents, mask, k, radius, with_xyz))
+    idx, valid = got[2], got[3]
+    assert (idx[:, -1] == 0).all() and not valid[:, -1].any()  # the empty ball
+    if masked:
+        assert (idx[-1] == 0).all() and not valid[-1].any()
 
 
 # ---- fps on a thread block cluster, the dense-pool backward on TMA + wgmma ----

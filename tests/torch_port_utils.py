@@ -301,3 +301,88 @@ def record_dense_pool_gaps(monkeypatch):
 
     monkeypatch.setattr(tdp, "dense_pool_stats_reference", recording)
     return gaps
+
+
+def bulk_pieces(k, row_bytes, tile):
+    """row_move.cuh's move_bulk walk of one run of k rows of `row_bytes`
+    bytes (a multiple of 16) through a tile of `tile` bytes, piece by piece:
+    (the piece's first byte in the run, its bytes, [(byte in the piece, row,
+    byte in the row, bytes) of each bulk copy into it]). A piece fills half
+    the tile; each row, or each part of a row, inside it is one copy."""
+    half = (tile // 2) & ~15
+    total = k * row_bytes
+    out = []
+    for p0 in range(0, total, half):
+        pn = min(half, total - p0)
+        copies = []
+        for j in range(p0 // row_bytes, (p0 + pn - 1) // row_bytes + 1):
+            r0 = j * row_bytes
+            s, e = max(p0, r0), min(p0 + pn, r0 + row_bytes)
+            copies.append((s - p0, j, s - r0, e - s))
+        out.append((p0, pn, copies))
+    return out
+
+
+def word_walk(k, wpr, head, tile_words, per):
+    """row_move.cuh's move_words walk of one run of k rows of `wpr` words
+    through a tile of `tile_words` words, `head` words of the run before the
+    output's first 16-byte boundary, `per` words a 16-byte chunk, piece by
+    piece: (the piece's first word in the run, its words, [(tile position,
+    word e of the run, row, word in the row) each lane loads, four in flight,
+    lane by lane], [(first word of each 16-byte chunk stored, whether it is
+    stored whole)])."""
+    total = k * wpr
+    jd, wd = divmod(32, wpr)
+    out = []
+    p0 = head - per if head > 0 else 0
+    while p0 < total:
+        pn = min(tile_words, total - p0)
+        fills = []
+        for lane in range(32):
+            e = p0 + lane
+            j = e // wpr  # floor division, as the kernel's
+            w = e - j * wpr
+            for i in range(lane, pn, 128):
+                for u in range(4):
+                    if e >= 0 and i + 32 * u < pn:
+                        fills.append((i + 32 * u, e, j, w))
+                    e, j, w = e + 32, j + jd, w + wd
+                    if w >= wpr:
+                        w, j = w - wpr, j + 1
+        chunks = [(p0 + q * per, p0 + q * per >= 0 and p0 + (q + 1) * per <= total)
+                  for q in range(-(-pn // per))]
+        out.append((p0, pn, fills, chunks))
+        p0 += tile_words
+    return out
+
+
+def assemble_bulk(rows, idx_row, tile):
+    """One run (k, row bytes) assembled from the source rows `rows` (N,
+    row bytes) uint8 by bulk_pieces for the slots idx_row (k,)."""
+    k, R = len(idx_row), rows.shape[1]
+    run = np.full(k * R, 0xAB, np.uint8)
+    for p0, _, copies in bulk_pieces(k, R, tile):
+        for off, j, src, n in copies:
+            run[p0 + off:p0 + off + n] = rows[idx_row[j], src:src + n]
+    return run.reshape(k, R)
+
+
+def assemble_words(words, idx_row, head, tile_words, per):
+    """One run (k, wpr) assembled by word_walk from the source rows `words`
+    (N, wpr) for the slots idx_row (k,): the tile filled lane by lane, then
+    stored chunk by chunk (whole, or word by word inside the run)."""
+    k, wpr = len(idx_row), words.shape[1]
+    total = k * wpr
+    run = np.zeros(total, words.dtype)
+    stored = np.zeros(total, np.int64)
+    for p0, pn, fills, chunks in word_walk(k, wpr, head, tile_words, per):
+        tile = np.zeros(-(-pn // per) * per, words.dtype)
+        for pos, _, j, w in fills:
+            tile[pos] = words[idx_row[j], w]
+        for e0, _ in chunks:
+            for i in range(per):
+                if 0 <= e0 + i < total:
+                    run[e0 + i] = tile[e0 - p0 + i]
+                    stored[e0 + i] += 1
+    assert (stored == 1).all()
+    return run.reshape(k, wpr)
