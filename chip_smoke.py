@@ -35,8 +35,15 @@ lines:
      largest cloud each plan stages in shared memory and one point more,
      feature rows of 2, 6, 66 and 640 bytes, a feature base 2 bytes past a
      16-byte boundary, S not a multiple of a block's centroids, exact ties,
-     masks, a fully masked cloud, an empty ball, with_xyz both ways) and run
-     each kernel twice on the same inputs: the results must be bit-equal;
+     masks, a fully masked cloud, an empty ball, with_xyz both ways; the
+     ball groupings past their shared slots, the slots in the idx output:
+     ball_group at k = 781 and 1,024, group_gather at k = 1,807 and 2,048,
+     a k above N and the global route each; chamfer_bwd on a collapsed y
+     cloud (one bucket of every row, summed in pieces) and at B=4 x 4096,
+     one launch, bit-equal to its order of sums on the CPU; bn_pool alone at
+     every driven level and stage, the residual modes and widths that are no
+     multiple of 8, planted ties) and run each kernel twice on the same
+     inputs: the results must be bit-equal;
   3. the eval path at full width: create_model("Autoencoder", "PointNet",
      "Cube", loss_override="chamfer") and its eval step at B=512 x 2048
      points x 6 dims (bf16 activations), plus `encode` on one cloud;
@@ -47,10 +54,9 @@ lines:
      bench.py's B=256 x 2048 x 6, bf16, one fixed batch, 1 warm-up step and
      10 chained steps; a second instance from the same seed and batch takes
      40 chained steps, the last one's loss below the warm-up step's;
-  5. the segment-sum route of the Chamfer backward: chamfer_distance(x, y)
-     .backward() at B=4, N=M=4096, C=6 (above the 6<<20 switch); its
-     scatter_rows timed by events and, as the host's call time passes the
-     card's at this size, by its device time from a trace (index_add_ too);
+  5. the Chamfer backward past the JAX package's 6<<20 switch:
+     chamfer_distance(x, y).backward() at B=4, N=M=4096, C=6, one
+     chamfer_bwd launch, gradients against the CPU, the kernel timed;
   6. the PointNet2 path at full width: create_model("Autoencoder",
      "PointNet2", "Cube", loss_override="chamfer") and its eval step at
      B=256 x 2048 x 6 (bf16), `encode` on one cloud, and the sensor's
@@ -175,7 +181,7 @@ TRAIN_ITERS = 10  # chained train steps after the warm-up step
 # backward's dw sums; by the fortieth it lies 12-22% below it in every case
 # tried (`--loss-spread 40 --seeds 0 1 2 3`, three orders each)
 PN_TRAIN_ITERS = 40
-B_ROUTE, P_ROUTE = 4, 4096  # 16.8M cost elements per cloud: the segment-sum route
+B_ROUTE, P_ROUTE = 4, 4096  # 16.8M cost elements a cloud: past the JAX package's switch
 B_PN2 = 256  # bench.py's PointNet2 batch
 B_EMD = 128  # the AE + EMD train batch of benchmarks/config_step_bench.py
 B_SEG = 64  # its Segmenter batch; also the PointNet2 + EMD batch here
@@ -507,6 +513,279 @@ def compare_chamfer_bwd(args, label):
     log(f"  chamfer_bwd C={C} B={B} N={N} M={args[1].shape[1]} {label}: max "
         f"|err| {err:.2e}; two runs bit-equal")
     return err
+
+
+def chamfer_mirror(args):
+    """The kernel's order of sums on the CPU (scatter_rows_mirror of each
+    direction's terms: buckets of up to 32 rows in row order, longer ones
+    in pieces of 32 added in piece order)."""
+    from pointcloud_tpu_torch.ops import scatter_rows_mirror
+    from pointcloud_tpu_torch.ops.chamfer_bwd import PIECE, nn_terms
+
+    x, y, gx, gy, ax, ay = (t.cpu() for t in args)
+    tx, ty = nn_terms(x, y, gx, gy, ax, ay)
+    return (scatter_rows_mirror(-ty, ay, x.shape[1], init=tx, piece=PIECE),
+            scatter_rows_mirror(-tx, ax, y.shape[1], init=ty, piece=PIECE))
+
+
+def check_chamfer_bwd_order(gen, B, N, C, collapsed):
+    """chamfer_bwd on unmasked clouds, or on a collapsed y cloud (every y
+    point within 1e-3 of x point 5: one bucket of N rows, summed in pieces),
+    against its plain version (compare_chamfer_bwd) and bit-equal to the
+    kernel's order computed on the CPU (chamfer_mirror)."""
+    from pointcloud_tpu_torch.ops import chamfer_bwd, nn_sweep
+
+    dev = torch.device("cuda")
+    x = torch.rand((B, N, C), generator=gen, device=dev)
+    y = torch.rand((B, N, C), generator=gen, device=dev)
+    if collapsed:
+        y = x[:, 5:6] + 1e-3 * y
+    _, ax, _, ay = nn_sweep(x, y)
+    if collapsed and not bool((ay == 5).all()):
+        raise AssertionError("the collapsed cloud's rows must all pick x point 5")
+    gx = torch.randn((B, N), generator=gen, device=dev) / N
+    gy = torch.randn((B, N), generator=gen, device=dev) / N
+    args = (x, y, gx, gy, ax, ay)
+    label = f"{'collapsed' if collapsed else 'unmasked'}, one launch"
+    before = chamfer_bwd.launches
+    e = compare_chamfer_bwd(args, label)
+    if chamfer_bwd.launches - before != 2:
+        raise AssertionError("chamfer_bwd must be one launch a call")
+    got = chamfer_bwd(*args)
+    if not all(torch.equal(g.cpu(), m) for g, m in zip(got, chamfer_mirror(args))):
+        raise AssertionError(f"chamfer_bwd ({label}) is not the kernel's order")
+    log(f"  chamfer_bwd B={B} N=M={N} C={C} {label}: bit-equal to the kernel's "
+        f"order on the CPU (scatter_rows_mirror)")
+    return e
+
+
+def chamfer_direct(args):
+    """A callable that launches chamfer_bwd's kernel through its C entry on
+    these inputs, outputs and scratch allocated once (CUDA events over such
+    launches time the card, not the wrapper); a port without
+    `chamfer_bwd_plan` (a parent commit) through the first version's entry
+    and its sort scratch."""
+    mod = sys.modules["pointcloud_tpu_torch.ops.chamfer_bwd"]
+    x, y = args[:2]
+    (B, N, C), M = x.shape, y.shape[1]
+    dx, dy = torch.empty_like(x), torch.empty_like(y)
+    ptrs = [t.data_ptr() for t in (*args, dx, dy)]
+    fn = mod._launcher()
+    stream = torch.cuda.current_stream().cuda_stream
+    if not hasattr(mod, "chamfer_bwd_plan"):
+        sort = [torch.empty((B, n), dtype=torch.int32, device=x.device)
+                for n in (N, M, M, N)]  # end_x, perm_y, end_y, perm_x
+        return lambda: fn(*ptrs, *(t.data_ptr() for t in sort), B, N, M, C, stream)
+    p = mod.chamfer_bwd_plan(B, N, M, C)
+    scratch = (torch.empty(2 * B * p.scratch, dtype=torch.uint8, device=x.device)
+               if p.scratch else None)
+    return lambda: fn(*ptrs, None if scratch is None else scratch.data_ptr(), B, N, M, C,
+                      p.ranges, int(p.route == "shared"), p.smem, p.scratch, stream)
+
+
+def chamfer_bwd_bound(B, N, M, C):
+    """Both clouds, cotangents and argmins read once, dx and dy written
+    once; ~6C fp32 operations a point."""
+    return bound((B * N + B * M) * 6 * C, (B * N + B * M) * (2 * C * 4 + 4 + 4),
+                 PEAK_FP32_FLOPS)
+
+
+def time_chamfer_bwd(args, label):
+    """chamfer_bwd at these inputs: the kernel through its C entry (20
+    launches, CUDA events) beside its plain version, the library's gathers +
+    index_add_ (atomics on the card; timed here, never called by the port)
+    and the bound. Returns (ms, plain ms, library ms, (bound ms, by))."""
+    from pointcloud_tpu_torch.ops import chamfer_bwd_reference
+    from pointcloud_tpu_torch.ops.chamfer_bwd import gather_rows
+
+    x, y, gx, gy, ax, ay = args
+    (B, N, C), M = x.shape, y.shape[1]
+
+    def library():
+        tx = 2.0 * gx[..., None] * (x - gather_rows(y, ax))
+        ty = 2.0 * gy[..., None] * (y - gather_rows(x, ay))
+        dx = tx.reshape(-1, C).index_add_(0, (ay.long() + torch.arange(
+            B, device=x.device)[:, None] * N).reshape(-1), -ty.reshape(-1, C))
+        dy = ty.reshape(-1, C).index_add_(0, (ax.long() + torch.arange(
+            B, device=x.device)[:, None] * M).reshape(-1), -tx.reshape(-1, C))
+        return dx, dy
+
+    ms = cuda_ms(chamfer_direct(args), iters=20, warmup=3)
+    plain = cuda_ms(lambda: chamfer_bwd_reference(*args), iters=3, warmup=1)
+    lib = cuda_ms(library, iters=5)
+    bnd = chamfer_bwd_bound(B, N, M, C)
+    plan = sys.modules["pointcloud_tpu_torch.ops.chamfer_bwd"].__dict__.get(
+        "chamfer_bwd_plan")
+    how = f" ({tuple(plan(B, N, M, C))})" if plan else ""
+    log(f"  chamfer_bwd at {label}, B={B} N={N} M={M} C={C}{how}: kernel {ms:.4f} ms "
+        f"(C entry, events) | plain {plain:.3f} ms | library gathers + index_add_ "
+        f"{lib:.3f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return ms, plain, lib, bnd
+
+
+def large_k_checks(gen, err):
+    """The ball groupings past the slots their shared memory holds, the
+    slots in the idx output: ball_group at k = 781 and 1,024 (past 780) and
+    group_gather at k = 1,807 and 2,048 (past 1,806), masked clouds, balls
+    fuller than those k, one k above N each, the global route once each:
+    equal to the plain versions, two runs bit-equal."""
+    from pointcloud_tpu_torch.ops import ball_group_plan
+
+    bf, f32 = torch.bfloat16, torch.float32
+    for B, N, S, k, F, dtype, masked, radius in (
+            (2, 4096, 37, 781, 3, bf, True, 0.8), (2, 2048, 64, 1024, 128, bf, False, 0.8),
+            (2, 700, 20, 1024, 3, f32, True, 0.6), (2, 15000, 8, 1024, 0, f32, True, 0.3)):
+        want = "global-idx" if N == 15000 else "shared-idx"
+        got = ball_group_plan(B, N, S, k, F, dtype if F else f32).route
+        if got != want:
+            raise AssertionError(f"ball_group k={k} N={N}: route {got}, expected {want}")
+        err["ball_group"] = max(err["ball_group"], check_ball_group(
+            gen, B, N, S, k, F, dtype, masked, radius))
+    err["group_gather"] = max(
+        err.get("group_gather", 0.0),
+        check_group_gather(gen, 2, 4096, 37, 1807, 3, bf, True, 0.9, True,
+                           route="shared-idx"),
+        check_group_gather(gen, 2, 2048, 20, 2048, 320, bf, False, 0.9, False,
+                           route="shared-idx"),
+        check_group_gather(gen, 2, 1500, 10, 2048, 6, f32, True, 0.9, True,
+                           route="shared-idx"),
+        check_group_gather(gen, 2, 16000, 6, 1807, 3, bf, True, 0.5, True,
+                           route="global-idx"))
+
+
+# bn_pool at every driven level and stage: (label, groups, C, pool, residual
+# mode, masked), PointNet2 at bench.py's B=256, PointMLP, Elite and MSG at
+# B=32, and ragged widths (one channel a thread)
+BN_POOL_CASES = (
+    ("PointNet2 SA1", 256 * 512, 128, 32, 0, True),
+    ("PointNet2 SA2", 256 * 128, 256, 64, 0, True),
+    ("PointNet2 SA3", 256, 1024, 128, 0, True),
+    ("PointMLP stage 1", 32 * 1024, 128, 24, 2, False),
+    ("PointMLP stage 2", 32 * 512, 256, 24, 2, False),
+    ("PointMLP stage 3", 32 * 256, 512, 24, 2, False),
+    ("PointMLP stage 4", 32 * 128, 1024, 24, 2, False),
+    ("Elite stage 1", 32 * 1024, 64, 24, 1, False),
+    ("Elite stage 2", 32 * 512, 128, 24, 1, False),
+    ("Elite stage 3", 32 * 256, 256, 24, 2, False),
+    ("Elite stage 4", 32 * 128, 256, 24, 1, False),
+    ("MSG group-all", 32, 1024, 128, 0, True),
+    ("ragged 130 wide", 300, 130, 12, 1, False),
+    ("ragged 36 wide, masked", 500, 36, 32, 0, True),
+)
+
+
+def bn_pool_inputs(gen, G, C, pool, mode, masked):
+    """h (1, G * pool, C) bf16 with planted ties (group 0's rows 3, 5 and
+    pool - 1 equal to row pool + 1; group 1 all equal, its residual too),
+    BatchNorm scalars, pen (~10% masked, group 2 all masked) where `masked`,
+    and the residual of `mode` (1: (h0, scalars), 2: a tensor)."""
+    dev = torch.device("cuda")
+    R = G * pool
+    h = torch.randn((1, R, C), generator=gen, device=dev).to(torch.bfloat16)
+    if G > 2:
+        h[0, [3, 5, pool - 1]] = h[0, pool + 1].clone()
+        h[0, pool:2 * pool] = h[0, pool].clone()
+    sc = torch.stack([0.1 * torch.randn(C, generator=gen, device=dev),
+                      0.5 + torch.rand(C, generator=gen, device=dev),
+                      0.1 * torch.randn(C, generator=gen, device=dev),
+                      torch.ones(C, device=dev)])
+    pen = None
+    if masked:
+        pen = torch.where(torch.rand((1, R), generator=gen, device=dev) > 0.1, 0.0, 1e9)
+        if G > 2:
+            pen[0, pool:2 * pool] = 0.0
+            pen[0, 2 * pool:3 * pool] = 1e9
+    res = None
+    if mode:
+        src = torch.randn((1, R, C), generator=gen, device=dev).to(torch.bfloat16)
+        if G > 2:
+            src[0, pool:2 * pool] = src[0, pool].clone()
+        res = (src, sc) if mode == 1 else src
+    return h, sc, pen, res
+
+
+def check_bn_pool_shapes(gen, err):
+    """bn_pool alone at every BN_POOL_CASES shape: out, maxv, amax and hsel
+    exactly equal to the plain version's, two runs bit-equal; a tie goes to
+    the lowest row, a group of equal rows to its first, a group with no
+    valid row to -1e9."""
+    from pointcloud_tpu_torch.ops import bn_pool, bn_pool_plan, bn_pool_reference
+
+    for label, G, C, pool, mode, masked in BN_POOL_CASES:
+        h, sc, pen, res = bn_pool_inputs(gen, G, C, pool, mode, masked)
+        got = twice_equal("bn_pool", lambda: bn_pool(h, sc, pen, pool, res=res))
+        want = bn_pool_reference(h, sc, pen, pool, res=res)
+        for what, g, w in zip(("out", "maxv", "amax", "hsel"), got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"bn_pool {label}: {what} differs from the plain "
+                                     f"version")
+        if not bool((got[2][0, 1] == 0).all()):
+            raise AssertionError(f"bn_pool {label}: equal rows must give the first")
+        if pen is not None and not bool((got[0][0, 2] == -1e9).all()):
+            raise AssertionError(f"bn_pool {label}: a group without a valid row "
+                                 f"must give -1e9")
+        p = bn_pool_plan(G, C, pool, h.dtype, mode)
+        log(f"  bn_pool {label}: groups={G} C={C} pool={pool} residual mode {mode} "
+            f"(plan: {p.vec} channels a thread, {p.slices} slices of {p.rows} rows, "
+            f"{p.per_block} groups a block): out, maxv, amax, hsel equal to the "
+            f"plain version's; two runs bit-equal")
+        del h, sc, pen, res, got, want
+    err["bn_pool"] = max(err.get("bn_pool", 0.0), 0.0)
+    torch.cuda.empty_cache()
+
+
+def bn_pool_direct(h, sc, pen, pool, res):
+    """A callable that launches bn_pool's kernel through its C entry on
+    these inputs, outputs allocated once; a port without `bn_pool_plan` (a
+    parent commit) through the first version's entry (no plan)."""
+    tpf = sys.modules["pointcloud_tpu_torch.ops.preextract_fused"]
+    B, R, C = h.shape
+    G = R // pool
+    mode, src, rsc = tpf._res_parts(res)
+    dev = h.device
+    outs = (torch.empty((B, G, C), dtype=h.dtype, device=dev),
+            torch.empty((B, G, C), dtype=torch.float32, device=dev),
+            torch.empty((B, G, C), dtype=torch.int32, device=dev),
+            torch.empty((B, G, C), dtype=torch.float32, device=dev))
+    ptr = [None if t is None else t.data_ptr() for t in (h, sc, src, rsc, pen, *outs)]
+    launch = tpf._launchers()[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    bf16 = int(h.dtype == torch.bfloat16)
+    if not hasattr(tpf, "bn_pool_plan"):
+        return lambda: launch(ptr[0], ptr[1], mode, *ptr[2:], B * G, C, pool, 1, bf16,
+                              stream)
+    p = tpf.bn_pool_plan(B * G, C, pool, h.dtype, mode,
+                         all(t.data_ptr() % 16 == 0 for t in (h, src) if t is not None))
+    return lambda: launch(ptr[0], ptr[1], mode, *ptr[2:], B * G, C, pool, 1, bf16, p.vec,
+                          p.strips, p.slices, p.per_block, stream)
+
+
+def bn_pool_times():
+    """bn_pool at every BN_POOL_CASES shape (random inputs): the kernel
+    through its C entry (20 launches, CUDA events) beside the library's
+    composition (BatchNorm's affine, the residual, the penalty, amax and
+    relu; timed here, never called by the port) and the bound (chain_bounds'
+    pool pass). Returns {label: (ms, library ms, (bound ms, by))}."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for label, G, C, pool, mode, masked in BN_POOL_CASES:
+        h, sc, pen, res = bn_pool_inputs(gen, G, C, pool, mode, masked)
+        ms = cuda_ms(bn_pool_direct(h, sc, pen, pool, res), iters=20, warmup=3)
+        r = (0.0 if res is None else res.float() if mode == 2 else
+             torch.relu((res[0].float() - sc[0]) * sc[1] + sc[2]))
+        p4 = 0.0 if pen is None else pen.reshape(1, G, pool, 1)
+        lib = cuda_ms(lambda: torch.relu(torch.amax(
+            ((h.float() - sc[0]) * sc[1] + sc[2] + r).reshape(1, G, pool, C) - p4,
+            dim=2)), iters=3, warmup=1)
+        bnd = chain_bounds(G * pool, G, 1, C, 2, False, True, res=mode != 0,
+                           pen=masked)[1]
+        out[label] = (ms, lib, bnd)
+        log(f"  bn_pool {label}: groups={G} C={C} pool={pool} residual mode {mode}: "
+            f"kernel {ms:.4f} ms (C entry, events) | library composition {lib:.3f} ms "
+            f"| bound {bnd[0]:.4f} ms ({bnd[1]}), {100 * bnd[0] / ms:.0f}% of it")
+        del h, sc, pen, res, r
+    torch.cuda.empty_cache()
+    return out
 
 
 def dense_inputs(gen, B, R, Cin, C, dtype, masked):
@@ -3528,8 +3807,8 @@ def msg_train_path(seed, gen, x_raw, smi, err):
     # DenseBNMaxPool (dense_pool_stats forward and backward); level 2's three
     # groupings scatter their features' gradient (level 1's features are the
     # input); the group-all level is one 3-layer chain (mm_stats, 2
-    # bnact_mm_stats, bn_pool; 3 backward passes); Chamfer 2048 x 2048 is
-    # below the segment-sum switch (one chamfer_bwd)
+    # bnact_mm_stats, bn_pool; 3 backward passes); Chamfer's backward is one
+    # chamfer_bwd
     per_step = dict(fps=2, group_gather=6, dense_pool_stats=6,
                     dense_pool_stats_bwd=6, scatter_rows=3, mm_stats=1,
                     bnact_mm_stats=2, bn_pool=1, chain_bwd_pass=3, nn_sweep=1,
@@ -3976,22 +4255,16 @@ def scatter_cases(seed):
     """(label, g, idx, n, init) of scatter_rows at every shape a driven path
     launches it at, the indices those of the path's own grouping on its own
     clouds (random weights and clouds from `seed`), the rows random in the
-    path's dtype: the Chamfer backward's segment-sum route (B=4 x 4096, C=6,
-    fp32, with init: the y side's nearest-neighbour indices, as phase 5),
-    PointNet2's SA2 grouping gradient (B=256, C=131), PointMLP's four stages
-    (B=32, C=64-512) and MSG level 2's three branches (B=32, C=320), bf16.
-    Also MSG level 2's (xyz, feats, centroids) and branches, for
-    group_gather."""
+    path's dtype: PointNet2's SA2 grouping gradient (B=256, C=131),
+    PointMLP's four stages (B=32, C=64-512) and MSG level 2's three branches
+    (B=32, C=320), bf16. Also MSG level 2's (xyz, feats, centroids) and
+    branches, for group_gather."""
     from pointcloud_tpu_torch.ops import ball_group, group_gather, knn_group
-    from pointcloud_tpu_torch.ops.chamfer_bwd import gather_rows
     from pointcloud_tpu_torch.train import create_model
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    x, y, gx, gy, ax, ay = nn_inputs(gen, B_ROUTE, P_ROUTE, P_ROUTE, 6, masked=False)
-    tx = 2.0 * gx[..., None] * (x - gather_rows(y, ax))
-    ty = 2.0 * gy[..., None] * (y - gather_rows(x, ay))
-    cases = [("the segment-sum route", (-ty).contiguous(), ay, P_ROUTE, tx)]
+    cases = []
 
     def rows(B, R, C):
         return torch.randn((B, R, C), generator=gen, device=dev).to(torch.bfloat16)
@@ -4149,12 +4422,18 @@ def ball_select_only(xyz, feats, cents, k, radius):
     lib = _build.load("ball_group")
     if hasattr(lib, "ball_group_select_launch"):
         p = ops.ball_group_plan(B, N, S, k, feats.shape[2], feats.dtype)
+        try:  # a port whose plan refuses k = 781 (a parent) has no idx_slots
+            ops.ball_group_plan(1, 1, 1, 781, 0, torch.float32)
+            idx_slots = [int(p.route.endswith("-idx"))]
+        except ValueError:
+            idx_slots = []
         fn = lib.ball_group_select_launch
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * (4 + len(idx_slots))
+                       + [ctypes.c_void_p])
         return lambda: fn(xyz.data_ptr(), cents.data_ptr(), None, B, N, S, k, r2,
                           idx.data_ptr(), valid.data_ptr(), p.per_block, p.tile,
-                          int(p.route == "shared"), p.smem, stream)
+                          int(p.route.startswith("shared")), *idx_slots, p.smem, stream)
     src = _build.BUILD_DIR / "probe_ball_select.cu"
     digest = hashlib.sha256(BALL_SELECT_PROBE.encode() + (
         _build.CSRC_DIR / "ball_select.cuh").read_bytes()).hexdigest()[:12]
@@ -4399,10 +4678,7 @@ def grouping_times(seed):
     """The grouping kernels alone at every driven shape: ball_group
     (ball_times), scatter_rows (scatter_times), knn_group at PointMLP's and
     Elite's four stages (knn_times), group_gather at the MSG autoencoder's
-    six branches (group_gather_times), and, re-timed beside them,
-    chamfer_bwd at the PointNet train step's shape."""
-    from pointcloud_tpu_torch.ops import chamfer_bwd
-
+    six branches (group_gather_times)."""
     ball_times(seed)
     cases, _ = scatter_cases(seed)
     scatter_times(cases)
@@ -4411,11 +4687,42 @@ def grouping_times(seed):
     knn_times(knn)
     group_gather_times(ball)
     del knn, ball
+    torch.cuda.empty_cache()
+
+
+def chamfer_times(seed):
+    """chamfer_bwd alone (time_chamfer_bwd) at the train steps' shapes
+    (PointNet and PointNet2 at B=256, PointMLP, Elite and MSG at B=32, N=M=
+    2048, C=6), at the route check's B=4 x 4096, and on collapsed y clouds
+    (every y point within 1e-3 of x point 5: one bucket of every y row) at
+    B=256 x 2048 and B=4 x 4096; beside it the segment-sum route that
+    Chamfer's backward took above the JAX package's switch before the fused
+    kernel took every size (gathers, then two scatter_rows, which cut long
+    buckets into pieces of 128), by CUDA events."""
+    from pointcloud_tpu_torch.ops import nn_sweep, scatter_rows
+    from pointcloud_tpu_torch.ops.chamfer_bwd import nn_terms
+
+    def segment_sum_route(x, y, gx, gy, ax, ay):
+        tx, ty = nn_terms(x, y, gx, gy, ax, ay)
+        return (scatter_rows(-ty, ay, x.shape[1], init=tx),
+                scatter_rows(-tx, ax, y.shape[1], init=ty))
+
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
-    args = nn_inputs(gen, B_TRAIN, 2048, 2048, 6, masked=False)
-    compare_chamfer_bwd(args, "unmasked")
-    ms = cuda_ms(lambda: chamfer_bwd(*args), iters=10)
-    log(f"  chamfer_bwd B={B_TRAIN} N=M=2048 C=6: kernel {ms:.4f} ms")
+    for label, B, N, collapsed in (("the PointNet train step's shape", B_TRAIN, 2048, False),
+                                   ("the B=32 train steps' shape", 32, 2048, False),
+                                   ("the route check", B_ROUTE, P_ROUTE, False),
+                                   ("a collapsed cloud", B_TRAIN, 2048, True),
+                                   ("a collapsed cloud", B_ROUTE, P_ROUTE, True)):
+        args = nn_inputs(gen, B, N, N, 6, masked=False)
+        if collapsed:
+            x, y = args[0], args[0][:, 5:6] + 1e-3 * args[1]
+            _, ax, _, ay = nn_sweep(x, y)
+            args = (x, y, args[2], args[3], ax, ay)
+        compare_chamfer_bwd(args, label)
+        time_chamfer_bwd(args, label)
+        log(f"  the segment-sum route at {label}: "
+            f"{cuda_ms(lambda: segment_sum_route(*args), iters=10):.4f} ms (events)")
+        del args
     torch.cuda.empty_cache()
 
 
@@ -4423,7 +4730,8 @@ def kernel_times(seed):
     """Kernels' times alone, on clouds drawn from `seed`: fps at every
     driven shape and at the sensor's (a cluster of 16), nn_sweep at the eval
     step's B=512 x 2048 x 6 (values held against the plain version on the
-    first 8 clouds), then the grouping kernels (grouping_times)."""
+    first 8 clouds), then the grouping kernels (grouping_times), chamfer_bwd
+    (chamfer_times) and bn_pool (bn_pool_times) at every driven shape."""
     from pointcloud_tpu_torch.ops import (
         _build,
         farthest_point_sample,
@@ -4470,13 +4778,15 @@ def kernel_times(seed):
     del x, y
     torch.cuda.empty_cache()
     grouping_times(seed)
+    chamfer_times(seed)
+    bn_pool_times()
 
 
 def step_times(seed):
     """The steps the redesigned kernels serve, alone, through the public
     entry points (weights and clouds from `seed`): the PointNet and PointNet2
-    autoencoders' eval steps at bench.py's B=512 and 256, the PointNet2 train
-    step at B=256, the PointMLP, PointMLP-Elite and MSG eval steps at B=32,
+    autoencoders' eval steps at bench.py's B=512 and 256, their train steps
+    at B=256, the PointMLP, PointMLP-Elite and MSG eval steps at B=32,
     all with Chamfer and bf16; 20 chained eval steps (10 train steps after a
     warm-up) each, host clock to a synchronize, and the median
     event-to-event step."""
@@ -4490,7 +4800,8 @@ def step_times(seed):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     log("[step times]")
-    for backbone, B, train in (("PointNet", B_MAIN, False), ("PointNet2", B_PN2, False),
+    for backbone, B, train in (("PointNet", B_MAIN, False), ("PointNet", B_TRAIN, True),
+                               ("PointNet2", B_PN2, False),
                                ("PointNet2", B_PN2, True), ("PointMLP", B_MLP, False),
                                ("PointMLPE", B_MLP, False), ("PointNet2MSG", B_MSG, False)):
         spec = (msg_spec(dev, seed) if backbone == "PointNet2MSG" else
@@ -4524,7 +4835,8 @@ def main(argv=None) -> int:
                          "nn_sweep at the eval shape (B=512 x 2048 x 6), "
                          "ball_group at SA1 / SA2, scatter_rows at every driven "
                          "shape and the route, knn_group and group_gather at "
-                         "every driven launch, chamfer_bwd (kernel_times); "
+                         "every driven launch, chamfer_bwd and bn_pool at every "
+                         "driven shape (kernel_times); "
                          "prints no result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps the redesigned "
@@ -4553,8 +4865,6 @@ def main(argv=None) -> int:
     from pointcloud_tpu_torch import cfg
     from pointcloud_tpu_torch.ops import (
         _build,
-        chamfer_bwd,
-        chamfer_bwd_reference,
         chamfer_distance,
         dense_pool_stats,
         dense_pool_stats_bwd,
@@ -4563,11 +4873,7 @@ def main(argv=None) -> int:
         nn_sweep_reference,
         pool_bwd_plan,
         pool_fwd_plan,
-        scatter_rows,
-        scatter_rows_reference,
     )
-    from pointcloud_tpu_torch.ops.chamfer import nn_grads_segment_sum
-    from pointcloud_tpu_torch.ops.chamfer_bwd import gather_rows
     from pointcloud_tpu_torch.train import (
         create_model,
         make_eval_step,
@@ -4666,6 +4972,16 @@ def main(argv=None) -> int:
                               check_scatter_rows(gen_grp, 4, 8192, 512, 131))
     err["ball_group"] = max(err["ball_group"], check_ball_group(
         gen_grp, 2, 15000, 64, 24, 4, torch.bfloat16, True, 0.05))
+    # the groupings past their shared slots, Chamfer's backward on a
+    # collapsed cloud and at the route check's shape, bn_pool at every
+    # driven shape: generators of their own
+    large_k_checks(torch.Generator(device=dev).manual_seed(args.seed + 11), err)
+    gen_cb = torch.Generator(device=dev).manual_seed(args.seed + 12)
+    err["chamfer_bwd"] = max(err["chamfer_bwd"],
+                             check_chamfer_bwd_order(gen_cb, 4, 2048, 6, True),
+                             check_chamfer_bwd_order(gen_cb, B_ROUTE, P_ROUTE, 6, False),
+                             check_chamfer_bwd_order(gen_cb, B_ROUTE, P_ROUTE, 6, True))
+    check_bn_pool_shapes(torch.Generator(device=dev).manual_seed(args.seed + 13), err)
     # knn_group's and group_gather's route boundaries, with a generator of
     # their own as well
     grouping_route_checks(torch.Generator(device=dev).manual_seed(args.seed + 10), err)
@@ -4906,40 +5222,16 @@ def main(argv=None) -> int:
     del xl, wl, bl, feats
     torch.cuda.empty_cache()
 
-    # chamfer_bwd and both backward routes at the train step's shapes
+    # chamfer_bwd at the train step's shapes
     cargs = nn_inputs(gen, B_TRAIN, P, P, 6, masked=False)
     err["chamfer_bwd"] = max(err["chamfer_bwd"],
                              compare_chamfer_bwd(cargs, "train shape"))
-    c_ms = cuda_ms(lambda: chamfer_bwd(*cargs), iters=10)
-    c_plain = cuda_ms(lambda: chamfer_bwd_reference(*cargs), iters=5)
-    cx, cy, cgx, cgy, cax, cay = cargs
-
-    def chamfer_library():  # gathers + index_add_ (atomics on the card)
-        tx = 2.0 * cgx[..., None] * (cx - gather_rows(cy, cax))
-        ty = 2.0 * cgy[..., None] * (cy - gather_rows(cx, cay))
-        off = torch.arange(B_TRAIN, device=dev)[:, None] * P
-        dx = tx.reshape(-1, 6).index_add_(0, (cay + off).reshape(-1),
-                                          -ty.reshape(-1, 6))
-        dy = ty.reshape(-1, 6).index_add_(0, (cax + off).reshape(-1),
-                                          -tx.reshape(-1, 6))
-        return dx, dy
-
-    c_lib = cuda_ms(chamfer_library, iters=5)
-    seg_route = cuda_ms(lambda: nn_grads_segment_sum(*cargs), iters=5)
-    c_bound = bound(2 * B_TRAIN * P * 6 * 6,
-                    2 * B_TRAIN * P * (6 * 4 + 4 + 4) + 2 * B_TRAIN * P * 6 * 4,
-                    PEAK_FP32_FLOPS)
-    log(f"  chamfer_bwd B={B_TRAIN} N=M={P} C=6: kernel {c_ms:.3f} ms | plain "
-        f"{c_plain:.3f} ms | library gathers + index_add_ {c_lib:.3f} ms | "
-        f"bound {c_bound[0]:.4f} ms ({c_bound[1]})")
-    log(f"  Chamfer backward routes at B={B_TRAIN}, {P}x{P} ({P * P} cost "
-        f"elements per cloud, switch at {6 << 20}): fused chamfer_bwd "
-        f"{c_ms:.3f} ms vs gathers + 2 scatter_rows {seg_route:.3f} ms")
-    del cargs, cx, cy, cgx, cgy, cax, cay, spec, opt, tstep
+    c_ms, c_plain, c_lib, c_bound = time_chamfer_bwd(cargs, "the train step's shape")
+    del cargs, spec, opt, tstep
     torch.cuda.empty_cache()
 
-    # ---- 5. the segment-sum route ----
-    log(f"[segment-sum route] chamfer_distance(x, y).backward() at B={B_ROUTE}, "
+    # ---- 5. the Chamfer backward past the JAX package's switch ----
+    log(f"[Chamfer route] chamfer_distance(x, y).backward() at B={B_ROUTE}, "
         f"N=M={P_ROUTE}, C=6")
     rx = torch.rand((B_ROUTE, P_ROUTE, 6), generator=gen, device=dev)
     ry = torch.rand((B_ROUTE, P_ROUTE, 6), generator=gen, device=dev)
@@ -4949,7 +5241,7 @@ def main(argv=None) -> int:
     chamfer_distance(xg, yg).backward()
     torch.cuda.synchronize()
     route_counts = read_counts()
-    expect_counts("segment-sum route", route_counts, nn_sweep=1, scatter_rows=2)
+    expect_counts("Chamfer route", route_counts, nn_sweep=1, chamfer_bwd=1)
     xc = rx.cpu().requires_grad_()
     yc = ry.cpu().requires_grad_()
     chamfer_distance(xc, yc).backward()
@@ -4963,37 +5255,11 @@ def main(argv=None) -> int:
         f"err {e_route:.2e}; nearest-neighbour indices card vs CPU differing: "
         f"{nn_off}")
     if e_route > 1e-4:
-        raise AssertionError("segment-sum route gradients differ from the CPU")
+        raise AssertionError("Chamfer route gradients differ from the CPU")
     sargs = nn_inputs(gen, B_ROUTE, P_ROUTE, P_ROUTE, 6, masked=False)
-    tx_r = 2.0 * sargs[2][..., None] * (sargs[0] - gather_rows(sargs[1], sargs[4]))
-    ty_r = 2.0 * sargs[3][..., None] * (sargs[1] - gather_rows(sargs[0], sargs[5]))
-    s_ms = cuda_ms(lambda: scatter_rows(-ty_r, sargs[5], P_ROUTE, init=tx_r),
-                   iters=10)
-    s_plain = cuda_ms(lambda: scatter_rows_reference(-ty_r, sargs[5], P_ROUTE,
-                                                     init=tx_r), iters=10)
-    s_off = (sargs[5].long() + torch.arange(B_ROUTE, device=dev)[:, None]
-             * P_ROUTE).reshape(-1)
-    s_src = (-ty_r).reshape(-1, 6)
-    s_init = tx_r.reshape(-1, 6)
-    s_lib = cuda_ms(lambda: s_init.clone().index_add_(0, s_off, s_src), iters=10)
-    s_bound = bound(B_ROUTE * P_ROUTE * 6,
-                    B_ROUTE * P_ROUTE * (6 * 4 + 4) + 2 * B_ROUTE * P_ROUTE * 6 * 4,
-                    PEAK_FP32_FLOPS)
-    log(f"  scatter_rows B={B_ROUTE} R=n={P_ROUTE} C=6 with init: kernel "
-        f"{s_ms:.3f} ms | plain {s_plain:.3f} ms | library index_add_ "
-        f"{s_lib:.3f} ms | bound {s_bound[0]:.4f} ms ({s_bound[1]})")
-    # at this size a call's host time passes the card's: the device times
-    # from a trace (the `kernels` line takes these)
-    s_ms = sum(kernel_split(lambda: scatter_rows(-ty_r, sargs[5], P_ROUTE,
-                                                 init=tx_r)).values())
-    s_lib = sum(kernel_split(lambda: s_init.clone().index_add_(0, s_off, s_src)).values())
-    log(f"  scatter_rows at the route, device time (trace): kernel {s_ms:.4f} ms | "
-        f"library clone + index_add_ {s_lib:.4f} ms")
-    fused_big = cuda_ms(lambda: chamfer_bwd(*sargs), iters=10)
-    seg_big = cuda_ms(lambda: nn_grads_segment_sum(*sargs), iters=10)
-    log(f"  Chamfer backward routes at B={B_ROUTE}, {P_ROUTE}x{P_ROUTE} "
-        f"({P_ROUTE * P_ROUTE} cost elements per cloud): fused chamfer_bwd "
-        f"{fused_big:.3f} ms vs gathers + 2 scatter_rows {seg_big:.3f} ms")
+    err["chamfer_bwd"] = max(err["chamfer_bwd"], compare_chamfer_bwd(sargs, "route"))
+    time_chamfer_bwd(sargs, "the route")
+    del sargs
 
     # ---- 6. the PointNet2 eval path and the sensor chain ----
     pn2 = pointnet2_path(args.seed, gen, x_raw, smi, err)
@@ -5106,9 +5372,11 @@ def main(argv=None) -> int:
         entry("chamfer_bwd", "chamfer_bwd.cu",
               "pointcloud_tpu/ops/pallas_kernels.py:430",
               train_counts["chamfer_bwd"], c_ms, c_plain, c_bound, c_lib),
+        # SA2's grouping gradient of the PointNet2 train step
         entry("scatter_rows", "scatter_rows.cu",
               "pointcloud_tpu/ops/pallas_kernels.py:767",
-              route_counts["scatter_rows"], s_ms, s_plain, s_bound, s_lib),
+              pn2t["counts"]["scatter_rows"], *pn2t["scatters"][0][1:3],
+              pn2t["scatters"][0][4], pn2t["scatters"][0][3]),
         entry("dense_pool_stats", "dense_bn_pool.cu",
               "pointcloud_tpu/ops/dense_bn_pool.py:87",
               train_counts["dense_pool_stats"], d_ms, d_plain, d_bound, d_lib),

@@ -31,7 +31,10 @@
 //     from shared memory serves all of them (ball_select::select_staged,
 //     four batches of 32 points a round); the global route selects one
 //     centroid at a time (select_first_k). The slots stay in the warp's
-//     shared array, and idx and valid are written once;
+//     shared array, and idx and valid are written once. Where 32 warps'
+//     slots pass the shared memory (k > 780), the slots are the idx output
+//     itself: the selection writes each slot there once and the write below
+//     reads it back (L1), so any k takes a launch;
 //   - write: a centroid's output is one contiguous run of k * (3+F)
 //     elements. The warp assembles it in its shared tile and the tile leaves
 //     in 16-byte stores, each piece starting on a 16-byte boundary of the
@@ -232,8 +235,9 @@ __device__ __forceinline__ void store_run_rows(T* __restrict__ ob, const int* sl
 
 // kStaged: the points in shared memory (else global); kFeats: the features
 // staged too; kMasked: a mask was given; kWrite: write the grouped rows (the
-// diagnostic entry runs without).
-template <typename T, bool kStaged, bool kFeats, bool kMasked, bool kWrite>
+// diagnostic entry runs without); kIdxSlots: the slots live in the idx output
+// itself, not in shared memory (k past what 32 warps' shared slots hold).
+template <typename T, bool kStaged, bool kFeats, bool kMasked, bool kWrite, bool kIdxSlots>
 __global__ void __launch_bounds__(kThreads)
     ball_group_kernel(const float* __restrict__ xyz, const T* __restrict__ feats,
                       const float* __restrict__ cents,
@@ -241,13 +245,13 @@ __global__ void __launch_bounds__(kThreads)
                       int per_block, int k, int f, float r2, int tile_bytes,
                       T* __restrict__ out, int* __restrict__ idx,
                       bool* __restrict__ valid) {
-  // shared memory: each warp's kCents * k slots and tile, then the staged
-  // points and features (ops.ball_group_plan's layout)
+  // shared memory: each warp's kCents * k slots (none with kIdxSlots) and
+  // tile, then the staged points and features (ops.ball_group_plan's layout)
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int slot_bytes = (kWarps * kCents * k * 4 + 15) & ~15;
-  int* slots = reinterpret_cast<int*>(smem) + warp * kCents * k;
+  const int slot_bytes = kIdxSlots ? 0 : (kWarps * kCents * k * 4 + 15) & ~15;
+  int* const warp_slots = reinterpret_cast<int*>(smem) + warp * kCents * k;
   T* tile = reinterpret_cast<T*>(smem + slot_bytes + warp * tile_bytes);
   float4* pts = reinterpret_cast<float4*>(smem + slot_bytes + kWarps * tile_bytes);
   T* sfeats = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(pts) +
@@ -279,6 +283,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < 3; ++d) cx[m][d] = cents[3 * row + d];
       cnt[m] = on ? 0 : k;  // a centroid past the block's end selects nothing
     }
+    // the centroids' rows of idx are consecutive: centroid m's slots start
+    // m * k on either way (one past the block's end is never written)
+    int* const slots = kIdxSlots ? idx + (b * s_count + s0) * k : warp_slots;
     if constexpr (kStaged) {
       ball_select::select_staged<kMasked, kCents>(pts, n, cx, r2, k, slots, cnt, lane);
     } else {
@@ -295,7 +302,7 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t row = b * s_count + s0 + m;
       const int* sl = slots + m * k;
       for (int j = lane; j < k; j += 32) {
-        idx[row * k + j] = sl[j];
+        if (!kIdxSlots) idx[row * k + j] = sl[j];
         valid[row * k + j] = j < cnt[m];
       }
       if (kWrite) {
@@ -313,14 +320,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool kStaged, bool kFeats, bool kMasked, bool kWrite>
+template <typename T, bool kStaged, bool kFeats, bool kMasked, bool kWrite, bool kIdxSlots>
 cudaError_t launch_variant(const float* xyz, const T* feats, const float* cents,
                            const uint8_t* mask, int b, int n, int s_count, int per_block,
                            int k, int f, float r2, int tile_bytes, T* out, int* idx,
                            bool* valid, int smem, cudaStream_t stream) {
-  auto kernel = ball_group_kernel<T, kStaged, kFeats, kMasked, kWrite>;
-  const cudaError_t err =
-      hopper::allow_all_smem<ball_group_kernel<T, kStaged, kFeats, kMasked, kWrite>>();
+  auto kernel = ball_group_kernel<T, kStaged, kFeats, kMasked, kWrite, kIdxSlots>;
+  const cudaError_t err = hopper::allow_all_smem<
+      ball_group_kernel<T, kStaged, kFeats, kMasked, kWrite, kIdxSlots>>();
   if (err != cudaSuccess) return err;
   const dim3 grid((s_count + per_block - 1) / per_block, b);
   kernel<<<grid, kThreads, smem, stream>>>(xyz, feats, cents, mask, n, s_count,
@@ -329,7 +336,7 @@ cudaError_t launch_variant(const float* xyz, const T* feats, const float* cents,
   return cudaGetLastError();
 }
 
-template <typename T, bool kWrite>
+template <typename T, bool kWrite, bool kIdxSlots>
 cudaError_t launch(const float* xyz, const void* feats, const float* cents,
                    const uint8_t* mask, int b, int n, int s_count, int per_block, int k,
                    int f, float r2, int tile_bytes, void* out, int* idx, bool* valid,
@@ -339,16 +346,29 @@ cudaError_t launch(const float* xyz, const void* feats, const float* cents,
 #define BALL_ARGS xyz, fp, cents, mask, b, n, s_count, per_block, k, f, r2, tile_bytes, \
                   op, idx, valid, smem, st
   if (!staged) {
-    return mask ? launch_variant<T, false, false, true, kWrite>(BALL_ARGS)
-                : launch_variant<T, false, false, false, kWrite>(BALL_ARGS);
+    return mask ? launch_variant<T, false, false, true, kWrite, kIdxSlots>(BALL_ARGS)
+                : launch_variant<T, false, false, false, kWrite, kIdxSlots>(BALL_ARGS);
   }
   if (stage_feats) {
-    return mask ? launch_variant<T, true, true, true, kWrite>(BALL_ARGS)
-                : launch_variant<T, true, true, false, kWrite>(BALL_ARGS);
+    return mask ? launch_variant<T, true, true, true, kWrite, kIdxSlots>(BALL_ARGS)
+                : launch_variant<T, true, true, false, kWrite, kIdxSlots>(BALL_ARGS);
   }
-  return mask ? launch_variant<T, true, false, true, kWrite>(BALL_ARGS)
-              : launch_variant<T, true, false, false, kWrite>(BALL_ARGS);
+  return mask ? launch_variant<T, true, false, true, kWrite, kIdxSlots>(BALL_ARGS)
+              : launch_variant<T, true, false, false, kWrite, kIdxSlots>(BALL_ARGS);
 #undef BALL_ARGS
+}
+
+template <typename T, bool kWrite>
+cudaError_t launch(const float* xyz, const void* feats, const float* cents,
+                   const uint8_t* mask, int b, int n, int s_count, int per_block, int k,
+                   int f, float r2, int tile_bytes, void* out, int* idx, bool* valid,
+                   int staged, int stage_feats, int idx_slots, int smem, cudaStream_t st) {
+  return idx_slots ? launch<T, kWrite, true>(xyz, feats, cents, mask, b, n, s_count,
+                                             per_block, k, f, r2, tile_bytes, out, idx,
+                                             valid, staged, stage_feats, smem, st)
+                   : launch<T, kWrite, false>(xyz, feats, cents, mask, b, n, s_count,
+                                              per_block, k, f, r2, tile_bytes, out, idx,
+                                              valid, staged, stage_feats, smem, st);
 }
 
 }  // namespace
@@ -359,22 +379,24 @@ cudaError_t launch(const float* xyz, const void* feats, const float* cents,
 // (B, S, k, 3+F) in the features' dtype (f32 without features), idx
 // (B, S, k) i32, valid (B, S, k) bool. The geometry is `ops.ball_group_plan`'s:
 // `per_block` centroids a block, a warp's tile of `tile_bytes`, the points
-// staged (`staged`) and the features too (`stage_feats`) in `smem` bytes of
-// shared memory. Returns the CUDA error of the launch (0 on success); the
-// caller checked the bounds.
+// staged (`staged`) and the features too (`stage_feats`), the slots in idx
+// (`idx_slots`) or in shared memory, in `smem` bytes of shared memory.
+// Returns the CUDA error of the launch (0 on success); the caller checked
+// the bounds.
 extern "C" int ball_group_launch(const float* xyz, const void* feats, int feats_bf16,
                                  const float* cents, const uint8_t* mask, int b, int n,
                                  int s_count, int k, int f, float r2, void* out, int* idx,
                                  bool* valid, int per_block, int tile_bytes, int staged,
-                                 int stage_feats, int smem, void* stream) {
+                                 int stage_feats, int idx_slots, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       feats_bf16 ? launch<__nv_bfloat16, true>(xyz, feats, cents, mask, b, n, s_count,
                                                per_block, k, f, r2, tile_bytes, out, idx,
-                                               valid, staged, stage_feats, smem, st)
+                                               valid, staged, stage_feats, idx_slots, smem,
+                                               st)
                  : launch<float, true>(xyz, feats, cents, mask, b, n, s_count, per_block,
                                        k, f, r2, tile_bytes, out, idx, valid, staged,
-                                       stage_feats, smem, st);
+                                       stage_feats, idx_slots, smem, st);
   return static_cast<int>(err);
 }
 
@@ -384,8 +406,8 @@ extern "C" int ball_group_select_launch(const float* xyz, const float* cents,
                                         const uint8_t* mask, int b, int n, int s_count,
                                         int k, float r2, int* idx, bool* valid,
                                         int per_block, int tile_bytes, int staged,
-                                        int smem, void* stream) {
+                                        int idx_slots, int smem, void* stream) {
   return static_cast<int>(launch<float, false>(
       xyz, nullptr, cents, mask, b, n, s_count, per_block, k, 0, r2, tile_bytes, nullptr,
-      idx, valid, staged, 0, smem, static_cast<cudaStream_t>(stream)));
+      idx, valid, staged, 0, idx_slots, smem, static_cast<cudaStream_t>(stream)));
 }

@@ -32,7 +32,10 @@
 //     `cents`) and each point read from shared memory serves all of them
 //     (ball_select::select_staged); the global route selects one centroid at
 //     a time (select_first_k). The slots stay in the warp's shared array;
-//     idx and valid are written by the lanes;
+//     idx and valid are written by the lanes. Where one centroid's slots a
+//     warp leave no room for a tile (k > 1,806), the slots are the idx
+//     output itself (kIdxSlots: written once by the selection, read back by
+//     the row moves through L1), so any k takes a launch;
 //   - write: a centroid's xyz rows and feature rows leave as two contiguous
 //     runs through the warp's tile (row_move.cuh): the xyz rows (12 bytes)
 //     from the staged points, and narrow feature rows (level 1's 6-byte bf16
@@ -44,8 +47,7 @@
 //     addresses, chosen by the caller).
 // Not carried over from the TPU: centroids on lanes, the prefix-count matrix
 // product, one one-hot MXU dot per slot and the split-bf16 hi/lo channels of
-// xyz and of the index (xyz is gathered exactly; any N, k up to what the
-// shared slots allow).
+// xyz and of the index (xyz is gathered exactly; any N and k).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,8 +62,8 @@ constexpr int kWarps = 32;
 constexpr int kThreads = kWarps * 32;
 
 // kC: centroids a warp selects at once; kStaged: the points in shared memory
-// (else global); kMasked: a mask was given.
-template <int kC, bool kStaged, bool kMasked>
+// (else global); kMasked: a mask was given; kIdxSlots: the slots in idx.
+template <int kC, bool kStaged, bool kMasked, bool kIdxSlots>
 __global__ void __launch_bounds__(kThreads)
     group_gather_kernel(const float* __restrict__ xyz, const void* feats,
                         const float* __restrict__ cents,
@@ -70,15 +72,15 @@ __global__ void __launch_bounds__(kThreads)
                         int bulk, int tile_bytes, float* __restrict__ gxyz, void* gfeat,
                         int* __restrict__ idx, bool* __restrict__ valid) {
   // shared memory (ops.group_gather_plan's layout): each warp's mbarrier,
-  // each warp's kC * k slots (the block's rounded to 16 bytes), each warp's
-  // tile, the staged points
+  // each warp's kC * k slots (the block's rounded to 16 bytes; none with
+  // kIdxSlots), each warp's tile, the staged points
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kBarBytes = kWarps * 8;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int slot_bytes = (kWarps * kC * k * 4 + 15) & ~15;
+  const int slot_bytes = kIdxSlots ? 0 : (kWarps * kC * k * 4 + 15) & ~15;
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem) + warp;
-  int* slots = reinterpret_cast<int*>(smem + kBarBytes) + warp * kC * k;
+  int* const warp_slots = reinterpret_cast<int*>(smem + kBarBytes) + warp * kC * k;
   unsigned char* tile = smem + kBarBytes + slot_bytes + warp * tile_bytes;
   float4* pts = reinterpret_cast<float4*>(smem + kBarBytes + slot_bytes + kWarps * tile_bytes);
 
@@ -110,6 +112,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < 3; ++d) cx[m][d] = cents[3 * row + d];
       cnt[m] = on ? 0 : k;  // a centroid past the block's end selects nothing
     }
+    // the centroids' rows of idx are consecutive: centroid m's slots start
+    // m * k on either way (one past the block's end is never written)
+    int* const slots = kIdxSlots ? idx + (b * s_count + s0) * k : warp_slots;
     if constexpr (kStaged) {
       ball_select::select_staged<kMasked, kC>(pts, n, cx, r2, k, slots, cnt, lane);
     } else {
@@ -126,7 +131,7 @@ __global__ void __launch_bounds__(kThreads)
       const int64_t row = b * s_count + s0 + m;
       const int* sl = slots + m * k;
       for (int j = lane; j < k; j += 32) {
-        idx[row * k + j] = sl[j];
+        if (!kIdxSlots) idx[row * k + j] = sl[j];
         valid[row * k + j] = j < cnt[m];
       }
       if (gxyz != nullptr) {
@@ -147,17 +152,17 @@ __global__ void __launch_bounds__(kThreads)
   row_move::tile_free(lane);
 }
 
-template <int kC, bool kStaged, bool kMasked>
+template <int kC, bool kStaged, bool kMasked, bool kIdxSlots>
 cudaError_t launch_variant(const float* xyz, const void* feats, const float* cents,
                            const uint8_t* mask, int b, int n, int s_count, int per_block,
                            int k, float r2, int row_bytes, int word_bytes, int bulk,
                            int tile_bytes, float* gxyz, void* gfeat, int* idx, bool* valid,
                            int blocks, int smem, cudaStream_t stream) {
   const cudaError_t err =
-      hopper::allow_all_smem<group_gather_kernel<kC, kStaged, kMasked>>();
+      hopper::allow_all_smem<group_gather_kernel<kC, kStaged, kMasked, kIdxSlots>>();
   if (err != cudaSuccess) return err;
   const dim3 grid(blocks, b);
-  group_gather_kernel<kC, kStaged, kMasked><<<grid, kThreads, smem, stream>>>(
+  group_gather_kernel<kC, kStaged, kMasked, kIdxSlots><<<grid, kThreads, smem, stream>>>(
       xyz, feats, cents, mask, n, s_count, per_block, k, r2, row_bytes, word_bytes, bulk,
       tile_bytes, gxyz, gfeat, idx, valid);
   return cudaGetLastError();
@@ -167,16 +172,26 @@ template <int kC>
 cudaError_t launch(const float* xyz, const void* feats, const float* cents,
                    const uint8_t* mask, int b, int n, int s_count, int per_block, int k,
                    float r2, int row_bytes, int word_bytes, int bulk, int tile_bytes,
-                   float* gxyz, void* gfeat, int* idx, bool* valid, int staged, int blocks,
+                   float* gxyz, void* gfeat, int* idx, bool* valid, int route, int blocks,
                    int smem, cudaStream_t st) {
 #define GG_ARGS xyz, feats, cents, mask, b, n, s_count, per_block, k, r2, row_bytes, \
                 word_bytes, bulk, tile_bytes, gxyz, gfeat, idx, valid, blocks, smem, st
-  if (staged) {
-    return mask ? launch_variant<kC, true, true>(GG_ARGS)
-                : launch_variant<kC, true, false>(GG_ARGS);
+  switch (route) {
+    case 0:
+      return mask ? launch_variant<kC, true, true, false>(GG_ARGS)
+                  : launch_variant<kC, true, false, false>(GG_ARGS);
+    case 1:
+      return mask ? launch_variant<kC, false, true, false>(GG_ARGS)
+                  : launch_variant<kC, false, false, false>(GG_ARGS);
+    case 2:
+      return mask ? launch_variant<kC, true, true, true>(GG_ARGS)
+                  : launch_variant<kC, true, false, true>(GG_ARGS);
+    case 3:
+      return mask ? launch_variant<kC, false, true, true>(GG_ARGS)
+                  : launch_variant<kC, false, false, true>(GG_ARGS);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return mask ? launch_variant<kC, false, true>(GG_ARGS)
-              : launch_variant<kC, false, false>(GG_ARGS);
 #undef GG_ARGS
 }
 
@@ -189,7 +204,7 @@ cudaError_t launch(const float* xyz, const void* feats, const float* cents,
 // bool or null; gxyz (B, S, k, 3) f32 or null, gfeat (B, S, k, F) in the
 // features' type, idx (B, S, k) i32, valid (B, S, k) bool. The launch is
 // `ops.group_gather_plan`'s: route 0 with the cloud staged in shared memory,
-// 1 from global memory; `cents` centroids a warp at once, `per_block`
+// 1 from global memory, plus 2 with the slots in idx; `cents` centroids a warp at once, `per_block`
 // centroids a block, `blocks` blocks a cloud, a warp's tile of `tile` bytes
 // (feature rows by bulk copies where `bulk`), `smem` bytes of shared memory.
 // Returns the CUDA error of the launch (0 on success), cudaErrorInvalidValue
@@ -202,15 +217,14 @@ extern "C" int group_gather_launch(const float* xyz, const void* feats, int word
                                    int bulk, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* fp = row_bytes > 0 ? feats : nullptr;  // no rows without features
-  const int staged = route == 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (cents_per_warp == 2) {
     err = launch<2>(xyz, fp, cents, mask, b, n, s_count, per_block, k, r2, row_bytes,
-                    word_bytes, bulk, tile, gxyz, gfeat, idx, valid, staged, blocks, smem,
+                    word_bytes, bulk, tile, gxyz, gfeat, idx, valid, route, blocks, smem,
                     st);
   } else if (cents_per_warp == 1) {
     err = launch<1>(xyz, fp, cents, mask, b, n, s_count, per_block, k, r2, row_bytes,
-                    word_bytes, bulk, tile, gxyz, gfeat, idx, valid, staged, blocks, smem,
+                    word_bytes, bulk, tile, gxyz, gfeat, idx, valid, route, blocks, smem,
                     st);
   }
   return static_cast<int>(err);

@@ -8,7 +8,7 @@
 //                              mm_stats_kernel<T, false, kResNone>
 //   _bnact_mm_stats_kernel  -> fwd_wgmma_kernel<WN, true, RES> (bf16),
 //                              mm_stats_kernel<T, true, RES> (+ write_r)
-//   _bn_respool_kernel      -> bn_pool_kernel<T, RES>
+//   _bn_respool_kernel      -> bn_pool_kernel<T, RES, V>
 //   _bwd_pass_kernel        -> one pass: bwd_dh_kernel, then bwd_da and bwd_dw
 //                              (bf16: *_wgmma_kernel; fp32: *_f32_kernel);
 //                              res_mode, skip_pool, skip_dense
@@ -69,9 +69,10 @@
 //            column, then the 32 lanes in order). With r_out the blocks of
 //            the first column tile store `a` as they stage it (every column
 //            tile stages the same values).
-//   bn_pool: no product. One thread per (group, channel) walks its group's
-//            rows in order with a strict >, so the lowest row wins ties and
-//            no merge between blocks is needed.
+//   bn_pool: no product; bound by bytes. A thread owns 8 channels of one
+//            group (16-byte loads and stores) over a slice of its rows, a few
+//            rows in flight, and the slices merge in a fixed order with the
+//            lowest row winning ties (its note at bn_pool_kernel).
 // Design, backward: three launches, each tensor formed once.
 //   bwd_dh:  elementwise; dh goes to a scratch (rows, ldh) in T (ldh = cu
 //            rounded up to 8). A thread owns 8 channels (16-byte loads and
@@ -328,41 +329,196 @@ __global__ void __launch_bounds__(kThreads, 3) mm_stats_kernel(
   write_partials(sm.z, part, blockIdx.y, cu, c, col_ok, sum, sq);
 }
 
-// One thread per (group, channel): v = pre [+ res] [- pen] over the group's
-// rows in order; strict > keeps the lowest row on ties.
-template <typename T, int RES>
-__global__ void __launch_bounds__(kThreads) bn_pool_kernel(
+// The pool pass (ops/preextract_fused.py bn_pool_plan sizes it). A thread
+// owns V consecutive channels of one group (V = 8: one 16-byte load a row in
+// bf16, two in fp32; V = 1 where the width is no multiple of 8 or a base is
+// not 16-byte aligned) over a slice of the group's rows: rows y, y + slices,
+// .. (neighbouring slices on neighbouring rows, so a warp's loads stay
+// contiguous). kPoolFly rows' loads are in flight before their compares; a
+// row's pen is read once for the thread's V channels. Within a slice the
+// rows come in order and a strict > keeps the lowest; the slices of a group
+// then merge through shared memory in slice order, taking the other slice's
+// (value, row) on a larger value or an equal value at a lower row, so the
+// result is the first-occurrence argmax whatever the split. The outputs
+// leave in 16-byte stores. A block is strips x slices x per_block threads:
+// `strips` neighbouring V-channel strips of `per_block` groups.
+constexpr int kPoolThreads = 256;
+constexpr int kPoolFly = 4;  // rows in flight a thread
+
+template <typename T, int V>
+// 16-byte words of V elements (1 for V = 1)
+__host__ __device__ constexpr int pool_words() {
+  return V == 8 ? V * static_cast<int>(sizeof(T)) / 16 : 1;
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& u, int k) {
+  return k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w;
+}
+
+// V elements of T at p into w (V = 1: the element's bits in w[0].x).
+template <typename T, int V>
+__device__ __forceinline__ void load_chunk(uint4 (&w)[pool_words<T, V>()], const T* p) {
+  if constexpr (V == 8) {
+#pragma unroll
+    for (int k = 0; k < pool_words<T, V>(); ++k) w[k] = reinterpret_cast<const uint4*>(p)[k];
+  } else if constexpr (sizeof(T) == 2) {
+    w[0].x = *reinterpret_cast<const unsigned short*>(p);
+  } else {
+    w[0].x = *reinterpret_cast<const uint32_t*>(p);
+  }
+}
+
+// Element i of a loaded chunk, in fp32 (bf16 widens exactly).
+template <typename T>
+__device__ __forceinline__ float chunk_elem(const uint4* w, int i) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t u = word_of(w[i >> 3], (i >> 1) & 3);
+    return __uint_as_float((i & 1) ? (u & 0xffff0000u) : (u << 16));
+  } else {
+    return __uint_as_float(word_of(w[i >> 2], i & 3));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t out_bits(float v) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  } else {
+    return __float_as_uint(v);
+  }
+}
+
+// V values of type T (bits from out_bits) or fp32 / int32 (raw words) to p.
+template <int V, int kBytes>
+__device__ __forceinline__ void store_chunk(void* p, const uint32_t (&bits)[V]) {
+  if constexpr (V == 1) {
+    if constexpr (kBytes == 2) {
+      *static_cast<unsigned short*>(p) = static_cast<unsigned short>(bits[0]);
+    } else {
+      *static_cast<uint32_t*>(p) = bits[0];
+    }
+  } else if constexpr (kBytes == 2) {
+    *static_cast<uint4*>(p) = make_uint4(bits[0] | bits[1] << 16, bits[2] | bits[3] << 16,
+                                         bits[4] | bits[5] << 16, bits[6] | bits[7] << 16);
+  } else {
+    uint4* q = static_cast<uint4*>(p);
+    q[0] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+    q[1] = make_uint4(bits[4], bits[5], bits[6], bits[7]);
+  }
+}
+
+template <typename T, int RES, int V>
+__global__ void __launch_bounds__(kPoolThreads) bn_pool_kernel(
     const T* __restrict__ h, const float* __restrict__ sc,
     const T* __restrict__ res_src, const float* __restrict__ res_sc,
     const float* __restrict__ pen, T* __restrict__ out, float* __restrict__ maxv,
     int* __restrict__ amax, float* __restrict__ hsel, int64_t groups, int C,
-    int pool, int final_relu) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= groups * C) return;
-  const int64_t g = e / C;
-  const int c = static_cast<int>(e - g * C);
-  const float mean = sc[c], mul = sc[C + c], beta = sc[2 * C + c];
-  const Residual<T, RES> res(res_src, res_sc, c, C, true);
-  const int64_t row0 = g * pool;
-  float best = 0.f, best_h = 0.f;
-  int best_i = 0;
-  for (int i = 0; i < pool; ++i) {
-    const int64_t idx = (row0 + i) * C + c;
-    const float hv = Ty<T>::to_f(h[idx]);
-    float v = res.add(bn_pre(hv, mean, mul, beta), idx);
-    if (pen != nullptr) v = __fsub_rn(v, pen[row0 + i]);
-    if (i == 0 || v > best) {
-      best = v;
-      best_i = i;
-      best_h = hv;
+    int pool, int final_relu, int strips, int slices, int per_block) {
+  constexpr int kW = pool_words<T, V>();
+  __shared__ float s_v[kPoolThreads * V];
+  __shared__ int s_i[kPoolThreads * V];
+  __shared__ float s_h[kPoolThreads * V];
+  const int x = threadIdx.x % strips;
+  const int y = threadIdx.x / strips % slices;
+  const int z = threadIdx.x / (strips * slices);
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * per_block + z;
+  const int c0 = (blockIdx.y * strips + x) * V;
+  const bool on = z < per_block && g < groups && c0 < C;
+  float best[V], best_h[V];
+  int best_i[V];
+  if (on) {
+    float mean[V], mul[V], beta[V], rmean[V], rmul[V], rbeta[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      mean[c] = sc[c0 + c];
+      mul[c] = sc[C + c0 + c];
+      beta[c] = sc[2 * C + c0 + c];
+      if constexpr (RES == kResBnRelu) {
+        rmean[c] = res_sc[c0 + c];
+        rmul[c] = res_sc[C + c0 + c];
+        rbeta[c] = res_sc[2 * C + c0 + c];
+      }
+    }
+    const int64_t row0 = g * pool;
+    for (int i = y; i < pool; i += slices * kPoolFly) {
+      uint4 hw[kPoolFly][kW], rw[kPoolFly][kW];
+      float pv[kPoolFly];
+#pragma unroll
+      for (int u = 0; u < kPoolFly; ++u) {
+        const int r = i + u * slices;
+        if (r < pool) {
+          const int64_t e = (row0 + r) * C + c0;
+          load_chunk<T, V>(hw[u], h + e);
+          if constexpr (RES != kResNone) load_chunk<T, V>(rw[u], res_src + e);
+          pv[u] = pen != nullptr ? pen[row0 + r] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPoolFly; ++u) {
+        const int r = i + u * slices;
+        if (r >= pool) break;
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const float hv = chunk_elem<T>(hw[u], c);
+          float v = bn_pre(hv, mean[c], mul[c], beta[c]);
+          if constexpr (RES == kResBnRelu) {
+            const float rv = bn_pre(chunk_elem<T>(rw[u], c), rmean[c], rmul[c], rbeta[c]);
+            v = __fadd_rn(v, fmaxf(rv, 0.f));
+          } else if constexpr (RES == kResDense) {
+            v = __fadd_rn(v, chunk_elem<T>(rw[u], c));
+          }
+          if (pen != nullptr) v = __fsub_rn(v, pv[u]);
+          if (r == y || v > best[c]) {
+            best[c] = v;
+            best_i[c] = r;
+            best_h[c] = hv;
+          }
+        }
+      }
     }
   }
-  float o = final_relu ? fmaxf(best, 0.f) : best;
-  if (pen != nullptr && best < -5e8f) o = -1e9f;  // no valid row in the group
-  out[e] = Ty<T>::from_f(o);
-  maxv[e] = best;
-  amax[e] = best_i;
-  hsel[e] = best_h;
+  if (slices > 1) {  // block-uniform
+    if (on) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        s_v[threadIdx.x * V + c] = best[c];
+        s_i[threadIdx.x * V + c] = best_i[c];
+        s_h[threadIdx.x * V + c] = best_h[c];
+      }
+    }
+    __syncthreads();
+    if (on && y == 0) {
+      for (int s = 1; s < slices && s < pool; ++s) {
+        const int o = (threadIdx.x + s * strips) * V;
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          const float ov = s_v[o + c];
+          const int oi = s_i[o + c];
+          if (ov > best[c] || (ov == best[c] && oi < best_i[c])) {
+            best[c] = ov;
+            best_i[c] = oi;
+            best_h[c] = s_h[o + c];
+          }
+        }
+      }
+    }
+  }
+  if (!on || y != 0) return;
+  uint32_t ob[V], mb[V], ib[V], hb[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    float o = final_relu ? fmaxf(best[c], 0.f) : best[c];
+    if (pen != nullptr && best[c] < -5e8f) o = -1e9f;  // no valid row in the group
+    ob[c] = out_bits<T>(o);
+    mb[c] = __float_as_uint(best[c]);
+    ib[c] = static_cast<uint32_t>(best_i[c]);
+    hb[c] = __float_as_uint(best_h[c]);
+  }
+  const int64_t e = g * C + c0;
+  store_chunk<V, static_cast<int>(sizeof(T))>(out + e, ob);
+  store_chunk<V, 4>(maxv + e, mb);
+  store_chunk<V, 4>(amax + e, ib);
+  store_chunk<V, 4>(hsel + e, hb);
 }
 
 // out[j] = sum_i part[i, j], i = 0 .. n-1: lane ty of 32 adds rows ty, ty+32,
@@ -1686,15 +1842,18 @@ int mm_stats_any(const void* a_in, const float* sc, int res_mode,
   return kBadArgs;
 }
 
-template <typename T, int RES>
+template <typename T, int RES, int V>
 int bn_pool(const T* h, const float* sc, const T* res_src, const float* res_sc,
             const float* pen, T* out, float* maxv, int* amax, float* hsel,
-            int64_t groups, int C, int pool, int final_relu, cudaStream_t s) {
-  const int64_t n = groups * C;
-  bn_pool_kernel<T, RES><<<static_cast<unsigned>((n + kThreads - 1) / kThreads),
-                           kThreads, 0, s>>>(h, sc, res_src, res_sc, pen, out,
-                                             maxv, amax, hsel, groups, C, pool,
-                                             final_relu);
+            int64_t groups, int C, int pool, int final_relu, int strips, int slices,
+            int per_block, cudaStream_t s) {
+  if (strips < 1 || slices < 1 || per_block < 1 || strips * slices * per_block > kPoolThreads)
+    return kBadArgs;
+  const dim3 grid(static_cast<unsigned>((groups + per_block - 1) / per_block),
+                  static_cast<unsigned>((C / V + strips - 1) / strips));
+  bn_pool_kernel<T, RES, V><<<grid, strips * slices * per_block, 0, s>>>(
+      h, sc, res_src, res_sc, pen, out, maxv, amax, hsel, groups, C, pool, final_relu,
+      strips, slices, per_block);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1702,13 +1861,19 @@ template <typename T>
 int bn_pool_any(const void* h, const float* sc, int res_mode, const void* res_src,
                 const float* res_sc, const float* pen, void* out, float* maxv,
                 int* amax, float* hsel, int64_t groups, int C, int pool,
-                int final_relu, cudaStream_t s) {
+                int final_relu, int vec, int strips, int slices, int per_block,
+                cudaStream_t s) {
   const T* ht = static_cast<const T*>(h);
   const T* rs = static_cast<const T*>(res_src);
   T* o = static_cast<T*>(out);
-#define MLP_CHAIN_POOL(RES) \
-  return bn_pool<T, RES>(ht, sc, rs, res_sc, pen, o, maxv, amax, hsel, groups, \
-                         C, pool, final_relu, s)
+  if (vec != 1 && (vec != 8 || C % 8 != 0)) return kBadArgs;
+#define MLP_CHAIN_POOL(RES)                                                              \
+  return vec == 8 ? bn_pool<T, RES, 8>(ht, sc, rs, res_sc, pen, o, maxv, amax, hsel,      \
+                                       groups, C, pool, final_relu, strips, slices,      \
+                                       per_block, s)                                     \
+                  : bn_pool<T, RES, 1>(ht, sc, rs, res_sc, pen, o, maxv, amax, hsel,      \
+                                       groups, C, pool, final_relu, strips, slices,      \
+                                       per_block, s)
   if (res_mode == kResNone) MLP_CHAIN_POOL(kResNone);
   if (res_mode == kResBnRelu) MLP_CHAIN_POOL(kResBnRelu);
   if (res_mode == kResDense) MLP_CHAIN_POOL(kResDense);
@@ -1905,20 +2070,24 @@ extern "C" int mlp_mm_stats_launch(const void* a_in, const float* sc,
 
 // The pool pass over h (groups * pool, C): out (groups, C) in T, maxv and
 // hsel fp32, amax int32; sc (>= 3, C) fp32; pen (groups * pool,) fp32, or
-// NULL (no mask, no sentinel).
+// NULL (no mask, no sentinel). The launch is bn_pool_plan's: `vec` channels
+// a thread (8: C a multiple of 8 and every base 16-byte aligned; else 1),
+// blocks of `strips` x `slices` x `per_block` threads.
 extern "C" int mlp_bn_pool_launch(const void* h, const float* sc, int res_mode,
                                   const void* res_src, const float* res_sc,
                                   const float* pen, void* out, float* maxv,
                                   int* amax, float* hsel, long long groups,
-                                  int c, int pool, int final_relu, int is_bf16,
-                                  void* stream) {
+                                  int c, int pool, int final_relu, int is_bf16, int vec,
+                                  int strips, int slices, int per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return bn_pool_any<bf16>(h, sc, res_mode, res_src, res_sc, pen, out, maxv,
-                             amax, hsel, groups, c, pool, final_relu, s);
+    return bn_pool_any<bf16>(h, sc, res_mode, res_src, res_sc, pen, out, maxv, amax,
+                             hsel, groups, c, pool, final_relu, vec, strips, slices,
+                             per_block, s);
   }
-  return bn_pool_any<float>(h, sc, res_mode, res_src, res_sc, pen, out, maxv,
-                            amax, hsel, groups, c, pool, final_relu, s);
+  return bn_pool_any<float>(h, sc, res_mode, res_src, res_sc, pen, out, maxv, amax,
+                            hsel, groups, c, pool, final_relu, vec, strips, slices,
+                            per_block, s);
 }
 
 // One backward pass is three launches (and colsum_kernel's).

@@ -19,6 +19,7 @@ from pointcloud_tpu_torch.ops.chamfer import (  # noqa: F401
 )
 from pointcloud_tpu_torch.ops.chamfer_bwd import (  # noqa: F401
     chamfer_bwd,
+    chamfer_bwd_plan,
     chamfer_bwd_reference,
 )
 from pointcloud_tpu_torch.ops.dense_bn_pool import (  # noqa: F401
@@ -69,6 +70,7 @@ from pointcloud_tpu_torch.ops.nn_sweep import (  # noqa: F401
 from pointcloud_tpu_torch.ops.preextract_fused import (  # noqa: F401
     affine_scalars,
     bn_pool,
+    bn_pool_plan,
     bn_pool_reference,
     bnact_mm_stats,
     bnact_mm_stats_reference,

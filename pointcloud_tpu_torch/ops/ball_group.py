@@ -13,7 +13,8 @@ direct differences, pen = 1e9 on masked points, r2 = float32(radius**2)
 taken in double. (The JAX package's XLA `ball_query` uses the matmul
 expansion instead, which can flip a point within a few ulps of the radius.)
 The TPU kernel's limits (k % 8 == 0, k <= 256, N <= 16384) come from its
-VMEM and bf16 index channels and do not apply here: any k >= 1 and any N.
+VMEM and bf16 index channels and do not apply here: any k >= 1 and any N
+(past 780 slots a centroid the kernel keeps its slots in the idx output).
 """
 
 from __future__ import annotations
@@ -43,7 +44,9 @@ _BLOCKS_PER_SM = 2  # 2,048 threads an SM in blocks of 1,024
 
 class BallPlan(NamedTuple):
     """The launch geometry of one `ball_group` call (csrc/ball_group.cu)."""
-    route: str  # "shared": the cloud staged in shared memory; "global": not
+    # "shared": the cloud staged in shared memory; "global": not; "-idx"
+    # after either: the slots in the idx output (k past the shared slots)
+    route: str
     threads: int  # threads a block (a warp two centroids at a time)
     per_block: int  # centroids a block
     blocks: int  # blocks a cloud
@@ -64,12 +67,14 @@ def ball_group_plan(B: int, N: int, S: int, k: int, F: int, dtype) -> BallPlan:
     at least a row and 16 bytes. On the shared route the cloud's points
     follow as (x, y, z, pen), 16 bytes a point, and the features (N * F
     elements) where they fit too. A cloud whose points do not fit takes the
-    global route. A block serves `per_block` centroids of one cloud (32 or
-    more unless S is smaller), and a cloud takes as many blocks as fill the
-    card's resident blocks once (each block stages the cloud again).
+    global route. Where the slots and tiles alone pass the shared memory (k
+    past 780), the slots live in the idx output instead (route "-idx"). A
+    block serves `per_block` centroids of one cloud (32 or more unless S is
+    smaller), and a cloud takes as many blocks as fill the card's resident
+    blocks once (each block stages the cloud again).
 
     Raises ValueError for shapes no launch takes (B outside 1..65,535, N, S
-    or k below 1, F below 0, slots and tiles past the shared memory) and
+    or k below 1, F below 0, a row's tile past the shared memory) and
     TypeError for other dtypes."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ball_group kernel takes fp32 or bf16 features; got {dtype}")
@@ -80,9 +85,12 @@ def ball_group_plan(B: int, N: int, S: int, k: int, F: int, dtype) -> BallPlan:
     tile = max(min(_TILE, (-(-k * (3 + F) * esize // 16) + 1) * 16),
                (-(-(3 + F) * esize // 16) + 1) * 16)
     fixed = -(-_WARPS * _CENTS * k * 4 // 16) * 16 + _WARPS * tile
+    idx_slots = fixed > SMEM_LIMIT
+    if idx_slots:
+        fixed = _WARPS * tile
     if fixed > SMEM_LIMIT:
-        raise ValueError(f"ball_group kernel: k={k} slots a warp exceed the shared "
-                         f"memory")
+        raise ValueError(f"ball_group kernel: rows of {3 + F} elements exceed the "
+                         f"shared memory")
     shared = fixed + 16 * N <= SMEM_LIMIT
     smem = fixed + (16 * N if shared else 0)
     stage_feats = shared and F > 0 and smem + N * F * esize <= SMEM_LIMIT
@@ -92,8 +100,8 @@ def ball_group_plan(B: int, N: int, S: int, k: int, F: int, dtype) -> BallPlan:
     blocks = max(1, min(-(-resident * SMS // B), S // _WARPS))
     per_block = -(-S // blocks)
     blocks = -(-S // per_block)
-    return BallPlan("shared" if shared else "global", _WARPS * 32, per_block, blocks,
-                    tile, stage_feats, smem)
+    route = ("shared" if shared else "global") + ("-idx" if idx_slots else "")
+    return BallPlan(route, _WARPS * 32, per_block, blocks, tile, stage_feats, smem)
 
 
 def ball_group_reference(xyz, feats, new_xyz, mask, k: int, radius: float):
@@ -114,7 +122,7 @@ def _launcher():
     fn = _build.load("ball_group").ball_group_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -170,7 +178,8 @@ def _group(xyz, feats, new_xyz, mask, k: int, radius: float):
             xyz.data_ptr(), ptr(feats), int(dtype == torch.bfloat16),
             new_xyz.data_ptr(), ptr(mask), B, N, S, k, F, r2,
             grouped.data_ptr(), idx.data_ptr(), valid.data_ptr(), plan.per_block,
-            plan.tile, int(plan.route == "shared"), int(plan.stage_feats), plan.smem,
+            plan.tile, int(plan.route.startswith("shared")), int(plan.stage_feats),
+            int(plan.route.endswith("-idx")), plan.smem,
             torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:

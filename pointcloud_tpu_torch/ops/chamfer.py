@@ -10,8 +10,11 @@ compete as targets nor count in the point means.
 
 The 'matmul' method goes through `nn_sweep` (the CUDA kernel on the card, its
 plain version on the CPU), so the (B, N, M) cost matrix is never stored on
-the card; its backward goes through `chamfer_bwd` or, for large clouds, the
-`scatter_rows` segment-sum. The JAX package's ring routing of giant clouds
+the card; its backward goes through `chamfer_bwd` at every size (the JAX
+package's switch to gathers and segment-sums above 6 << 20 cost elements,
+chamfer.py:105-110, came from the TPU kernel's VMEM; on the card the fused
+kernel is the faster route on both sides of it). The JAX package's ring
+routing of giant clouds
 across chips (chamfer.py:249-257) is not ported: this function always runs
 on one device.
 """
@@ -20,17 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from pointcloud_tpu_torch.ops.chamfer_bwd import chamfer_bwd, nn_terms
+from pointcloud_tpu_torch.ops.chamfer_bwd import chamfer_bwd
 from pointcloud_tpu_torch.ops.geometry import _BIG, pairwise_sqdist
 from pointcloud_tpu_torch.ops.nn_sweep import MAX_DIMS, nn_sweep
-from pointcloud_tpu_torch.ops.scatter_rows import scatter_rows
-
-# Cost elements of one cloud pair (N * M) up to which the backward takes the
-# fused `chamfer_bwd`; above it, gathers + two `scatter_rows` segment-sums.
-# The JAX package's switch (chamfer.py:110), kept so that both packages take
-# the same route at the same size; its reason there (the TPU kernel's VMEM)
-# does not hold on the card, and chip_smoke.py times both routes.
-FUSED_BWD_MAX_ELEMENTS = 6 << 20
 
 
 def _masked_mean(values, mask, dim: int):
@@ -40,16 +35,6 @@ def _masked_mean(values, mask, dim: int):
     total = torch.sum(values * mask, dim=dim)
     count = torch.clamp(torch.sum(mask, dim=dim), min=1.0)
     return total / count
-
-
-def nn_grads_segment_sum(x, y, gx, gy, amin_x, amin_y):
-    """The backward's route above the switch: gathers and elementwise terms,
-    then dx = scatter_rows(-ty, amin_y, N, init=tx) and dy symmetrically
-    (the JAX package's composition, chamfer.py:133-138, :185-186)."""
-    tx, ty = nn_terms(x, y, gx, gy, amin_x, amin_y)
-    dx = scatter_rows(-ty, amin_y, x.shape[1], init=tx)
-    dy = scatter_rows(-tx, amin_x, y.shape[1], init=ty)
-    return dx, dy
 
 
 class _NearestNeighborDists(torch.autograd.Function):
@@ -71,12 +56,8 @@ class _NearestNeighborDists(torch.autograd.Function):
             gx = gx * x_mask
         if y_mask is not None:
             gy = gy * y_mask
-        args = (x, y, gx.float().contiguous(), gy.float().contiguous(),
-                amin_x, amin_y)
-        if x.shape[1] * y.shape[1] <= FUSED_BWD_MAX_ELEMENTS:
-            dx, dy = chamfer_bwd(*args)
-        else:
-            dx, dy = nn_grads_segment_sum(*args)
+        dx, dy = chamfer_bwd(x, y, gx.float().contiguous(), gy.float().contiguous(),
+                             amin_x, amin_y)
         return dx.to(x.dtype), dy.to(y.dtype), None, None
 
 

@@ -141,13 +141,15 @@ def group_neighbors(xyz, feats, new_xyz, k: int, radius=None, mask=None,
     kNN: slots in distance order, the lowest index first on ties. Ball: the
     first k in-radius points by index order, slots past the in-ball count
     repeating slot 0 (point 0 in an empty ball). Both select on direct
-    differences with masked points 1e9 away, as the TPU kernels do. Any k
-    goes to the kernels: the JAX package's `k % 8` gate (geometry.py:201-202)
-    and ball limits (k <= 256, N <= 16384) came from the TPU kernels' tiles
-    and bf16 index channels. `feats=None` also takes the kernel, with no
-    feature rows; on a TPU the JAX package sends that case to its XLA
+    differences with masked points 1e9 away, as the TPU kernels do. Every
+    k >= 1 goes to the kernels, on any N (`knn_group` past its list's 64
+    slots by its rounds route, `group_gather` past the 1,806 slots its
+    shared memory holds with the slots in the idx output): the JAX
+    package's `k % 8` gate (geometry.py:201-202) and ball limits (k <= 256,
+    N <= 16384) came from the TPU kernels' tiles and bf16 index channels.
+    Past those limits, and for `feats=None`, the JAX package takes its XLA
     `ball_query` (the matmul expansion of the distance), which can differ
-    for a point within a few ulps of the radius.
+    from the direct differences for a point within a few ulps of the radius.
     """
     # imported here: the kernel modules import this one
     from pointcloud_tpu_torch.ops.group_gather import group_gather

@@ -16,9 +16,9 @@ follows the TPU kernel: ((pen + dx^2) + dy^2) + dz^2 <= r2 on direct
 differences, pen = 1e9 on masked points, r2 = float32(radius**2) taken in
 double. The TPU kernel's limits (k <= 256, N <= 16384: its bf16 rank tile
 and index channels) do not apply here, and xyz is gathered exactly where
-the TPU's bf16 path carries it as split-bf16 hi + lo: any N, and k up to
-what a block's shared slots hold (1,806). `group_gather_plan` sizes the
-launch from the shape alone.
+the TPU's bf16 path carries it as split-bf16 hi + lo: any N and any k (past
+what a block's shared slots hold, 1,806, the kernel keeps its slots in the
+idx output). `group_gather_plan` sizes the launch from the shape alone.
 """
 
 from __future__ import annotations
@@ -49,7 +49,9 @@ _BLOCKS_PER_SM = 2  # 2,048 threads an SM in blocks of 1,024
 
 class GatherPlan(NamedTuple):
     """The launch geometry of one `group_gather` call (csrc/group_gather.cu)."""
-    route: str  # "shared": the cloud staged in shared memory; "global": not
+    # "shared": the cloud staged in shared memory; "global": not; "-idx"
+    # after either: the slots in the idx output (k past the shared slots)
+    route: str
     threads: int  # threads a block
     cents: int  # centroids a warp selects at once
     per_block: int  # centroids a block
@@ -59,12 +61,14 @@ class GatherPlan(NamedTuple):
     smem: int  # dynamic shared memory a block, bytes, as the kernel lays it out
 
 
-def _gather_smem(N: int, k: int, cents: int, tile: int, shared: bool) -> int:
+def _gather_smem(N: int, k: int, cents: int, tile: int, shared: bool,
+                 idx_slots: bool = False) -> int:
     """csrc/group_gather.cu's shared memory: 32 warps' mbarriers, 32 warps'
-    slots for `cents` centroids (rounded to 16 bytes for the block), 32
-    warps' tiles, and on the shared route 16 bytes a staged point."""
-    return (_WARPS * 8 + -(-_WARPS * cents * k * 4 // 16) * 16 + _WARPS * tile
-            + (16 * N if shared else 0))
+    slots for `cents` centroids (rounded to 16 bytes for the block; none
+    with `idx_slots`), 32 warps' tiles, and on the shared route 16 bytes a
+    staged point."""
+    slots = 0 if idx_slots else -(-_WARPS * cents * k * 4 // 16) * 16
+    return _WARPS * 8 + slots + _WARPS * tile + (16 * N if shared else 0)
 
 
 @functools.lru_cache(maxsize=256)
@@ -87,24 +91,37 @@ def group_gather_plan(B: int, N: int, S: int, k: int, row_bytes: int, word: int 
     (the most centroids a warp on a tie, then the fewest blocks). Feature
     rows of 16-byte words and 256 bytes or more go by bulk copies, the rest
     as words (measured on the card: each way is the faster on its rows).
+    Where no tile fits beside one centroid's slots a warp (k past 1,806),
+    the slots live in the idx output and the tile is the one asked for
+    (route "-idx").
 
     Raises ValueError for shapes no launch takes (B outside 1..65,535, N, S
     or k below 1, row_bytes below 0 or not a whole number of words, `word`
-    not 2, 4, 8 or 16, slots past the shared memory)."""
+    not 2, 4, 8 or 16)."""
     if not (1 <= B <= _MAX_BATCH and N >= 1 and S >= 1 and k >= 1 and row_bytes >= 0
             and word in (2, 4, 8, 16) and row_bytes % word == 0):
         raise ValueError(f"group_gather kernel bounds exceeded: B={B} N={N} S={S} k={k} "
                          f"row_bytes={row_bytes} word={word}")
     run = max(k * row_bytes, 12 * k if with_xyz else 0)
     want_tile = max(32, min(_TILE, -(-(run + 16) // 32) * 32))
+    best = _plan_with(B, N, S, k, row_bytes, word, want_tile, False)
+    if best is None:
+        best = _plan_with(B, N, S, k, row_bytes, word, want_tile, True)
+    return best
+
+
+def _plan_with(B, N, S, k, row_bytes, word, want_tile, idx_slots):
+    """group_gather_plan's best launch with the slots in shared memory or
+    (`idx_slots`) in the idx output; None where no tile fits."""
     best = None
     for cents in _CENTS:
-        room = SMEM_LIMIT - _gather_smem(N, k, cents, 0, False)
+        room = SMEM_LIMIT - _gather_smem(N, k, cents, 0, False, idx_slots)
         tile = min(want_tile, room // _WARPS // 32 * 32)
         if tile < 32:
             continue
-        shared = _gather_smem(N, k, cents, tile, True) <= SMEM_LIMIT
-        smem = _gather_smem(N, k, cents, tile, shared)
+        shared = _gather_smem(N, k, cents, tile, True, idx_slots) <= SMEM_LIMIT
+        smem = _gather_smem(N, k, cents, tile, shared, idx_slots)
+        route = ("shared" if shared else "global") + ("-idx" if idx_slots else "")
         resident = max(1, min(_BLOCKS_PER_SM, _SMEM_SM // (smem + 1024)))
         for want in range(1, max(1, min(-(-S // _WARPS), 4 * SMS)) + 1):
             per_block = -(-S // want)
@@ -113,19 +130,17 @@ def group_gather_plan(B: int, N: int, S: int, k: int, row_bytes: int, word: int 
             waves = -(-B * blocks // (resident * SMS))
             cost = (waves * iters * cents, -cents, blocks)
             if best is None or cost < best[0]:
-                best = (cost, GatherPlan("shared" if shared else "global",
-                                         _WARPS * 32, cents, per_block, blocks, tile,
-                                         row_bytes >= _BULK_ROW and word == 16, smem))
-    if best is None:
-        raise ValueError(f"group_gather kernel: k={k} slots a warp exceed the shared "
-                         f"memory")
-    return best[1]
+                best = (cost, GatherPlan(route, _WARPS * 32, cents, per_block, blocks,
+                                         tile, row_bytes >= _BULK_ROW and word == 16,
+                                         smem))
+    return None if best is None else best[1]
 
 
 def plan_args(p: GatherPlan) -> tuple:
     """The plan as csrc/group_gather.cu's entry takes it, after `valid`."""
-    return (0 if p.route == "shared" else 1, p.cents, p.per_block, p.blocks, p.tile,
-            int(p.bulk), p.smem)
+    route = (0 if p.route.startswith("shared") else 1) + (2 if p.route.endswith("-idx")
+                                                           else 0)
+    return (route, p.cents, p.per_block, p.blocks, p.tile, int(p.bulk), p.smem)
 
 
 def group_gather_reference(xyz, feats, new_xyz, mask, k: int, radius: float,

@@ -240,7 +240,7 @@ def _launchers():
     mm = lib.mlp_mm_stats_launch
     mm.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 8 + [vp]
     pool = lib.mlp_bn_pool_launch
-    pool.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 4 + [vp]
+    pool.argtypes = [vp, vp, i32] + [vp] * 7 + [i64] + [i32] * 8 + [vp]
     dh = lib.mlp_bwd_dh_launch
     dh.argtypes = [vp] * 6 + [i64] + [i32] * 4 + [vp]
     da = lib.mlp_bwd_da_launch
@@ -526,6 +526,62 @@ def bnact_mm_stats(h_in, sc, w, res=None, write_r=False):
 bnact_mm_stats.launches = 0
 
 
+class PoolPlan(NamedTuple):
+    """The launch geometry of one `bn_pool` call (csrc/mlp_chain.cu
+    bn_pool_kernel)."""
+    vec: int  # channels a thread: 8 (16-byte loads of bf16, two of fp32) or 1
+    strips: int  # threads a block along the channels, `vec` channels each
+    slices: int  # threads a group's rows are split over: rows y, y + slices, ..
+    rows: int  # rows a slice (the most)
+    per_block: int  # groups a block
+    threads: int  # threads a block: strips x slices x per_block
+    blocks: tuple  # (blocks along the groups, blocks along the channels)
+
+
+_POOL_THREADS = 256  # csrc/mlp_chain.cu kPoolThreads
+_POOL_FLY = 4  # csrc/mlp_chain.cu kPoolFly: rows in flight a thread
+# bytes all threads' rows in flight may add up to before a group's rows are
+# split over more slices: measured on the card, SA3 (256 groups of 128 rows
+# of 1,024 channels) is fastest at 2 slices, the MSG group-all level (32
+# groups) at 8, and every larger pass at 1
+_POOL_INFLIGHT = 4 << 20
+
+
+@functools.lru_cache(maxsize=256)
+def bn_pool_plan(groups: int, C: int, pool: int, dtype, res_mode: int = RES_NONE,
+                 aligned: bool = True) -> PoolPlan:
+    """The launch of `bn_pool` over `groups` groups of `pool` rows of C
+    channels in `dtype` with residual mode `res_mode`; `aligned`: every
+    tensor's base lies on a 16-byte boundary.
+
+    A thread owns 8 channels (vec) where C is a multiple of 8 and the bases
+    are aligned, else 1 (the narrow route). `strips` threads of a block lie
+    along the channels (at most 32); a group's rows are split over `slices`
+    threads, doubled from 1 while a slice keeps a row, the block 256
+    threads or fewer, and all threads' rows in flight (4 a thread, h and the
+    residual) stay under 4 MiB; the rest of the block's 256 threads take
+    further groups (`per_block`). Raises ValueError for shapes no launch
+    takes and TypeError for other dtypes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"bn_pool kernel takes fp32 or bf16; got {dtype}")
+    if not (groups >= 1 and C >= 1 and pool >= 1 and res_mode in (0, 1, 2)):
+        raise ValueError(f"bn_pool kernel bounds exceeded: groups={groups} C={C} "
+                         f"pool={pool} res_mode={res_mode}")
+    vec = 8 if C % 8 == 0 and aligned else 1
+    lanes = C // vec
+    strips = min(lanes, 32)
+    chunks = -(-lanes // strips)
+    row_bytes = vec * (2 if dtype == torch.bfloat16 else 4) * (2 if res_mode else 1)
+    slices = 1
+    while (2 * slices <= pool and 2 * slices * strips <= _POOL_THREADS
+           and groups * chunks * strips * slices * _POOL_FLY * row_bytes
+           < _POOL_INFLIGHT):
+        slices *= 2
+    per_block = max(1, min(groups, _POOL_THREADS // (strips * slices)))
+    return PoolPlan(vec, strips, slices, -(-pool // slices), per_block,
+                    strips * slices * per_block, (-(-groups // per_block), chunks))
+
+
 def bn_pool(h, sc, pen, pool: int, final_relu: bool = True, res=None):
     """The pool pass: v = (h - mean) * mul + beta [+ res] [- pen] in fp32,
     and per group of `pool` consecutive rows its max with the lowest row
@@ -558,11 +614,14 @@ def bn_pool(h, sc, pen, pool: int, final_relu: bool = True, res=None):
     amax = torch.empty((B, G, C), dtype=torch.int32, device=device)
     hsel = torch.empty((B, G, C), dtype=torch.float32, device=device)
     mode = _res_parts(res)[0]
+    plan = bn_pool_plan(B * G, C, pool, h.dtype, mode,
+                        all(t.data_ptr() % 16 == 0 for t in (h, src) if t is not None))
     launch = _launchers()[1]
     with torch.cuda.device(device):
         err = launch(_ptr(h), _ptr(sc), mode, _ptr(src), _ptr(rsc), _ptr(pen),
                      _ptr(out), _ptr(maxv), _ptr(amax), _ptr(hsel), B * G, C,
-                     pool, int(final_relu), int(h.dtype == torch.bfloat16),
+                     pool, int(final_relu), int(h.dtype == torch.bfloat16), plan.vec,
+                     plan.strips, plan.slices, plan.per_block,
                      torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bn_pool kernel launch failed: CUDA error {err}")

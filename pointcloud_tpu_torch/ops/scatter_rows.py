@@ -129,11 +129,13 @@ def scatter_rows_reference(g, idx, n: int, init=None):
     return out
 
 
-def scatter_rows_mirror(g, idx, n: int, init=None):
+def scatter_rows_mirror(g, idx, n: int, init=None, piece: int = PIECE):
     """The kernel's order of additions in plain PyTorch (fp32, any device):
-    the plain version for every bucket of up to PIECE rows; a longer bucket
-    cut into pieces of PIECE rows, each summed in row order (the first from
-    init, the others from 0), and the pieces' sums added in piece order."""
+    the plain version for every bucket of up to `piece` rows (the kernel's
+    PIECE; csrc/chamfer_bwd.cu sums its buckets in the same order with
+    pieces of 32); a longer bucket cut into pieces of `piece` rows, each
+    summed in row order (the first from init, the others from 0), and the
+    pieces' sums added in piece order."""
     B, R, C = g.shape
     out = scatter_rows_reference(g, idx, n, init)
     gf = g.float()
@@ -141,13 +143,13 @@ def scatter_rows_mirror(g, idx, n: int, init=None):
         ib = idx[b].long()
         inside = (ib >= 0) & (ib < n)
         lens = torch.bincount(ib[inside], minlength=n)
-        for t in torch.nonzero(lens > PIECE).flatten().tolist():
+        for t in torch.nonzero(lens > piece).flatten().tolist():
             rows = torch.nonzero(ib == t).flatten()
             total = None
-            for q in range(0, rows.numel(), PIECE):
+            for q in range(0, rows.numel(), piece):
                 acc = (init[b, t].float().clone() if q == 0 and init is not None
                        else torch.zeros(C, dtype=torch.float32, device=g.device))
-                for r in rows[q:q + PIECE].tolist():
+                for r in rows[q:q + piece].tolist():
                     acc = acc + gf[b, r]
                 total = acc if total is None else total + acc
             out[b, t] = total

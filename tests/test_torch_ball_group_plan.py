@@ -91,11 +91,19 @@ def test_geometry_covers_every_centroid_once(B, N, S, k, F, dtype):
 
 @pytest.mark.parametrize("B,N,S,k,F", [(0, 10, 4, 2, 3), (65536, 10, 4, 2, 3),
                                        (1, 0, 4, 2, 3), (1, 10, 0, 2, 3),
-                                       (1, 10, 4, 0, 3), (1, 10, 4, 2, -1),
-                                       (1, 10, 4, 1000, 3)])
+                                       (1, 10, 4, 0, 3), (1, 10, 4, 2, -1)])
 def test_shapes_no_launch_takes_are_refused(B, N, S, k, F):
     with pytest.raises(ValueError):
         ball_group_plan(B, N, S, k, F, F32)
+
+
+def test_k_past_the_shared_slots_takes_the_idx_slots():
+    """k = 1,000 (past the 780 slots 32 warps hold beside their tiles), on
+    10 points: the slots move to the idx output and the small cloud is
+    staged; the shared memory holds the tiles, points and features only."""
+    p = ball_group_plan(1, 10, 4, 1000, 3, F32)
+    assert (p.route, p.stage_feats) == ("shared-idx", True)
+    assert p.smem == 32 * 1024 + 16 * 10 + 10 * 3 * 4
 
 
 def test_other_dtypes_are_refused():
@@ -182,3 +190,49 @@ def test_cpu_tensors_take_the_plain_version():
     want = ball_group_reference(xyz, feats, cents, None, 12, 0.3)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert ball_group.launches == before
+
+
+@pytest.mark.parametrize("k", [780, 781, 1024, 4096])
+@pytest.mark.parametrize("N", [10, 2048, 20000])
+@pytest.mark.parametrize("F,dtype", [(0, F32), (3, BF), (128, F32)])
+def test_large_k_plans_cover_every_centroid_once(k, N, F, dtype):
+    """At and past the 780 slots 32 warps hold: the slots move to the idx
+    output exactly where the slots and tiles pass the shared memory, and
+    the shared memory is then the layout without the slots."""
+    p = ball_group_plan(2, N, 512, k, F, dtype)
+    esize = 2 if dtype == BF else 4
+    slots = -(-64 * k * 4 // 16) * 16
+    idx_slots = layout(0, k, F, esize, False, False) > SMEM_LIMIT
+    assert p.route.endswith("-idx") == idx_slots == (k > 780)
+    assert (p.blocks - 1) * p.per_block < 512 <= p.blocks * p.per_block
+    shared = p.route.startswith("shared")
+    gone = slots if idx_slots else 0
+    assert shared == (layout(N, k, F, esize, True, False) - gone <= SMEM_LIMIT)
+    assert p.smem == layout(N, k, F, esize, shared, p.stage_feats) - gone <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [300, 1024])
+def test_large_k_sample_and_group_matches_the_jax_package(k):
+    """The port's SetAbstraction grouping (ball_group's plain version) past
+    the TPU kernel's BALL_MAX_K = 256, where the JAX package takes its XLA
+    ball_query: centroids, grouped rows and masks equal on a masked cloud
+    of 1,200 points (the JAX package's ball_query takes no k above N)."""
+    from pointcloud_tpu.ops import geometry as jgeo
+    from pointcloud_tpu.ops.pallas_kernels import BALL_MAX_K
+    from pointcloud_tpu_torch.ops import geometry as tgeo
+    from torch_port_utils import ball_margin, fps_centroids
+
+    assert k > BALL_MAX_K
+    rng = np.random.default_rng(k + 2)
+    xyz = rng.random((2, 1200, 3), dtype=np.float32)
+    feats = rng.standard_normal((2, 1200, 4)).astype(np.float32)
+    mask = rng.random((2, 1200)) > 0.2
+    assert ball_margin(xyz, fps_centroids(xyz, 16, mask), 0.6) > 1e-5
+    got = tgeo.sample_and_group(16, 0.6, k, torch.from_numpy(xyz),
+                                torch.from_numpy(feats), mask=torch.from_numpy(mask))
+    want = jgeo.sample_and_group(16, 0.6, k, jnp.asarray(xyz), jnp.asarray(feats),
+                                 mask=jnp.asarray(mask))
+    assert got[1].shape == (2, 16, k, 7)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(got[2].sum(-1).max()) > 256  # balls fuller than the TPU kernel's k

@@ -2,7 +2,8 @@
 versions of the segment-sum (`scatter_rows`) and of the fused backward
 (`chamfer_bwd`) vs the TPU kernels in interpret mode and vs the XLA
 composition, and the gradients of `nearest_neighbor_dists` and
-`chamfer_distance` vs jax.vjp / jax.grad on both sides of the 6<<20 switch.
+`chamfer_distance` vs jax.vjp / jax.grad, at a shape on each side of the
+JAX package's 6<<20 switch (the port takes the fused backward on both).
 
 Tolerances:
   * segment-sums 2e-5 absolute and relative: the TPU kernel sums fp32 rows
@@ -140,31 +141,30 @@ def jax_vjp(x, y, xm, ym, gx, gy):
     return vjp((jnp.asarray(gx), jnp.asarray(gy)))
 
 
-@pytest.mark.parametrize("route", ["fused", "segment_sum"])
+@pytest.mark.parametrize("shape", ["small", "above_old_switch"])
 @pytest.mark.parametrize("C", [3, 6, 8])
-def test_nearest_neighbor_dists_grads_match_jax(monkeypatch, route, C):
-    """Both routes of the backward: N*M = 3072 is below the 6<<20 switch;
-    lowering the switch sends the same call through the segment-sum."""
+def test_nearest_neighbor_dists_grads_match_jax(monkeypatch, shape, C):
+    """Every backward takes the fused kernel: at 2 x 64 x 48 and at 1 x 2560
+    x 2560, whose N*M lies above the JAX package's 6<<20 switch (there the
+    JAX package takes its gathers and segment-sums)."""
     calls = []
     monkeypatch.setattr(tch, "chamfer_bwd",
                         lambda *a: calls.append("fused") or chamfer_bwd(*a))
-    monkeypatch.setattr(tch, "scatter_rows",
-                        lambda *a, **k: calls.append("segsum") or scatter_rows(*a, **k))
-    if route == "segment_sum":
-        monkeypatch.setattr(tch, "FUSED_BWD_MAX_ELEMENTS", 64 * 48 - 1)
+    B, N, M = (2, 64, 48) if shape == "small" else (1, 2560, 2560)
+    assert (N * M > 6 << 20) == (shape == "above_old_switch")
     rng = np.random.default_rng(C)
-    x = rng.random((2, 64, C), dtype=np.float32)
-    y = rng.random((2, 48, C), dtype=np.float32)
-    xm = rng.random((2, 64)) > 0.2
-    ym = rng.random((2, 48)) > 0.2
-    gx = rng.standard_normal((2, 64)).astype(np.float32)
-    gy = rng.standard_normal((2, 48)).astype(np.float32)
+    x = rng.random((B, N, C), dtype=np.float32)
+    y = rng.random((B, M, C), dtype=np.float32)
+    xm = rng.random((B, N)) > 0.2
+    ym = rng.random((B, M)) > 0.2
+    gx = rng.standard_normal((B, N)).astype(np.float32)
+    gy = rng.standard_normal((B, M)).astype(np.float32)
     tx = torch.from_numpy(x).requires_grad_()
     ty = torch.from_numpy(y).requires_grad_()
     mx, my = tch.nearest_neighbor_dists(tx, ty, torch.from_numpy(xm),
                                         torch.from_numpy(ym))
     torch.autograd.backward((mx, my), (torch.from_numpy(gx), torch.from_numpy(gy)))
-    assert calls == (["fused"] if route == "fused" else ["segsum", "segsum"])
+    assert calls == ["fused"]
     want_x, want_y = jax_vjp(x, y, xm, ym, gx, gy)
     np.testing.assert_allclose(to_np(tx.grad), np.asarray(want_x), **GRAD_TOL)
     np.testing.assert_allclose(to_np(ty.grad), np.asarray(want_y), **GRAD_TOL)

@@ -295,26 +295,73 @@ def test_chamfer_bwd_matches_plain_and_is_deterministic(dev):
 
 
 def test_chamfer_gradients_on_card_match_cpu(dev):
-    """Both backward routes (the switch lowered for the second) vs the CPU,
-    1e-5 relative to the largest gradient."""
-    from pointcloud_tpu_torch.ops import chamfer as tch
-
-    x, y, xm, ym = clouds(dev, 8, 2, 512, 384, 6, masked=True)
-    xm[-1, :256] = True
+    """The one backward route at 2 x 512 x 384 and at 1 x 2560 x 2560 (N*M
+    above the JAX package's 6<<20 switch) vs the CPU, 1e-5 relative to the
+    largest gradient; one chamfer_bwd launch each."""
     grads = []
-    for switch in (tch.FUSED_BWD_MAX_ELEMENTS, 0):
-        old, tch.FUSED_BWD_MAX_ELEMENTS = tch.FUSED_BWD_MAX_ELEMENTS, switch
-        try:
-            for d in (dev, "cpu"):
-                a = x.detach().to(d).clone().requires_grad_()
-                b = y.detach().to(d).clone().requires_grad_()
-                chamfer_distance(a, b, xm.to(d), ym.to(d)).backward()
-                grads.append((a.grad.cpu(), b.grad.cpu()))
-        finally:
-            tch.FUSED_BWD_MAX_ELEMENTS = old
+    for shape in ((8, 2, 512, 384), (9, 1, 2560, 2560)):
+        x, y, xm, ym = clouds(dev, *shape, 6, masked=True)
+        xm[-1, :256] = True
+        for d in (dev, "cpu"):
+            a = x.detach().to(d).clone().requires_grad_()
+            b = y.detach().to(d).clone().requires_grad_()
+            before = chamfer_bwd.launches
+            chamfer_distance(a, b, xm.to(d), ym.to(d)).backward()
+            assert chamfer_bwd.launches - before == (1 if d == dev else 0)
+            grads.append((a.grad.cpu(), b.grad.cpu()))
     for card, cpu in (grads[0:2], grads[2:4]):
         for g, w in zip(card, cpu):
             assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+
+
+def chamfer_mirror(x, y, gx, gy, ax, ay):
+    """The kernel's order of sums on the CPU: scatter_rows_mirror of each
+    direction's terms (buckets of up to 32 rows in row order, longer ones
+    in pieces of 32 added in piece order)."""
+    from pointcloud_tpu_torch.ops.chamfer_bwd import PIECE, nn_terms
+
+    x, y, gx, gy, ax, ay = (t.cpu() for t in (x, y, gx, gy, ax, ay))
+    tx, ty = nn_terms(x, y, gx, gy, ax, ay)
+    return (scatter_rows_mirror(-ty, ay, x.shape[1], init=tx, piece=PIECE),
+            scatter_rows_mirror(-tx, ax, y.shape[1], init=ty, piece=PIECE))
+
+
+@pytest.mark.parametrize("case", ["masked", "collapsed", "4096", "global"])
+def test_chamfer_bwd_routes_match_the_mirror(dev, case):
+    """Masked 2 x 2048 x 2048 clouds, a collapsed y cloud (every y point
+    within 1e-3 of x point 5: one bucket of 2,048 rows, 64 pieces), the
+    4 x 4096 x 4096 route check and a pair past the shared memory (the
+    global route): one launch, two runs bit-equal, bit-equal to the
+    kernel's order on the CPU and within 1e-4 relative of the plain
+    version."""
+    from pointcloud_tpu_torch.ops import chamfer_bwd_plan
+
+    B, N, M, C = {"masked": (2, 2048, 2048, 6), "collapsed": (2, 2048, 2048, 6),
+                  "4096": (4, 4096, 4096, 6), "global": (1, 20000, 300, 3)}[case]
+    x, y, xm, ym = clouds(dev, 21, B, N, M, C, masked=case == "masked")
+    if case == "collapsed":
+        y = x[:, 5:6] + 1e-3 * y
+    _, ax, _, ay = nn_sweep(x, y, xm, ym)
+    if case == "collapsed":
+        assert (ay == 5).all()
+    g = torch.Generator(device=dev).manual_seed(4)
+    gx = torch.randn((B, N), generator=g, device=dev)
+    gy = torch.randn((B, M), generator=g, device=dev)
+    if xm is not None:
+        gx, gy = gx * xm, gy * ym
+    args = (x, y, gx, gy, ax, ay)
+    assert chamfer_bwd_plan(B, N, M, C).route == ("global" if case == "global"
+                                                  else "shared")
+    before = chamfer_bwd.launches
+    got = chamfer_bwd(*args)
+    again = chamfer_bwd(*args)
+    torch.cuda.synchronize()
+    assert chamfer_bwd.launches - before == 2
+    for a, b, m, w in zip(got, again, chamfer_mirror(*args),
+                          chamfer_bwd_reference(*args)):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), m)
+        assert (a - w).abs().max() <= 1e-4 * w.abs().max()
 
 
 def dense_case(dev, seed, B, R, Cin, C, dtype, masked):
@@ -555,6 +602,54 @@ def test_ball_group_staged_cloud_and_run_store(dev, N, S, k, F, dtype, masked):
     assert (got[1][:, -1] == 0).all() and not got[2][:, -1].any()  # empty ball
     if k == 200:
         assert not got[2][..., -1].any()  # no ball holds 200 points
+
+
+@pytest.mark.parametrize("N,S,k,F,dtype,masked,radius", [
+    (2048, 37, 781, 3, torch.bfloat16, True, 0.7),  # one past the shared slots
+    (2048, 64, 1024, 128, torch.bfloat16, False, 0.8),
+    (700, 20, 1024, 3, torch.float32, True, 0.6),  # k above N
+    (15000, 8, 1024, 0, torch.float32, True, 0.3),  # the global route
+])
+def test_ball_group_takes_any_k(dev, N, S, k, F, dtype, masked, radius):
+    """k past the 780 slots 32 warps hold in shared memory: the slots in the
+    idx output; idx, valid and grouped bit-equal to the plain version, two
+    runs bit-equal, balls fuller than 780 points."""
+    xyz, feats, cents, mask = ball_case(dev, N + S + k, 2, N, S, F, dtype, masked)
+    p = ball_group_plan(2, N, S, k, F, dtype)
+    assert p.route == ("global-idx" if N == 15000 else "shared-idx")
+    got = ball_group(xyz, feats, cents, mask, k, radius)
+    again = ball_group(xyz, feats, cents, mask, k, radius)
+    torch.cuda.synchronize()
+    want = ball_group_reference(xyz, feats, cents, mask, k, radius)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert int(got[2].sum(-1).max()) > (780 if N > k else 300)
+    assert (got[1][:, -1] == 0).all() and not got[2][:, -1].any()  # empty ball
+
+
+@pytest.mark.parametrize("B,N,S,k,F,dtype,masked,with_xyz,radius", [
+    (3, 4096, 37, 1807, 3, torch.bfloat16, True, True, 0.9),  # one past the slots
+    (3, 2048, 20, 2048, 320, torch.bfloat16, False, False, 0.9),  # bulk rows
+    (2, 1500, 10, 2048, 6, torch.float32, True, True, 0.9),  # k above N
+    (2, 16000, 6, 1807, 3, torch.bfloat16, True, True, 0.5),  # the global route
+])
+def test_group_gather_takes_any_k(dev, B, N, S, k, F, dtype, masked, with_xyz, radius):
+    """k past the 1,806 slots a warp's shared memory holds: the slots in the
+    idx output; every output equal to the plain version's, two runs
+    bit-equal, balls fuller than 1,806 points."""
+    xyz, feats, cents, mask = route_case(dev, N + k + F, B, N, S, F, dtype, masked,
+                                         far=True)
+    row = F * (2 if dtype == torch.bfloat16 else 4)
+    p = group_gather_plan(B, N, S, k, row, feature_word(F, dtype, feats), with_xyz)
+    assert p.route == ("global-idx" if N == 16000 else "shared-idx")
+    got = group_gather(xyz, feats, cents, mask, k, radius, with_xyz)
+    again = group_gather(xyz, feats, cents, mask, k, radius, with_xyz)
+    torch.cuda.synchronize()
+    assert_equal_twice(got, again,
+                       group_gather_reference(xyz, feats, cents, mask, k, radius, with_xyz))
+    assert int(got[3].sum(-1).max()) > (1806 if N > k else 1000)
+    assert (got[2][:, -1] == 0).all() and not got[3][:, -1].any()  # the empty ball
 
 
 def test_ball_group_sa2_gradient_through_the_new_scatter(dev):
@@ -2162,3 +2257,52 @@ def test_fps_block_route_one_under_full_cloud(dev):
     assert torch.equal(got, fps_reference(xyz, 128, mask))
     assert len(set(got[0, :40].tolist())) == 40
     assert bool(torch.gather(mask, 1, got.long()).all())
+
+
+# ---- bn_pool: 8 channels a thread over slices of a group's rows ----
+
+@pytest.mark.parametrize("groups,C,pool,dtype,res", [
+    (8 * 512, 128, 32, torch.bfloat16, "none"),  # SA1's width and pool
+    (8 * 128, 256, 64, torch.bfloat16, "none"),  # SA2's
+    (256, 1024, 128, torch.bfloat16, "none"),  # SA3 at B=256: 8 slices a group
+    (32 * 1024, 128, 24, torch.bfloat16, "dense"),  # PointMLP stage 1
+    (32 * 128, 1024, 24, torch.bfloat16, "dense"),  # PointMLP stage 4
+    (32 * 1024, 64, 24, torch.bfloat16, "bnrelu"),  # Elite stage 1
+    (40, 130, 12, torch.bfloat16, "bnrelu"),  # a ragged width: one channel a thread
+    (24, 40, 32, torch.float32, "none"),  # fp32: two 16-byte loads a row
+])
+def test_bn_pool_matches_plain_at_driven_shapes(dev, groups, C, pool, dtype, res):
+    """Planted ties (equal rows across and within slices), a group with no
+    valid row (-1e9) and a group of equal rows: out, maxv, amax and hsel
+    exactly the plain version's, two runs bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(groups + C)
+    R = groups * pool
+    h = torch.randn((1, R, C), generator=g, device=dev).to(dtype)
+    h[0, [3, 5, pool - 1]] = h[0, pool + 1].clone()
+    h[0, pool:2 * pool] = h[0, pool].clone()
+    sc = torch.stack([0.1 * torch.randn(C, generator=g, device=dev),
+                      0.5 + torch.rand(C, generator=g, device=dev),
+                      0.1 * torch.randn(C, generator=g, device=dev),
+                      torch.ones(C, device=dev)])
+    pen = None
+    if res == "none":
+        pen = torch.where(torch.rand((1, R), generator=g, device=dev) > 0.1, 0.0, 1e9)
+        pen[0, pool:2 * pool] = 0.0
+        pen[0, 2 * pool:3 * pool] = 1e9
+    src = torch.randn((1, R, C), generator=g, device=dev).to(dtype)
+    src[0, pool:2 * pool] = src[0, pool].clone()  # group 1: every row equal
+    resid = {"none": None, "dense": src, "bnrelu": (src, sc)}[res]
+    p = tpf.bn_pool_plan(groups, C, pool, dtype, {"none": 0, "bnrelu": 1, "dense": 2}[res])
+    assert p.vec == (8 if C % 8 == 0 else 1)
+    before = bn_pool.launches
+    got = bn_pool(h, sc, pen, pool, res=resid)
+    again = bn_pool(h, sc, pen, pool, res=resid)
+    torch.cuda.synchronize()
+    assert bn_pool.launches - before == 2
+    want = bn_pool_reference(h, sc, pen, pool, res=resid)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    assert (got[2][0, 1] == 0).all()  # equal rows: the first
+    if pen is not None:
+        assert (got[0][0, 2] == -1e9).all()

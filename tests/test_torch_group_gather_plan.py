@@ -117,11 +117,13 @@ def test_shared_memory_switch():
 
 def test_slots_for_large_k_shrink_the_tile():
     """k = 1,806 fills the shared memory with one centroid's slots a warp
-    and a 32-byte tile; one more slot does not fit."""
+    and a 32-byte tile; one more slot does not fit, and k = 1,807 keeps its
+    slots in the idx output with the tile it asks for, the cloud staged."""
     p = group_gather_plan(1, 100, 10, 1806, 0)
     assert (p.route, p.cents, p.tile, p.smem) == ("global", 1, 32, SMEM_LIMIT)
-    with pytest.raises(ValueError):
-        group_gather_plan(1, 100, 10, 1807, 0)
+    p = group_gather_plan(1, 100, 10, 1807, 0)
+    assert (p.route, p.tile) == ("shared-idx", tile_of(1807, 0))
+    assert p.smem == 32 * 8 + 32 * p.tile + 16 * 100
 
 
 @pytest.mark.parametrize("B,N,S,k,row_bytes,word", [
@@ -248,3 +250,50 @@ def test_cpu_tensors_take_the_plain_version():
     want = group_gather_reference(*args, 12, 0.3)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert group_gather.launches == before
+
+
+@pytest.mark.parametrize("k", [1806, 1807, 2048, 10000])
+@pytest.mark.parametrize("N", [20, 2048, 14000])
+@pytest.mark.parametrize("row_bytes,word", [(0, 16), (6, 2), (640, 16)])
+def test_large_k_plans_cover_every_centroid_once(k, N, row_bytes, word):
+    """At and past the 1,806 slots a warp's shared memory holds: the slots
+    move to the idx output exactly where no tile fits beside them, the tile
+    is then the one the run asks for, and the shared memory the layout
+    without the slots."""
+    p = group_gather_plan(2, N, 512, k, row_bytes, word)
+    assert p.route.endswith("-idx") == (k > 1806)
+    assert (p.blocks - 1) * p.per_block < 512 <= p.blocks * p.per_block
+    shared = p.route.startswith("shared")
+    if k > 1806:
+        assert p.tile == tile_of(k, row_bytes)
+        bare = layout(N, k, p.cents, p.tile, shared) - (-(-32 * p.cents * k * 4 // 16) * 16)
+        assert shared == (bare + (0 if shared else 16 * N) <= SMEM_LIMIT)
+        assert p.smem == bare <= SMEM_LIMIT
+    else:
+        assert p.smem == layout(N, k, p.cents, p.tile, shared) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [300, 1024])
+def test_large_k_group_neighbors_matches_the_jax_package(k):
+    """The port's ball grouping (group_gather's plain version) past the TPU
+    kernel's BALL_MAX_K = 256, where the JAX package takes its XLA
+    ball_query: xyz, features, idx and valid equal on a masked cloud of
+    1,200 points (the JAX package's ball_query takes no k above N)."""
+    from torch_port_utils import ball_margin
+
+    from pointcloud_tpu.ops import geometry as jgeo
+    from pointcloud_tpu.ops.pallas_kernels import BALL_MAX_K
+    from pointcloud_tpu_torch.ops import geometry as tgeo
+
+    assert k > BALL_MAX_K
+    xyz, feats, cents, mask = clouds(k, 2, 1200, 12, 5, True)
+    cents[:, -1] -= 5.0  # no empty ball: every centroid on a point
+    assert ball_margin(xyz, cents, 0.6) > 1e-5
+    got = tgeo.group_neighbors(*(torch.from_numpy(a) for a in (xyz, feats, cents)), k,
+                               radius=0.6, mask=torch.from_numpy(mask))
+    want = jgeo.group_neighbors(*(jnp.asarray(a) for a in (xyz, feats, cents)), k,
+                                radius=0.6, mask=jnp.asarray(mask))
+    assert got[0].shape == (2, 12, k, 3)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert int(got[3][0].sum(-1).max()) > 256  # balls fuller than the TPU kernel's k
