@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernel-times --step-times  # kernels and steps alone
+    python3 chip_smoke.py --train-loop  # the training loop (phase 15) alone
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
@@ -134,7 +135,19 @@ lines:
      three scatter_rows and chamfer_bwd, each timed;
  14. the fp32 MSG autoencoder card vs CPU at B=2 x 1024 points: FPS and
      every branch's idx and valid equal, the eval step, the first train
-     step's loss, gradients and update.
+     step's loss, gradients and update;
+ 15. the training loop: npz frames written with numpy (100 train, 30 val,
+     2048 points in the Cube bbox, rgb and a class label) into a temporary
+     directory under build/; the native loader's batches/s alone; train(
+     "Autoencoder", "PointNet2", "Cube") at B=25 (EMD, the CLI's default)
+     for 2 epochs, resumed from step_1 for a third, and 1 epoch with
+     loss_override="chamfer" and profile=True: every optimizer step's
+     launches equal one make_train_step call's alone and every epoch's
+     validation (batches of 25 and a ragged 5) the eval steps' alone,
+     finite losses, the version directories and checkpoints (Adam's step
+     carried over), the writer and the trace; create_model(load_dir=...,
+     encoder_only=True) + `encode` on one cloud; the loop's clouds/s beside
+     the same step chained on one batch, and a checkpoint written alone.
 Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound (the dense-pool backward at phase 4's
@@ -146,7 +159,7 @@ each train step and of the EMD eval step (device time by kernel, busy and
 idle share, beside the host's enqueue time; the dense-pool forward's and
 `sinkhorn`'s device time a step read from it). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
-13, encode, the sensor chain)
+13, encode, the sensor chain, and each train() run of 15, step by step)
 every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
@@ -158,6 +171,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3443,6 +3457,7 @@ def msg_spec(device, seed):
     "chamfer") wires the factory's backbones (the factory has no MSG entry,
     as the JAX package's has none)."""
     from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.data import PointCloudDataset
     from pointcloud_tpu_torch.envs.scenes import scene_config
     from pointcloud_tpu_torch.losses import ChamferDistance
     from pointcloud_tpu_torch.models import AE, PointNet2MSGEncoder
@@ -3458,6 +3473,8 @@ def msg_spec(device, seed):
                bottleneck=sum(sc.class_latent_dim), dtype=dtype)
     init_flax_(model, torch.Generator().manual_seed(seed))
     return TrainSpec(model=model.to(device).eval(), loss=ChamferDistance(),
+                     open_dataset=lambda input_dir: PointCloudDataset(
+                         root_dir=input_dir, in_features=["rgb"], out_features=["rgb"]),
                      in_transform=Normalize(sc.bbox),
                      out_transform=Normalize(sc.bbox), model_type="Autoencoder",
                      backbone="PointNet2MSG", scene_name="Cube", scene=sc)
@@ -4820,6 +4837,297 @@ def step_times(seed):
         torch.cuda.empty_cache()
 
 
+
+B_LOOP = 25  # cfg.vision_batch_size, the CLI's default batch
+LOOP_TRAIN, LOOP_VAL = 100, 30  # frames: 4 train steps an epoch, val batches 25 + 5
+
+
+def write_frames(root, sc, frames, points, seed):
+    """`frames` npz files of the generate_pc contract in `root`: points in
+    the scene's bbox, rgb in [0, 1], a class label a point, the bbox."""
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bbox = np.asarray(sc.bbox, np.float32)
+    os.makedirs(root, exist_ok=True)
+    for i in range(frames):
+        xyz = bbox[:, 0] + rng.random((points, 3), dtype=np.float32) * (
+            bbox[:, 1] - bbox[:, 0])
+        np.savez(os.path.join(root, f"{i}.npz"), points=xyz,
+                 rgb=rng.random((points, 3), dtype=np.float32),
+                 segmentation=rng.integers(0, len(sc.classes), points).astype(np.int32),
+                 boundingbox=bbox)
+
+
+class StepCounts:
+    """The kernels' launches of every optimizer step (read and set to 0 by a
+    global post-step hook: a train step launches all of its kernels before
+    Adam's step) and of each epoch's validation (read and set to 0 by
+    train()'s on_epoch callback, which runs after it)."""
+
+    def __init__(self):
+        from torch.optim.optimizer import register_optimizer_step_post_hook
+
+        self.steps, self.vals, self.epochs = [], [], []
+        self._hook = register_optimizer_step_post_hook(self._step)
+
+    def _step(self, *_):
+        self.steps.append(read_counts())
+        zero_counts()
+
+    def on_epoch(self, stats):
+        self.vals.append(read_counts())
+        zero_counts()
+        self.epochs.append(stats)
+
+    def close(self):
+        self._hook.remove()
+
+
+def loop_counts_alone(loss_override, dev, seed):
+    """The launches of one make_train_step call at B_LOOP and of one eval
+    step at B_LOOP and at the ragged val batch, each driven alone."""
+    from pointcloud_tpu_torch.train import (
+        create_model,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    spec = create_model("Autoencoder", "PointNet2", "Cube", loss_override=loss_override,
+                        device=dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P = spec.scene.sample_points
+    x = raw_batch(gen, spec.scene, B_LOOP, P, dev)
+    step = make_train_step(spec, make_optimizer(spec))
+    zero_counts()
+    step(x, x)
+    torch.cuda.synchronize()
+    train = read_counts()
+    estep = make_eval_step(spec)
+    val = {name: 0 for name in train}
+    for B in (B_LOOP, LOOP_VAL % B_LOOP):
+        zero_counts()
+        estep(x[:B], x[:B])
+        torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            val[name] += n
+    return train, val
+
+
+def check_loop_counts(label, counts, train, val, epochs):
+    """Every optimizer step of the loop launched exactly what one
+    make_train_step call does alone, and every epoch's validation what the
+    eval step does alone at the val batches."""
+    steps = epochs * (LOOP_TRAIN // B_LOOP)
+    if len(counts.steps) != steps or len(counts.vals) != epochs:
+        raise AssertionError(f"{label}: {len(counts.steps)} optimizer steps and "
+                             f"{len(counts.vals)} epochs, expected {steps} and {epochs}")
+    for i, got in enumerate(counts.steps):
+        if got != train:
+            raise AssertionError(f"{label}: step {i} launched {got}, make_train_step "
+                                 f"alone {train}")
+    for i, got in enumerate(counts.vals):
+        if got != val:
+            raise AssertionError(f"{label}: epoch {i}'s validation launched {got}, "
+                                 f"the eval steps alone {val}")
+
+
+def train_loop_path(seed, smi):
+    """Phase 15: train() over npz frames on the card (see the module
+    docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.data.native_loader import NativeCloudPairLoader
+    from pointcloud_tpu_torch.data.native_loader import build as build_loader
+    from pointcloud_tpu_torch.ops import _build
+    from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+    from pointcloud_tpu_torch.train.harness import (
+        checkpoint_payload,
+        latest_checkpoint,
+        load_checkpoint_raw,
+        save_checkpoint,
+        train,
+    )
+
+    dev = torch.device("cuda")
+    log(f"[train() loop] Autoencoder / PointNet2, scene Cube, {LOOP_TRAIN} train and "
+        f"{LOOP_VAL} val npz frames, B={B_LOOP}, bf16")
+    if not cfg.use_native_loader:
+        raise AssertionError("cfg.use_native_loader is off: the loop would not "
+                             "read through the native loader")
+    t0 = time.perf_counter()
+    lib = build_loader()
+    log(f"  native loader library {lib.name} ({time.perf_counter() - t0:.1f} s, "
+        f"built or reused in {lib.parent})")
+    work = tempfile.mkdtemp(prefix="train_loop-", dir=_build.BUILD_DIR)
+    try:
+        sc = create_model("Autoencoder", "PointNet2", "Cube", device="cpu").scene
+        P = sc.sample_points
+        data = os.path.join(work, "input", "Cube")
+        t0 = time.perf_counter()
+        write_frames(os.path.join(data, "train"), sc, LOOP_TRAIN, P, seed)
+        write_frames(os.path.join(data, "val"), sc, LOOP_VAL, P, seed + 1)
+        log(f"  wrote {LOOP_TRAIN} + {LOOP_VAL} frames of {P} points in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # the native loader alone: 3 epochs of shuffled train batches
+        loader = NativeCloudPairLoader(os.path.join(data, "train"), batch_size=B_LOOP,
+                                       seed=seed, threads=cfg.loader_threads,
+                                       prefetch=cfg.prefetch_batches)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in range(3) for _ in loader)
+        loader_bps = n / (time.perf_counter() - t0)
+        log(f"  native loader: {n} batches of {B_LOOP} x {P} x 6 in 3 epochs, "
+            f"{loader_bps:.1f} batches/s ({loader_bps * B_LOOP:.0f} clouds/s; "
+            f"{cfg.loader_threads} threads, host clock)")
+        del loader
+
+        emd_train, emd_val = loop_counts_alone(None, dev, seed)
+        expect_counts("the EMD train step alone", emd_train, fps=2, ball_group=2,
+                      mm_stats=3, bnact_mm_stats=6, bn_pool=3, chain_bwd_pass=9,
+                      scatter_rows=1, sinkhorn=1)
+        expect_counts("the EMD eval steps alone", emd_val, fps=4, ball_group=4,
+                      sinkhorn=2)
+        ch_train, ch_val = loop_counts_alone("chamfer", dev, seed)
+        expect_counts("the Chamfer train step alone", ch_train, fps=2, ball_group=2,
+                      mm_stats=3, bnact_mm_stats=6, bn_pool=3, chain_bwd_pass=9,
+                      scatter_rows=1, nn_sweep=1, chamfer_bwd=1)
+        expect_counts("the Chamfer eval steps alone", ch_val, fps=4, ball_group=4,
+                      nn_sweep=2)
+        log(f"  make_train_step alone, a step: EMD {emd_train}; Chamfer {ch_train}")
+
+        out = os.path.join(work, "output")
+        kw = dict(scene="Cube", batch_size=B_LOOP, input_root=os.path.join(work, "input"),
+                  output_root=out, seed=seed, device="cuda")
+        runs = {}
+        for label, extra, epochs in (
+                ("EMD, 2 epochs", {}, 2),
+                ("EMD, resumed for a third", {"ckpt_path": "step_1"}, 3),
+                ("Chamfer, 1 epoch, profiled", {"loss_override": "chamfer",
+                                                "profile": True}, 1)):
+            if "ckpt_path" in extra:
+                extra = dict(extra, ckpt_path=os.path.join(runs["EMD, 2 epochs"][1],
+                                                           extra["ckpt_path"]))
+            counts = StepCounts()
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                loss, ckpt_dir = train("Autoencoder", "PointNet2", epochs=epochs,
+                                       on_epoch=counts.on_epoch, **kw, **extra)
+            finally:
+                counts.close()
+            wall = time.perf_counter() - t0
+            runs[label] = (loss, ckpt_dir, counts, wall)
+            chamfer = "loss_override" in extra
+            check_loop_counts(label, counts, ch_train if chamfer else emd_train,
+                              ch_val if chamfer else emd_val, len(counts.epochs))
+            for e in counts.epochs:
+                log(f"  {label}: epoch {e['epoch']} train_loss {e['train_loss']:.6f} "
+                    f"val_loss {e['val_loss']:.6f} (val batches {B_LOOP} + "
+                    f"{LOOP_VAL % B_LOOP}); {e['steps']} steps in {e['seconds']:.3f} s "
+                    f"-> {e['clouds_per_s']:.1f} clouds/s, loader wait "
+                    f"{e['loader_wait_s'] * 1e3:.1f} ms, validation "
+                    f"{e['val_seconds'] * 1e3:.1f} ms, checkpoint snapshot "
+                    f"{e['checkpoint_s'] * 1e3:.1f} ms ({'saved' if e['checkpoint'] else 'none'})")
+                if not all(map(math.isfinite, (e["train_loss"], e["val_loss"]))):
+                    raise AssertionError(f"{label}: non-finite loss in {e}")
+            log(f"  {label}: train() {wall:.2f} s in all; returned loss {loss:.6f}, "
+                f"{os.path.relpath(ckpt_dir, out)}; every step's launches equal "
+                f"make_train_step's alone, every validation's the eval steps' alone")
+
+        loss2, dir2 = runs["EMD, 2 epochs"][:2]
+        loss3, dir3 = runs["EMD, resumed for a third"][:2]
+        _, dir_ch = runs["Chamfer, 1 epoch, profiled"][:2]
+        if not dir2.endswith(os.path.join("version_0", "checkpoints")) or dir3 != dir2:
+            raise AssertionError(f"version dirs {dir2}, resumed {dir3}")
+        if not dir_ch.endswith(os.path.join("version_1", "checkpoints")):
+            raise AssertionError(f"the Chamfer run's dir {dir_ch}, expected version_1")
+        if [e["epoch"] for e in runs["EMD, resumed for a third"][2].epochs] != [2]:
+            raise AssertionError("the resumed run did not take epoch 2 alone")
+        last = latest_checkpoint(dir3)
+        if not last.endswith("step_2") or sorted(os.listdir(dir3)) != [
+                "step_0", "step_1", "step_2"]:
+            raise AssertionError(f"checkpoints {sorted(os.listdir(dir3))}, latest {last}")
+        ck = load_checkpoint_raw(last)
+        steps = {float(s["step"]) for s in ck["optimizer"]["state"].values()}
+        if steps != {3.0 * LOOP_TRAIN // B_LOOP} or ck["epoch"] != 2:
+            raise AssertionError(f"step_2 holds Adam steps {steps}, epoch {ck['epoch']}")
+        trace = os.path.join(os.path.dirname(dir_ch), "profile", "trace.json")
+        if not os.path.isfile(trace):
+            raise AssertionError(f"profile=True wrote no {trace}")
+        run_files = os.listdir(os.path.dirname(dir2))
+        import importlib.util
+        writer = ("SummaryWriter" if importlib.util.find_spec("tensorboard")
+                  else "the null writer (tensorboard is not installed)")
+        events = [f for f in run_files if f.startswith("events.out.tfevents")]
+        if (writer == "SummaryWriter") != bool(events):
+            raise AssertionError(f"writer {writer} but event files {events}")
+        log(f"  checkpoints {sorted(os.listdir(dir3))} in version_0 (resumed in place, "
+            f"Adam's step {steps.pop():.0f} carried over, epoch {ck['epoch']}); the Chamfer "
+            f"run in version_1 with a trace ({os.path.getsize(trace)} bytes); writer: "
+            f"{writer} ({len(events)} event files)")
+
+        # the encoder of the resumed run's last checkpoint into a fresh model
+        enc_spec = create_model("Autoencoder", "PointNet2", "Cube", device=dev,
+                                seed=seed + 1, load_dir=last, encoder_only=True)
+        fresh = create_model("Autoencoder", "PointNet2", "Cube", device="cpu",
+                             seed=seed + 1).model.state_dict()
+        for key, value in enc_spec.model.state_dict().items():
+            want = fresh[key] if key.startswith("decoder.") else ck["model"][key]
+            if not torch.equal(value.cpu(), want):
+                raise AssertionError(f"encoder_only load: {key} differs")
+        cloud = raw_batch(torch.Generator(device=dev).manual_seed(seed), sc, 1, P, dev)
+        with torch.inference_mode():
+            z = enc_spec.model.encode(enc_spec.in_transform(cloud)[0])
+        if z.shape != (1, sum(sc.class_latent_dim)) or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"encode after an encoder_only load: {tuple(z.shape)}")
+        log(f"  create_model(load_dir=step_2, encoder_only=True): encoder keys equal "
+            f"the checkpoint's, decoder keys the fresh init's; encode(1 cloud) -> "
+            f"{tuple(z.shape)}")
+
+        # the same step chained on one batch, and a checkpoint written alone
+        spec = create_model("Autoencoder", "PointNet2", "Cube", device=dev, seed=seed)
+        opt = make_optimizer(spec)
+        x = raw_batch(torch.Generator(device=dev).manual_seed(seed + 2), sc, B_LOOP,
+                      P, dev)
+        tr = drive_train(make_train_step(spec, opt), x, x, 10)
+        payload = checkpoint_payload(spec, opt, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(work, "alone"), 0, payload)
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()  # its parts: the copy to the host, the write
+        host = [t.cpu() for t in payload["model"].values()] + [
+            t.cpu() for s in payload["optimizer"]["state"].values() for t in s.values()]
+        copy_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        torch.save(host, os.path.join(work, "alone", "parts.pt"))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(os.path.join(work, "alone", "step_0", "checkpoint.pt"))
+        # the resumed run's epoch has no checkpoint write behind it; epoch 1
+        # of the first run has epoch 0's
+        loop = runs["EMD, resumed for a third"][2].epochs[0]
+        behind = runs["EMD, 2 epochs"][2].epochs[1]
+        log(f"  the loop's steady epoch (EMD, the resumed epoch 2): "
+            f"{loop['clouds_per_s']:.1f} clouds/s ({loop['seconds'] / loop['steps'] * 1e3:.3f} "
+            f"ms a step, loader wait {loop['loader_wait_s'] * 1e3:.1f} ms, the epoch's "
+            f"final synchronize included); the epoch behind a checkpoint write (epoch 1) "
+            f"{behind['clouds_per_s']:.1f} clouds/s | the same step chained on one batch: "
+            f"{tr['ms']:.3f} ms/step -> {B_LOOP / tr['ms'] * 1e3:.1f} clouds/s, host "
+            f"enqueue {tr['enqueue_ms']:.3f} ms | native loader {loader_bps:.1f} batches/s | "
+            f"save_checkpoint alone {ckpt_ms:.1f} ms ({size / 2**20:.1f} MiB; apart: "
+            f"copy to the host {copy_ms:.1f} ms, torch.save {write_ms:.1f} ms), "
+            f"snapshot in the loop {loop['checkpoint_s'] * 1e3:.1f} ms | {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4838,6 +5146,9 @@ def main(argv=None) -> int:
                          "every driven launch, chamfer_bwd and bn_pool at every "
                          "driven shape (kernel_times); "
                          "prints no result lines")
+    ap.add_argument("--train-loop", action="store_true",
+                    help="only build, then run phase 15 (train() over npz "
+                         "frames); prints no result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps the redesigned "
                          "kernels serve (step_times); with --kernel-times, "
@@ -4852,6 +5163,15 @@ def main(argv=None) -> int:
         from pointcloud_tpu_torch.ops import _build
         log(f"[build] {_build.build():.1f} s")
         loss_spread(args.seeds, args.loss_spread, args.orders)
+        return 0
+    if args.train_loop:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        train_loop_path(args.seed, smi)
         return 0
     if args.kernel_times or args.step_times:
         from pointcloud_tpu_torch.ops import _build
@@ -5341,6 +5661,9 @@ def main(argv=None) -> int:
     msg_train_path(args.seed, gen_msg, x_raw, smi, err)
     log("[card vs CPU, MSG]")
     card_vs_cpu_msg(args.seed, x_raw)
+
+    # ---- 15. the training loop ----
+    train_loop_path(args.seed, smi)
 
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""

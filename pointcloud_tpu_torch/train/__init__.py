@@ -1,4 +1,4 @@
-"""Model wiring and steps."""
+"""Model wiring, steps, checkpoints and the training loop."""
 
 from pointcloud_tpu_torch.train.harness import (  # noqa: F401
     TrainSpec,
@@ -6,5 +6,6 @@ from pointcloud_tpu_torch.train.harness import (  # noqa: F401
     make_eval_step,
     make_optimizer,
     make_train_step,
+    train,
     zero_gradient_biases,
 )

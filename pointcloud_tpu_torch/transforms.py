@@ -1,5 +1,5 @@
 """Point-cloud transforms (port of pointcloud_tpu/transforms.py:40-55,
-:77-155).
+:77-155, :219-226).
 
 A transform is a callable `(pc, mask=None) -> (pc, mask)`. Where the JAX
 package maps a single-cloud transform over the batch with `jax.vmap`, these
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from pointcloud_tpu_torch.ops.fps import farthest_point_sample
@@ -101,3 +102,16 @@ class SampleFurthestPoints:
         out = index_points(flat, idx)
         ones = torch.ones((*lead, self.K), dtype=torch.bool, device=pc.device)
         return out.reshape(*lead, self.K, D), ones
+
+
+def apply_np(transform, pc: np.ndarray, mask=None, seed: int = 0):
+    """Numpy edge wrapper: run a transform (or Compose) on CPU tensors made
+    from numpy data and return numpy (pc, mask). Where the JAX version takes
+    a PRNG key from `seed`, this seeds PyTorch's CPU generator for the call
+    (forked, so the caller's random state is left as it was)."""
+    pc_t = torch.as_tensor(np.asarray(pc))
+    mask_t = None if mask is None else torch.as_tensor(np.asarray(mask))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        out_pc, out_mask = transform(pc_t, mask_t)
+    return out_pc.numpy(), out_mask.numpy()

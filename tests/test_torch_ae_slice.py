@@ -172,8 +172,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.ops.sinkhorn, pointcloud_tpu_torch.ops.emd, "
         "pointcloud_tpu_torch.models.pointnet2, pointcloud_tpu_torch.transforms, "
         "pointcloud_tpu_torch.models.pointmlp, pointcloud_tpu_torch.ops.knn_group, "
-        "pointcloud_tpu_torch.ops.group_gather\n"
-        "from pointcloud_tpu_torch.train import make_train_step\n"
+        "pointcloud_tpu_torch.ops.group_gather, pointcloud_tpu_torch.cfg, "
+        "pointcloud_tpu_torch.data, pointcloud_tpu_torch.data.dataset, "
+        "pointcloud_tpu_torch.data.native_loader, pointcloud_tpu_torch.utils, "
+        "pointcloud_tpu_torch.utils.profiling, pointcloud_tpu_torch.train.harness\n"
+        "from pointcloud_tpu_torch.train import make_train_step, train\n"
+        "from pointcloud_tpu_torch.interop import checkpoint_from_jax\n"
+        "from pointcloud_tpu_torch.transforms import apply_np\n"
+        "from pointcloud_tpu_torch.data.native_loader import get_library\n"
+        "get_library()\n"
         "from pointcloud_tpu_torch.losses import EarthMoverDistance\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "

@@ -200,6 +200,7 @@ def msg_spec(device="cpu", seed=0):
     loss_override="chamfer")` wires the factory's backbones (the factory has
     no MSG entry, as the JAX package's has none)."""
     from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.data import PointCloudDataset
     from pointcloud_tpu_torch.envs.scenes import scene_config
     from pointcloud_tpu_torch.losses import ChamferDistance
     from pointcloud_tpu_torch.models import AE, PointNet2MSGEncoder
@@ -215,6 +216,8 @@ def msg_spec(device="cpu", seed=0):
                bottleneck=sum(sc.class_latent_dim), dtype=dtype)
     init_flax_(model, torch.Generator().manual_seed(seed))
     return TrainSpec(model=model.to(device).eval(), loss=ChamferDistance(),
+                     open_dataset=lambda input_dir: PointCloudDataset(
+                         root_dir=input_dir, in_features=["rgb"], out_features=["rgb"]),
                      in_transform=Normalize(sc.bbox),
                      out_transform=Normalize(sc.bbox), model_type="Autoencoder",
                      backbone="PointNet2MSG", scene_name="Cube", scene=sc)
