@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --kernel-times --step-times  # kernels and steps alone
     python3 chip_smoke.py --train-loop  # the training loop (phase 15) alone
+    python3 chip_smoke.py --heads  # the MultiSegmenter and StatePredictor (16) alone
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
@@ -147,7 +148,26 @@ lines:
      finite losses, the version directories and checkpoints (Adam's step
      carried over), the writer and the trace; create_model(load_dir=...,
      encoder_only=True) + `encode` on one cloud; the loop's clouds/s beside
-     the same step chained on one batch, and a checkpoint written alone.
+     the same step chained on one batch, and a checkpoint written alone;
+ 16. the MultiSegmenter and the StatePredictor: create_model(
+     "MultiSegmenter" | "StatePredictor", "PointNet", "Cube") at B=64 x 2048
+     x 6 (benchmarks/config_step_bench.py's batch), bf16: the eval step and
+     the train step, a warm-up and 10 chained steps each, exact launch counts
+     (the MultiSegmenter's segmenting Chamfer one nn_sweep forward and one
+     chamfer_bwd backward over its (3 x 64, 820, 3) stack; the
+     StatePredictor no Chamfer kernel), falling losses, a trace; nn_sweep and
+     chamfer_bwd at that step's own inputs and on a batch where one cloud
+     lacks the cube and one the gripper (~1e10 in the loss, held against
+     the plain version relative to its size), held and timed; one eval and
+     one train step of the PointNet2 MultiSegmenter with exact counts;
+     MLPChainPool's four chain passes with one group of N rows a cloud
+     (pool = 2048 and a ragged 2000, a fully masked cloud, final_relu both
+     ways, bf16 and fp32) against their plain versions, twice bit-equal, and
+     the module's train step at B=64 x 2048 with exact counts; the fp32
+     models card vs CPU at B=2 (eval outputs, first loss, gradients, first
+     update); train() of each model type (PointNet2) for one epoch over
+     phase 15's frames (which carry `ground_truth` pairs), launches checked
+     step by step, then an encoder_only load and `encode`.
 Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound (the dense-pool backward at phase 4's
@@ -159,7 +179,8 @@ each train step and of the EMD eval step (device time by kernel, busy and
 idle share, beside the host's enqueue time; the dense-pool forward's and
 `sinkhorn`'s device time a step read from it). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
-13, encode, the sensor chain, and each train() run of 15, step by step)
+13, encode, the sensor chain, each train() run of 15 and 16, step by step,
+and the paths of 16)
 every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
@@ -351,10 +372,8 @@ def check_nn_sweep(gen, B, N, M, C, far_masked=False):
     is masked and lies 1e3 out in every dimension (y point 9, valid, at 1.5,
     is its clear nearest), so the kernel's centre must not be a masked
     point. Returns the largest value error over valid points."""
-    from pointcloud_tpu_torch.ops import nn_sweep, nn_sweep_reference
-    from pointcloud_tpu_torch.ops.geometry import pairwise_sqdist
-
     dev = torch.device("cuda")
+    far = ", x[:, 0] masked 1e3 out" if far_masked else ""
     x = torch.rand((B, N, C), generator=gen, device=dev)
     y = torch.rand((B, M, C), generator=gen, device=dev)
     y[:, M - 1] = y[:, 7]  # duplicate target: x point 11 sits on both
@@ -373,35 +392,76 @@ def check_nn_sweep(gen, B, N, M, C, far_masked=False):
     xm[1] = False
     ym[2] = False
 
-    got = nn_sweep(x, y, xm, ym)
-    torch.cuda.synchronize()
-    want = nn_sweep_reference(x, y, xm, ym)
-    d = pairwise_sqdist(x, y)
-    err = 0.0
-    for v, i, qm, tm, dd in ((0, 1, xm, ym, d), (2, 3, ym, xm, d.transpose(1, 2))):
-        has_target = tm.any(dim=1, keepdim=True)
-        valid = qm & has_target
-        e = float((got[v] - want[v]).abs()[valid].max())
-        err = max(err, e)
-        if e > 1e-5:
-            raise AssertionError(f"nn_sweep values differ by {e} (C={C})")
-        if not bool((got[v][~valid] >= 1e10).all()):
-            raise AssertionError("masked or target-less queries need >= 1e10")
-        # indices equal wherever the plain version's runner-up gap > 1e-5
-        two = torch.topk(dd.masked_fill(~tm[:, None, :], 1e10), 2, dim=2,
-                         largest=False).values
-        clear = (two[..., 1] - two[..., 0] > 1e-5) & has_target
-        if not bool((got[i] == want[i])[clear].all()):
-            raise AssertionError(f"nn_sweep argmins differ off ties (C={C})")
+    err, got = compare_nn_sweep(x, y, xm, ym, f"random clouds{far}")
     tie_x = ym.any(dim=1)  # elements where x point 11 has valid targets
     tie_y = xm.any(dim=1)
     if not (bool((got[1][tie_x, 11] == 7).all())
             and bool((got[3][tie_y, 5] == 3).all())):
         raise AssertionError("an exact tie must go to the first index")
-    log(f"  nn_sweep C={C} B={B} N={N} M={M}{', x[:, 0] masked 1e3 out' if far_masked else ''}: "
-        f"max |value err| {err:.3e}; "
-        f"argmins equal off ties; masked rows >= 1e10; ties to first index")
+    log(f"  nn_sweep C={C}{far}: exact ties to the first index")
     return err
+
+
+def compare_nn_sweep(x, y, xm, ym, label):
+    """nn_sweep against its plain version, the kernel twice and bit-equal:
+    values within 1e-5 on the valid queries that have a valid target,
+    >= 1e10 on the others (a query whose targets are all masked gets 1e10
+    and index 0, as the plain version); indices equal wherever the plain
+    version's runner-up is more than 1e-5 farther. Returns the largest value
+    error and the kernel's outputs."""
+    from pointcloud_tpu_torch.ops import nn_sweep, nn_sweep_reference
+    from pointcloud_tpu_torch.ops.geometry import pairwise_sqdist
+
+    got = twice_equal("nn_sweep", lambda: nn_sweep(x, y, xm, ym))
+    want = nn_sweep_reference(x, y, xm, ym)
+    d = pairwise_sqdist(x, y)
+    err, lonely = 0.0, 0
+    for v, i, qm, tm, dd in ((0, 1, xm, ym, d), (2, 3, ym, xm, d.transpose(1, 2))):
+        has_target = tm.any(dim=1, keepdim=True)
+        valid = qm & has_target
+        lonely += int((qm & ~has_target).sum())
+        if bool(valid.any()):
+            err = max(err, float((got[v] - want[v]).abs()[valid].max()))
+        if not bool((got[v][~valid] >= 1e10).all()):
+            raise AssertionError(f"nn_sweep {label}: masked or target-less queries "
+                                 f"need >= 1e10")
+        if not bool((got[i][qm & ~has_target] == 0).all()):
+            raise AssertionError(f"nn_sweep {label}: a target-less query must name "
+                                 f"target 0")
+        two = torch.topk(dd.masked_fill(~tm[:, None, :], 1e10), 2, dim=2,
+                         largest=False).values
+        clear = (two[..., 1] - two[..., 0] > 1e-5) & has_target
+        if not bool((got[i] == want[i])[clear].all()):
+            raise AssertionError(f"nn_sweep {label}: argmins differ off ties")
+    if err > 1e-5:
+        raise AssertionError(f"nn_sweep {label}: values differ by {err}")
+    log(f"  nn_sweep at {label}, B={x.shape[0]} N={x.shape[1]} M={y.shape[1]} "
+        f"C={x.shape[2]}: max |value err| {err:.3e}; {lonely} valid queries without a "
+        f"valid target (1e10, index 0); masked rows >= 1e10; argmins equal off ties; "
+        f"twice bit-equal")
+    return err, got
+
+
+def time_nn_sweep(x, y, xm, ym, label):
+    """nn_sweep at these inputs: kernel, plain version, the library's masked
+    cdist().square() + min both ways (timed here, never called by the
+    port), and the bound. Returns (ms, plain ms, library ms, (bound ms, by))."""
+    from pointcloud_tpu_torch.ops import nn_sweep, nn_sweep_reference
+
+    def library():
+        d = torch.cdist(x, y).square()
+        return (d.masked_fill(~ym[:, None, :], 1e10).min(dim=2),
+                d.masked_fill(~xm[:, :, None], 1e10).min(dim=1))
+
+    ms = cuda_ms(lambda: nn_sweep(x, y, xm, ym), iters=20, warmup=3)
+    plain = cuda_ms(lambda: nn_sweep_reference(x, y, xm, ym), iters=3, warmup=1)
+    lib = cuda_ms(library, iters=5)
+    (B, N, C), M = x.shape, y.shape[1]
+    bnd = nn_sweep_bound(B, N, M, C)
+    log(f"  nn_sweep at {label}, B={B} N={N} M={M} C={C} ({B * N * M:.3g} pairs): "
+        f"kernel {ms:.4f} ms | plain {plain:.3f} ms | library cdist().square() + "
+        f"masked min both ways {lib:.3f} ms | bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return ms, plain, lib, bnd
 
 
 def nn_sweep_bound(B, N, M, C):
@@ -1132,6 +1192,28 @@ def card_vs_cpu_heads(seed, B=8, N=2048):
         f"largest share of a tolerance used {used[name]:.2e} ({name})")
 
 
+def check_card_grads(label, card, cpu, zero):
+    """First-step gradients, card against CPU ({name: tensor}): 1e-3
+    relative plus 3e-3 of each tensor's largest entry; the zero-gradient
+    biases `zero` round-off on the card (below 1e-4 of the largest
+    gradient). Returns the largest relative error."""
+    top = max(float(g.abs().max()) for g in cpu.values())
+    worst = 0.0
+    for k, want in cpu.items():
+        got = card[k]
+        if k in zero:
+            if float(got.abs().max()) > 1e-4 * top:
+                raise AssertionError(f"{label} {k}: gradient on the card is not "
+                                     f"round-off")
+            continue
+        excess = ((got - want).abs() - 1e-3 * want.abs()
+                  - 3e-3 * float(want.abs().max())).max()
+        worst = max(worst, rel_err(got, want))
+        if float(excess) > 0:
+            raise AssertionError(f"{label} {k}: card vs CPU first-step gradient differs")
+    return worst
+
+
 def card_vs_cpu_train(seed, x_raw, loss_override="chamfer", first_tol=1e-5,
                       steps_tol=1e-3):
     """The fp32 model's train step on the card and on the CPU, from the same
@@ -1181,20 +1263,8 @@ def card_vs_cpu_train(seed, x_raw, loss_override="chamfer", first_tol=1e-5,
             nn_expansion_error(*(t.detach() for t in nn_calls[0][0][:2]),
                                "the fp32 PointNet first train step's Chamfer inputs")
         losses.append(ls)
-    top = max(float(g.abs().max()) for g in grads[1].values())
-    zero = zero_gradient_biases(specs[1].model)
-    worst = 0.0
-    for k, want in grads[1].items():
-        got = grads[0][k]
-        if k in zero:
-            if float(got.abs().max()) > 1e-4 * top:
-                raise AssertionError(f"{k}: gradient on the card is not round-off")
-            continue
-        excess = ((got - want).abs() - 1e-3 * want.abs()
-                  - 3e-3 * float(want.abs().max())).max()
-        worst = max(worst, rel_err(got, want))
-        if float(excess) > 0:
-            raise AssertionError(f"{k}: card vs CPU first-step gradient differs")
+    worst = check_card_grads("PointNet", grads[0], grads[1],
+                             zero_gradient_biases(specs[1].model))
     l_gpu, l_cpu = losses
     if abs(l_gpu[0] - l_cpu[0]) > first_tol * l_cpu[0] or any(
             abs(a - b) > steps_tol * b for a, b in zip(l_gpu, l_cpu)):
@@ -2449,15 +2519,16 @@ def check_sinkhorn(gen, B, N, M, C, eps, iters, anneal, err, identical=False,
         raise AssertionError("sinkhorn on identical clouds must give the identity")
 
 
-def drive_eval(step, x0, iters):
+def drive_eval(step, x0, iters, y0=None):
     """A first call of an eval step on (x0, x0), then `iters` calls chained
     on the previous loss, with the launch counts set to 0 before and read
-    after."""
+    after. With `y0` the target is y0 throughout (a labelled cloud or a
+    dict of states) and only the input is chained."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    loss, logs, out = step(x0, x0)
+    loss, logs, out = step(x0, x0 if y0 is None else y0)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
@@ -2466,7 +2537,7 @@ def drive_eval(step, x0, iters):
     events[0].record()
     for i in range(iters):
         x = x + loss * 1e-9  # chained on the previous loss, as bench.py
-        loss, logs, out = step(x, x)
+        loss, logs, out = step(x, x if y0 is None else y0)
         events[i + 1].record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4844,7 +4915,10 @@ LOOP_TRAIN, LOOP_VAL = 100, 30  # frames: 4 train steps an epoch, val batches 25
 
 def write_frames(root, sc, frames, points, seed):
     """`frames` npz files of the generate_pc contract in `root`: points in
-    the scene's bbox, rgb in [0, 1], a class label a point, the bbox."""
+    the scene's bbox, rgb in [0, 1], a class label a point, the bbox, and
+    the `ground_truth` (state name, value) pairs of the scene's states
+    (positions in the bbox, the other states normal draws), which
+    PointCloudGTDataset reads."""
     import os
 
     import numpy as np
@@ -4855,10 +4929,15 @@ def write_frames(root, sc, frames, points, seed):
     for i in range(frames):
         xyz = bbox[:, 0] + rng.random((points, 3), dtype=np.float32) * (
             bbox[:, 1] - bbox[:, 0])
+        gt = [(name, bbox[:, 0] + rng.random(3, dtype=np.float32) * (bbox[:, 1] - bbox[:, 0])
+               if d == 3 else rng.standard_normal(d).astype(np.float32))
+              for name, d in zip(sc.states, sc.state_dim) if name]
+        ground_truth = np.empty(len(gt), dtype=object)
+        ground_truth[:] = gt
         np.savez(os.path.join(root, f"{i}.npz"), points=xyz,
                  rgb=rng.random((points, 3), dtype=np.float32),
                  segmentation=rng.integers(0, len(sc.classes), points).astype(np.int32),
-                 boundingbox=bbox)
+                 boundingbox=bbox, ground_truth=ground_truth)
 
 
 class StepCounts:
@@ -4886,7 +4965,7 @@ class StepCounts:
         self._hook.remove()
 
 
-def loop_counts_alone(loss_override, dev, seed):
+def loop_counts_alone(loss_override, dev, seed, model_type="Autoencoder"):
     """The launches of one make_train_step call at B_LOOP and of one eval
     step at B_LOOP and at the ragged val batch, each driven alone."""
     from pointcloud_tpu_torch.train import (
@@ -4896,21 +4975,22 @@ def loop_counts_alone(loss_override, dev, seed):
         make_train_step,
     )
 
-    spec = create_model("Autoencoder", "PointNet2", "Cube", loss_override=loss_override,
+    spec = create_model(model_type, "PointNet2", "Cube", loss_override=loss_override,
                         device=dev, seed=seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     P = spec.scene.sample_points
     x = raw_batch(gen, spec.scene, B_LOOP, P, dev)
+    y = head_target(gen, spec, x)
     step = make_train_step(spec, make_optimizer(spec))
     zero_counts()
-    step(x, x)
+    step(x, y)
     torch.cuda.synchronize()
     train = read_counts()
     estep = make_eval_step(spec)
     val = {name: 0 for name in train}
     for B in (B_LOOP, LOOP_VAL % B_LOOP):
         zero_counts()
-        estep(x[:B], x[:B])
+        estep(x[:B], first_rows(y, B))
         torch.cuda.synchronize()
         for name, n in read_counts().items():
             val[name] += n
@@ -4933,6 +5013,34 @@ def check_loop_counts(label, counts, train, val, epochs):
         if got != val:
             raise AssertionError(f"{label}: epoch {i}'s validation launched {got}, "
                                  f"the eval steps alone {val}")
+
+
+def encoder_only_encode(model_type, last, ck, seed):
+    """create_model(model_type, "PointNet2", "Cube", load_dir=last,
+    encoder_only=True) on the card: every key under a `decoder*` module
+    equal to a fresh init's, every other key to the checkpoint payload
+    `ck`'s; then `encode` on one cloud, finite. Returns the encoding (its
+    per-class parts concatenated)."""
+    from pointcloud_tpu_torch.train import create_model
+
+    dev = torch.device("cuda")
+    spec = create_model(model_type, "PointNet2", "Cube", device=dev, seed=seed + 1,
+                        load_dir=last, encoder_only=True)
+    fresh = create_model(model_type, "PointNet2", "Cube", device="cpu",
+                         seed=seed + 1).model.state_dict()
+    for key, value in spec.model.state_dict().items():
+        want = fresh[key] if key.startswith("decoder") else ck["model"][key]
+        if not torch.equal(value.cpu(), want):
+            raise AssertionError(f"{model_type} encoder_only load: {key} differs")
+    sc = spec.scene
+    cloud = raw_batch(torch.Generator(device=dev).manual_seed(seed), sc, 1,
+                      sc.sample_points, dev)
+    with torch.inference_mode():
+        z = spec.model.encode(spec.in_transform(cloud)[0])
+    z = torch.cat(list(z.values()), -1) if isinstance(z, dict) else z
+    if not bool(torch.isfinite(z).all()):
+        raise AssertionError(f"{model_type}: encode after an encoder_only load")
+    return z
 
 
 def train_loop_path(seed, smi):
@@ -5074,18 +5182,8 @@ def train_loop_path(seed, smi):
             f"{writer} ({len(events)} event files)")
 
         # the encoder of the resumed run's last checkpoint into a fresh model
-        enc_spec = create_model("Autoencoder", "PointNet2", "Cube", device=dev,
-                                seed=seed + 1, load_dir=last, encoder_only=True)
-        fresh = create_model("Autoencoder", "PointNet2", "Cube", device="cpu",
-                             seed=seed + 1).model.state_dict()
-        for key, value in enc_spec.model.state_dict().items():
-            want = fresh[key] if key.startswith("decoder.") else ck["model"][key]
-            if not torch.equal(value.cpu(), want):
-                raise AssertionError(f"encoder_only load: {key} differs")
-        cloud = raw_batch(torch.Generator(device=dev).manual_seed(seed), sc, 1, P, dev)
-        with torch.inference_mode():
-            z = enc_spec.model.encode(enc_spec.in_transform(cloud)[0])
-        if z.shape != (1, sum(sc.class_latent_dim)) or not bool(torch.isfinite(z).all()):
+        z = encoder_only_encode("Autoencoder", last, ck, seed)
+        if z.shape != (1, sum(sc.class_latent_dim)):
             raise AssertionError(f"encode after an encoder_only load: {tuple(z.shape)}")
         log(f"  create_model(load_dir=step_2, encoder_only=True): encoder keys equal "
             f"the checkpoint's, decoder keys the fresh init's; encode(1 cloud) -> "
@@ -5128,6 +5226,378 @@ def train_loop_path(seed, smi):
         shutil.rmtree(work, ignore_errors=True)
 
 
+B_HEADS = 64  # benchmarks/config_step_bench.py's MultiSegmenter and StatePredictor batch
+
+
+def head_target(gen, spec, x, drop=()):
+    """The target a model type's step takes for the clouds x: the clouds
+    themselves (Autoencoder); xyz and a random class label a point
+    (Segmenter, MultiSegmenter), where `drop` lists (cloud, label) pairs
+    whose label that cloud then lacks (its points take the next class); or
+    a dict of the scene's states (StatePredictor: positions in the bbox,
+    the other states normal draws)."""
+    sc, (B, P) = spec.scene, x.shape[:2]
+    if spec.model_type == "Autoencoder":
+        return x
+    if spec.model_type == "StatePredictor":
+        bbox = torch.tensor(sc.bbox, dtype=torch.float32, device=x.device)
+        return {name: (bbox[:, 0] + torch.rand((B, 3), generator=gen, device=x.device)
+                       * (bbox[:, 1] - bbox[:, 0])) if d == 3
+                else torch.randn((B, d), generator=gen, device=x.device)
+                for name, d in zip(sc.states, sc.state_dim) if d > 0}
+    C = len(sc.classes)
+    labels = torch.randint(0, C, (B, P), generator=gen, device=x.device)
+    for cloud, label in drop:
+        row = labels[cloud]
+        labels[cloud] = torch.where(row == label, (label + 1) % C, row)
+    return torch.cat([x[..., :3], labels[..., None].float()], dim=-1)
+
+
+def first_rows(y, B):
+    """The first B clouds of a target (a tensor or a dict of them)."""
+    if isinstance(y, dict):
+        return {k: v[:B] for k, v in y.items()}
+    return y[:B]
+
+
+def segmenting_loss_kernels(spec, x, y, label, err):
+    """The segmenting Chamfer's kernels at a MultiSegmenter step's own
+    inputs: one train-mode forward, the loss and its backward (to the
+    decoders' outputs only; the model is not updated) with `nn_sweep` and
+    `chamfer_bwd` recorded, then each held against its plain version on what
+    it was handed (chamfer_bwd at the kernel's own argmins) and timed; the
+    loss against the plain version's on the CPU, relative to its size (an
+    absent class puts ~1e10 into it). Returns the timings of both."""
+    from pointcloud_tpu_torch.ops import chamfer as tchamfer
+
+    xn = spec.in_transform(x)[0]
+    yn = spec.out_transform(y)[0]
+    with torch.no_grad():
+        pred = spec.model(xn, train=True)
+    pred = {k: v.detach().requires_grad_() for k, v in pred.items()}
+    zero_counts()
+    with recording(tchamfer, "nn_sweep") as nn_calls, \
+            recording(tchamfer, "chamfer_bwd") as bwd_calls:
+        loss = spec.loss(pred, yn)
+        loss.backward()
+        torch.cuda.synchronize()
+        # read inside: leaving `recording` hands the stand-ins' attributes back
+        counts = read_counts()
+    expect_counts(f"the segmenting loss at {label}", counts, nn_sweep=1, chamfer_bwd=1)
+    cpu = float(spec.loss({k: v.detach().cpu() for k, v in pred.items()}, yn.cpu()))
+    card = float(loss.detach())
+    if abs(card - cpu) > 1e-5 * abs(cpu):
+        raise AssertionError(f"segmenting loss at {label}: card {card} vs plain {cpu}")
+    px, ty, pm, tm = (t.detach() for t in nn_calls[0][0])
+    err["nn_sweep"] = max(err["nn_sweep"], compare_nn_sweep(px, ty, pm, tm, label)[0])
+    args = bwd_calls[0][0]
+    err["chamfer_bwd"] = max(err["chamfer_bwd"], compare_chamfer_bwd(args, label))
+    log(f"  segmenting loss at {label}: card {card:.7g}, plain version (CPU) {cpu:.7g}, "
+        f"rel diff {abs(card - cpu) / abs(cpu):.2e}; one nn_sweep and one chamfer_bwd "
+        f"launch over the (C*B, Nmax, 3) stack {tuple(px.shape)} against "
+        f"{tuple(ty.shape)}")
+    return time_nn_sweep(px, ty, pm, tm, label), time_chamfer_bwd(args, label)
+
+
+def card_vs_cpu_head_models(seed, x_raw):
+    """The fp32 MultiSegmenter and StatePredictor on the card and on the
+    CPU from the same weights: eval outputs 1e-4 and the eval loss 1e-5
+    relative on two distinct clouds; on one cloud repeated (B=2: the STN
+    heads' batch variance is then 0 on both sides) the first train step's
+    loss 1e-5 relative, its gradients 1e-3 relative plus 3e-3 of each
+    tensor's largest entry (zero-gradient biases round-off), and the first
+    update 1e-3 relative where the gradient is above noise (1% of its
+    tensor's largest entry and 1e-6), every entry within 2 lr. The
+    gradients follow nn_sweep's nearest neighbours: the gate holds where the
+    card picks the CPU's (the count that differ is logged)."""
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.ops import chamfer as tchamfer
+    from pointcloud_tpu_torch.ops import nn_sweep_reference
+    from pointcloud_tpu_torch.train import (
+        create_model,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+        zero_gradient_biases,
+    )
+
+    for model_type in ("MultiSegmenter", "StatePredictor"):
+        cfg.precision = "fp32"
+        try:
+            specs = [create_model(model_type, "PointNet", "Cube", device=d, seed=seed)
+                     for d in ("cuda", "cpu")]
+        finally:
+            cfg.precision = "bf16-mixed"
+        gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+        x2 = x_raw[:2].contiguous()
+        y2 = head_target(gen, specs[0], x2)
+        xs = x_raw[:1].repeat(2, 1, 1)
+        ys = {k: v[:1].repeat(2, 1) for k, v in y2.items()} if isinstance(y2, dict) \
+            else y2[:1].repeat(2, 1, 1)
+        evals, losses, grads, updates = [], [], [], []
+        for spec in specs:
+            dev = next(spec.model.parameters()).device
+            to = (lambda t: {k: v.to(dev) for k, v in t.items()}
+                  if isinstance(t, dict) else t.to(dev))
+            loss, _, out = make_eval_step(spec)(x2.to(dev), to(y2))
+            evals.append((float(loss), {k: v.float().cpu() for k, v in out.items()}))
+            step = make_train_step(spec, make_optimizer(spec))
+            before = {k: p.detach().cpu().clone() for k, p in spec.model.named_parameters()}
+            with recording(tchamfer, "nn_sweep") as nn_calls:
+                losses.append(float(step(xs.to(dev), to(ys))[0]))
+            grads.append({k: p.grad.detach().float().cpu()
+                          for k, p in spec.model.named_parameters()})
+            updates.append({k: p.detach().cpu() - before[k]
+                            for k, p in spec.model.named_parameters()})
+            if nn_calls and dev.type == "cuda":
+                nn_args = [t.detach() for t in nn_calls[0][0]]
+        (l_gpu, o_gpu), (l_cpu, o_cpu) = evals
+        e_out = max(float((o_gpu[k] - o_cpu[k]).abs().max()) for k in o_cpu)
+        if e_out > 1e-4 or abs(l_gpu - l_cpu) > 1e-5 * abs(l_cpu):
+            raise AssertionError(f"{model_type} fp32 eval card vs CPU: out err {e_out}, "
+                                 f"loss {l_gpu} vs {l_cpu}")
+        flips = 0
+        if model_type == "MultiSegmenter":  # the card's first train step's sweep
+            from pointcloud_tpu_torch.ops import nn_sweep
+
+            card = nn_sweep(*nn_args)
+            plain = nn_sweep_reference(*(t.cpu() for t in nn_args))
+            flips = sum(int((card[j].cpu() != plain[j]).sum()) for j in (1, 3))
+        zero = zero_gradient_biases(specs[1].model)
+        worst = check_card_grads(model_type, grads[0], grads[1], zero)
+        for k, want in grads[1].items():
+            if k in zero:
+                continue
+            ut, uc = updates[0][k], updates[1][k]
+            if float((ut - uc).abs().max()) > 2 * cfg.vision_lr:
+                raise AssertionError(f"{model_type} {k}: first updates > 2 lr apart")
+            sig = (want.abs() > 1e-2 * want.abs().max()) & (want.abs() > 1e-6)
+            if bool(((ut - uc).abs() > 1e-3 * uc.abs())[sig].any()):
+                raise AssertionError(f"{model_type} {k}: first update differs")
+        if abs(losses[0] - losses[1]) > 1e-5 * abs(losses[1]):
+            raise AssertionError(f"{model_type} first train loss {losses}")
+        log(f"  {model_type} fp32, card vs CPU, B=2: eval max |out err| {e_out:.2e}, "
+            f"loss {l_gpu:.7g} vs {l_cpu:.7g}; first train loss {losses[0]:.7g} vs "
+            f"{losses[1]:.7g}; gradients max rel err {worst:.2e}; first update held; "
+            f"nearest-neighbour indices card vs CPU differing: {flips}")
+
+
+def heads_paths(seed, smi, err):
+    """Phase 16: the MultiSegmenter and the StatePredictor (see the module
+    docstring). Returns {model type: drive_train result}."""
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.models import MLPChainPool
+    from pointcloud_tpu_torch.train import (
+        create_model,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    pn_step = dict(dense_pool_stats=3, dense_pool_stats_bwd=3)
+    results = {}
+    for model_type in ("MultiSegmenter", "StatePredictor"):
+        spec = create_model(model_type, "PointNet", "Cube", device=dev, seed=seed)
+        sc = spec.scene
+        x = raw_batch(gen, sc, B_HEADS, sc.sample_points, dev)
+        y = head_target(gen, spec, x)
+        seg = model_type == "MultiSegmenter"
+        what = ("experts " + ", ".join(f"{n} {p} points / {d}-d"
+                                       for n, p, d in spec.model.name_points_dims)
+                if seg else "heads " + ", ".join(f"{n} {d}-d" for n, d in
+                                                 spec.model.state_dims.items()))
+        log(f"[{model_type}] {model_type} / PointNet, scene Cube ({what}), "
+            f"B={B_HEADS} x {sc.sample_points} x 6, bf16")
+        ev = drive_eval(make_eval_step(spec), x, TRAIN_ITERS, y0=y)
+        expect_counts(f"{model_type} eval path", ev["counts"],
+                      nn_sweep=(TRAIN_ITERS + 1) if seg else 0)
+        out = ev["out"]
+        shapes = {k: tuple(v.shape) for k, v in out.items()}
+        want = ({n: (B_HEADS, p, 3) for n, p, _ in spec.model.name_points_dims} if seg
+                else {n: (B_HEADS, d) for n, d in spec.model.state_dims.items()})
+        if shapes != want or not bool(torch.isfinite(ev["loss"])) or not all(
+                bool(torch.isfinite(v).all()) and float(v.min()) >= 0
+                and float(v.max()) <= 1 for v in out.values()):
+            raise AssertionError(f"{model_type} eval: loss {ev['loss']}, out {shapes}")
+        log(f"  eval step B={B_HEADS}: first call {ev['first_s']:.3f} s; "
+            f"{TRAIN_ITERS} chained steps {ev['ms']:.3f} ms/step on the host clock -> "
+            f"{B_HEADS / (ev['ms'] / 1e3):.1f} clouds/s; event-to-event median "
+            f"{ev['per_iter'][TRAIN_ITERS // 2]:.3f} ms; peak memory "
+            f"{ev['peak']:.2f} GiB | {smi}")
+        log(f"  loss {float(ev['loss']):.6f}; outputs {shapes} in [0, 1]; launches "
+            f"{ev['counts']}")
+        with torch.inference_mode():
+            one = spec.in_transform(x[:1])[0]
+            z = (spec.model.encode_flat(one) if seg else spec.model.encode(one))
+        if z.shape != (1, sum(sc.class_latent_dim) if seg else sum(
+                spec.model.state_dims.values())) or not bool(torch.isfinite(z).all()):
+            raise AssertionError(f"{model_type} encode: {tuple(z.shape)}")
+        log(f"  {'encode_flat' if seg else 'encode'}(1 cloud) -> {tuple(z.shape)}")
+
+        opt = make_optimizer(spec)
+        tstep = make_train_step(spec, opt)
+        tr = drive_train(tstep, x, y, TRAIN_ITERS)
+        expect_counts(f"{model_type} train path", tr["counts"],
+                      **{k: v * TRAIN_ITERS for k, v in pn_step.items()},
+                      **(dict(nn_sweep=TRAIN_ITERS, chamfer_bwd=TRAIN_ITERS) if seg
+                         else {}))
+        report_train(f"{model_type} train path", B_HEADS, tr, set(), smi)
+        trace_steps(tstep, x, y, tr["ms"], f"{model_type} train step, B={B_HEADS}",
+                    tr["enqueue_ms"])
+        results[model_type] = tr
+        if seg:
+            fwd_ms, bwd_ms, opt_ms = step_parts(spec, opt, x, y)
+            log(f"  train step parts (median of 3, CUDA events): forward + loss "
+                f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms, Adam {opt_ms:.3f} ms")
+            results["times"] = segmenting_loss_kernels(
+                spec, x, y, f"the B={B_HEADS} MultiSegmenter step's own inputs", err)
+            # one cloud without the cube, one without the gripper
+            labels = spec.loss.class_labels
+            ya = head_target(gen, spec, x, drop=((0, labels["cube"]),
+                                                 (1, labels["gripper"])))
+            results["absent"] = segmenting_loss_kernels(
+                spec, x, ya, "a batch whose cloud 0 lacks the cube and cloud 1 the "
+                "gripper", err)
+        del spec, opt, tstep, ev, out
+        torch.cuda.empty_cache()
+
+    log(f"[MultiSegmenter / PointNet2] B={B_HEADS} x 2048, bf16: one eval and one "
+        f"train step")
+    spec = create_model("MultiSegmenter", "PointNet2", "Cube", device=dev, seed=seed)
+    x = raw_batch(gen, spec.scene, B_HEADS, spec.scene.sample_points, dev)
+    y = head_target(gen, spec, x)
+    zero_counts()
+    loss, _, out = make_eval_step(spec)(x, y)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("MultiSegmenter / PointNet2 eval step", counts, fps=2, ball_group=2,
+                  nn_sweep=1)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"MultiSegmenter / PointNet2 eval: loss {loss}")
+    log(f"  eval step: loss {float(loss):.6f}; launches {counts}")
+    tstep = make_train_step(spec, make_optimizer(spec))
+    zero_counts()
+    loss, _ = tstep(x, y)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("MultiSegmenter / PointNet2 train step", counts, fps=2, ball_group=2,
+                  mm_stats=3, bnact_mm_stats=6, bn_pool=3, chain_bwd_pass=9,
+                  scatter_rows=1, nn_sweep=1, chamfer_bwd=1)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"MultiSegmenter / PointNet2 train: loss {loss}")
+    log(f"  train step: loss {float(loss):.6f}; launches {counts}")
+    del spec, tstep, out
+    torch.cuda.empty_cache()
+
+    log("[MLPChainPool] the chain's four passes with one group of N rows a cloud "
+        "(pool = N) against their plain versions")
+    gen_chain = torch.Generator(device=dev).manual_seed(seed + 22)
+    layout = [(6, 64), (64, 128), (128, 1024)]  # PointNet's widths as one chain
+    for R, dtype, final_relu in ((2048, torch.bfloat16, False), (2048, torch.bfloat16, True),
+                                 (2000, torch.bfloat16, True), (2048, torch.float32, False),
+                                 (2000, torch.float32, True)):
+        check_chain(gen_chain, 8, R, layout, R, dtype, True, final_relu, err)
+    chain = MLPChainPool(6, [c for _, c in layout], final_relu=True,
+                         dtype=cfg.compute_dtype(dev))
+    from pointcloud_tpu_torch.models.layers import init_flax_
+
+    init_flax_(chain, torch.Generator().manual_seed(seed))
+    chain = chain.to(dev)
+    xc = raw_batch(gen, sc, B_HEADS, 2048, dev)
+    mc = torch.rand((B_HEADS, 2048), generator=gen, device=dev) > 0.1
+    mc[0] = False  # a cloud without a valid point
+    zero_counts()
+    outc = chain(xc, train=True, mask=mc)
+    outc.float().square().sum().backward()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    expect_counts("MLPChainPool train forward + backward", counts, mm_stats=1,
+                  bnact_mm_stats=2, bn_pool=1, chain_bwd_pass=3)
+    # the sentinel -1e9 in bf16 (-999817216)
+    if outc.shape != (B_HEADS, 1024) or not bool((outc[0].float() < -5e8).all()) \
+            or not bool(torch.isfinite(outc[1:].float()).all()):
+        raise AssertionError(f"MLPChainPool: out {tuple(outc.shape)}")
+    ms = cuda_ms(lambda: chain(xc, train=True, mask=mc).float().sum().backward(), iters=5)
+    log(f"  MLPChainPool(6 -> 64 -> 128 -> 1024, final_relu) train forward + backward "
+        f"at B={B_HEADS} x 2048, a cloud fully masked: launches {counts}; {ms:.3f} ms "
+        f"| {smi}")
+    del chain, xc, mc, outc
+    torch.cuda.empty_cache()
+    return results
+
+
+def heads_loop(seed, smi):
+    """Phase 16's loop: train() of each of the two model types (PointNet2,
+    the CLI's default backbone) for one epoch over phase 15's frames, every
+    optimizer step's launches equal to one make_train_step call's alone and
+    every validation the eval steps' alone, then the checkpoint's encoder
+    (bottlenecks or heads) loaded with encoder_only and `encode` on one
+    cloud."""
+    import os
+    import shutil
+    import tempfile
+
+    from pointcloud_tpu_torch.envs.scenes import scene_config
+    from pointcloud_tpu_torch.ops import _build
+    from pointcloud_tpu_torch.train.harness import (
+        latest_checkpoint,
+        load_checkpoint_raw,
+        train,
+    )
+
+    dev = torch.device("cuda")
+    log(f"[train() loop, MultiSegmenter and StatePredictor] PointNet2, scene Cube, "
+        f"{LOOP_TRAIN} train and {LOOP_VAL} val npz frames, B={B_LOOP}, bf16")
+    work = tempfile.mkdtemp(prefix="heads_loop-", dir=_build.BUILD_DIR)
+    try:
+        sc = scene_config("Cube")
+        P = sc.sample_points
+        data = os.path.join(work, "input", "Cube")
+        write_frames(os.path.join(data, "train"), sc, LOOP_TRAIN, P, seed)
+        write_frames(os.path.join(data, "val"), sc, LOOP_VAL, P, seed + 1)
+        for model_type in ("MultiSegmenter", "StatePredictor"):
+            train_counts, val_counts = loop_counts_alone(None, dev, seed, model_type)
+            counts = StepCounts()
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                _, ckpt_dir = train(model_type, "PointNet2", "Cube", epochs=1,
+                                    batch_size=B_LOOP, seed=seed, device="cuda",
+                                    input_root=os.path.join(work, "input"),
+                                    output_root=os.path.join(work, "output"),
+                                    on_epoch=counts.on_epoch)
+            finally:
+                counts.close()
+            wall = time.perf_counter() - t0
+            check_loop_counts(model_type, counts, train_counts, val_counts, 1)
+            e = counts.epochs[0]
+            if not all(map(math.isfinite, (e["train_loss"], e["val_loss"]))):
+                raise AssertionError(f"{model_type}: non-finite loss in {e}")
+            last = latest_checkpoint(ckpt_dir)
+            ck = load_checkpoint_raw(last)
+            if ck["config"]["model_type"] != model_type or not last.endswith("step_0"):
+                raise AssertionError(f"{model_type}: checkpoint {last}, {ck['config']}")
+            flat = encoder_only_encode(model_type, last, ck, seed)
+            log(f"  {model_type}: train() 1 epoch in {wall:.2f} s, train_loss "
+                f"{e['train_loss']:.6f} val_loss {e['val_loss']:.6f} ({e['steps']} steps, "
+                f"{e['clouds_per_s']:.1f} clouds/s); every step's launches {train_counts}, "
+                f"validation's {val_counts}; step_0 written; encoder_only load + encode "
+                f"-> {tuple(flat.shape)} | {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def heads_phase(seed, smi, err, x2):
+    """Phase 16 in full: the paths, the fp32 models card vs CPU on the two
+    clouds x2, the loop."""
+    heads_paths(seed, smi, err)
+    log("[card vs CPU, MultiSegmenter and StatePredictor]")
+    card_vs_cpu_head_models(seed, x2)
+    heads_loop(seed, smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5149,6 +5619,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-loop", action="store_true",
                     help="only build, then run phase 15 (train() over npz "
                          "frames); prints no result lines")
+    ap.add_argument("--heads", action="store_true",
+                    help="only build, then run phase 16 (the MultiSegmenter and "
+                         "the StatePredictor); prints no result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps the redesigned "
                          "kernels serve (step_times); with --kernel-times, "
@@ -5172,6 +5645,19 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0]
         train_loop_path(args.seed, smi)
+        return 0
+    if args.heads:
+        from pointcloud_tpu_torch.envs.scenes import scene_config
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        sc = scene_config("Cube")
+        x2 = raw_batch(torch.Generator(device="cuda").manual_seed(args.seed), sc, 2,
+                       sc.sample_points, torch.device("cuda"))
+        heads_phase(args.seed, smi, {"nn_sweep": 0.0, "chamfer_bwd": 0.0}, x2)
         return 0
     if args.kernel_times or args.step_times:
         from pointcloud_tpu_torch.ops import _build
@@ -5664,6 +6150,9 @@ def main(argv=None) -> int:
 
     # ---- 15. the training loop ----
     train_loop_path(args.seed, smi)
+
+    # ---- 16. the MultiSegmenter and the StatePredictor ----
+    heads_phase(args.seed, smi, err, x_raw[:2])
 
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""

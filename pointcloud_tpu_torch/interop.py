@@ -12,8 +12,9 @@ so a state_dict key is the flax path joined by dots, with these leaf rules:
   batch_stats/.../{mean, var}{i}       -> .../{mean, var}{i} buffers, as is
   params/.../affine_{alpha, beta}      -> .../affine_{alpha, beta}, as is
 
-(the numbered leaves are the per-layer variables of a SetAbstraction level
-or a PointMLP PreExtraction; the affine pair, of shape (1, 1, 1, dim), is a
+(the numbered leaves are the per-layer variables of a fused chain: a
+SetAbstraction level, a PointMLP PreExtraction or an MLPChainPool; the
+affine pair, of shape (1, 1, 1, dim), is a
 PointMLP LocalGrouper's).
 
 Both functions are total: a collection or leaf they do not map raises

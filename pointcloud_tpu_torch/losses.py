@@ -1,12 +1,17 @@
-"""Point-cloud losses (port of pointcloud_tpu/losses.py:29-45 and :132-235).
+"""Point-cloud losses (port of pointcloud_tpu/losses.py).
 
-The same loss-object surface as the JAX package, including the injected
-`loss.log` hook through which sub-losses reach the trainer's logs.
+The same loss-object surface as the JAX package (ChamferDistance,
+FilteringChamferDistance, SegmentingChamferDistance, EarthMoverDistance,
+StatePredictionLoss), including the injected `loss.log` hook through which
+sub-losses reach the trainer's logs. Ragged per-class filtering uses masks.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Mapping, Sequence
+
 import torch
+import torch.nn.functional as F
 
 from pointcloud_tpu_torch import cfg
 from pointcloud_tpu_torch.ops.chamfer import chamfer_distance
@@ -31,6 +36,86 @@ class ChamferDistance(LossBase):
 
     def __call__(self, pred, target, pred_mask=None, target_mask=None):
         return chamfer_distance(pred, target, x_mask=pred_mask, y_mask=target_mask)
+
+
+class FilteringChamferDistance(LossBase):
+    """Chamfer of pred against each target cloud's xyz under a filter:
+    `filter_fn` is a transform `(pc, mask) -> (pc, mask)` over the batch of
+    targets, and its mask (and `target_mask`, if given) selects the
+    targets' points."""
+
+    def __init__(self, filter_fn: Callable):
+        super().__init__()
+        self.filter_fn = filter_fn
+
+    def __call__(self, pred, target, pred_mask=None, target_mask=None):
+        _, fmask = self.filter_fn(target, None)
+        if target_mask is not None:
+            fmask = fmask & target_mask
+        return chamfer_distance(pred, target[..., :3].contiguous(), x_mask=pred_mask,
+                                y_mask=fmask.contiguous())
+
+
+class SegmentingChamferDistance(LossBase):
+    """Per-class filtering Chamfer, summed over the classes.
+
+    pred: {class_name: (B, N_c, 3)} from MultiSegAE's per-class decoders;
+    target: one labelled cloud (B, N, 4+) with the integer class label as a
+    float in column 3. The value is the sum over classes of each class's
+    batch-mean Chamfer of its prediction against the target's points of
+    that class, computed as ONE masked sweep: the per-class predictions are
+    padded to the longest, Nmax, and stacked to (C*B, Nmax, 3) with masks
+    of their real rows; the target's xyz is broadcast to (C*B, N, 3) with
+    one label mask per class; one chamfer_distance(batch_reduction=None)
+    takes it (one `nn_sweep` launch forward, one `chamfer_bwd` backward on
+    the card).
+
+    The padding stops at Nmax: the JAX package rounds Nmax up to a multiple
+    of 64 (losses.py:95-98) for its TPU sweep's row tiles, which `nn_sweep`
+    does not need (it masks ragged tiles itself). Padded rows are masked,
+    so the value is the same.
+
+    A class absent from a target cloud leaves all of that row's targets
+    masked: each of its valid predicted points then has distance 1e10 to
+    target 0, so the class adds ~1e10 to the loss and its gradient goes
+    through target 0, exactly as in the JAX package.
+    """
+
+    def __init__(self, class_labels: Mapping[str, int]):
+        super().__init__()
+        self.class_labels = dict(class_labels)
+
+    def __call__(self, pred: Mapping[str, torch.Tensor], target, target_mask=None):
+        names = list(self.class_labels)
+        C = len(names)
+        B, N = target.shape[:2]
+        n_max = max(pred[c].shape[1] for c in names)
+        ids = torch.arange(n_max, device=target.device)
+        preds, pmasks = [], []
+        for c in names:
+            p = pred[c][..., :3]
+            n_c = p.shape[1]
+            preds.append(F.pad(p, (0, 0, 0, n_max - n_c)))
+            pmasks.append((ids < n_c).expand(B, n_max))
+        px = torch.cat(preds, dim=0)  # (C*B, Nmax, 3)
+        pm = torch.cat(pmasks, dim=0)  # (C*B, Nmax)
+
+        labels = target[..., 3].to(torch.int32)  # (B, N)
+        tms = []
+        for c in names:
+            m = labels == self.class_labels[c]
+            if target_mask is not None:
+                m = m & target_mask
+            tms.append(m)
+        tm = torch.cat(tms, dim=0)  # (C*B, N)
+        # the kernel takes contiguous clouds (with one class the reshape is
+        # a strided view of the target's xyz)
+        ty = target[None, :, :, :3].expand(C, B, N, 3).reshape(C * B, N, 3).contiguous()
+
+        per = chamfer_distance(px, ty, x_mask=pm, y_mask=tm,
+                               batch_reduction=None).reshape(C, B)
+        # the sum over classes of each class's batch mean
+        return per.mean(dim=1).sum()
 
 
 def _class_shares(classes, num_classes: int):
@@ -132,3 +217,23 @@ class EarthMoverDistance(LossBase):
         self.log("train_loss/EMD", point_l)
         self.log("train_loss/feature", feature_l)
         return point_l + feature_l
+
+
+class StatePredictionLoss(LossBase):
+    """The mean over `states` of each state's MSE against its target after
+    that state's transform (`transforms[name]`, the identity where none is
+    given). pred and target: {state_name: (B, dim)}."""
+
+    def __init__(self, states: Sequence[str], transforms: Mapping[str, Callable]):
+        super().__init__()
+        self.states = list(states)
+        self.t = dict(transforms)
+        for s in self.states:
+            if s not in self.t:
+                self.t[s] = lambda x: x
+
+    def __call__(self, pred: Mapping[str, torch.Tensor],
+                 target: Mapping[str, torch.Tensor]):
+        losses = [torch.mean((pred[s] - self.t[s](target[s])) ** 2)
+                  for s in self.states]
+        return torch.mean(torch.stack(losses))

@@ -1,9 +1,13 @@
-"""Models: the PointNet, PointNet2 (SSG and MSG) and PointMLP encoders and the
-autoencoder and segmenter heads."""
+"""Models: the PointNet, PointNet2 (SSG and MSG) and PointMLP encoders, the
+autoencoder and segmenter heads, the per-class MultiSegAE and the state
+heads (GTEncoder, MultiGTEncoder)."""
 
 from pointcloud_tpu_torch.models.architectures import (  # noqa: F401
     AE,
     MLP,
+    GTEncoder,
+    MultiGTEncoder,
+    MultiSegAE,
     PCDecoder,
     PCEncoder,
     PCEncoderDecoder,
@@ -24,6 +28,7 @@ from pointcloud_tpu_torch.models.pointnet import (  # noqa: F401
     STN,
     BNMaxPool,
     DenseBNMaxPool,
+    MLPChainPool,
     PointNetEncoder,
     PointwiseMLP,
     check_train_mask_contract,

@@ -97,6 +97,81 @@ def update_chain_stats(module: nn.Module, stats, n: int):
             getattr(module, f"var{i}").mul_(0.9).add_(var, alpha=0.1)
 
 
+CHAIN_EPS = 1e-5  # BatchNorm epsilon of the JAX package's fused chains
+
+
+class ChainLayers(nn.Module):
+    """Base of the modules whose Dense + BatchNorm layers run as one fused
+    chain in train mode (SetAbstraction, the bias-free PreExtraction,
+    MLPChainPool). The layers carry flax's names: `w{i}` (cin, co) in
+    flax's layout (not transposed), `scale{i}`, `offset{i}`, and buffers
+    `mean{i}`, `var{i}` (interop maps these numbered leaves). The Dense
+    layers have no bias: train-mode BatchNorm absorbs it."""
+
+    n_layers = 0
+
+    def register_chain(self, layout):
+        """One layer a (cin, co) of `layout`."""
+        self.n_layers = len(layout)
+        for i, (cin, co) in enumerate(layout):
+            self.register_parameter(f"w{i}", nn.Parameter(torch.empty(cin, co)))
+            self.register_parameter(f"scale{i}", nn.Parameter(torch.empty(co)))
+            self.register_parameter(f"offset{i}", nn.Parameter(torch.empty(co)))
+            self.register_buffer(f"mean{i}", torch.empty(co))
+            self.register_buffer(f"var{i}", torch.empty(co))
+
+    def reset_parameters(self, generator: torch.Generator):
+        for i in range(self.n_layers):
+            w = getattr(self, f"w{i}")
+            lecun_normal_(w, generator, fan_in=w.shape[0])
+            nn.init.ones_(getattr(self, f"scale{i}"))
+            nn.init.zeros_(getattr(self, f"offset{i}"))
+            nn.init.zeros_(getattr(self, f"mean{i}"))
+            nn.init.ones_(getattr(self, f"var{i}"))
+
+    def chain(self, name: str):
+        """Every layer's `name` variable (w, scale, offset), in order."""
+        return [getattr(self, f"{name}{i}") for i in range(self.n_layers)]
+
+    def chain_bn(self, h, i: int):
+        """Layer i's BatchNorm of its product h on the running statistics,
+        fp32, in flax's order (in place where h is fp32: nothing else reads
+        h)."""
+        mul = torch.rsqrt(getattr(self, f"var{i}") + CHAIN_EPS) * getattr(self, f"scale{i}")
+        return h.float().sub_(getattr(self, f"mean{i}")).mul_(mul).add_(
+            getattr(self, f"offset{i}"))
+
+    def chain_pool(self, a, pen, pool: int, final_relu: bool = True):
+        """The chain in eval over a (B, R, Cin) in the activation dtype and
+        the max over each group of `pool` rows -> (B, R / pool, C_last) in
+        that dtype. Each layer's product is rounded to the activation
+        dtype, its BatchNorm (running statistics) is fp32, and ReLU(pre) in
+        the activation dtype feeds the next layer; the last layer's max is
+        taken before its ReLU (applied with final_relu) over pre - pen (pen
+        (B, R): +1e9 on rows kept out of the pool), and a group without a
+        valid row gives -1e9."""
+        dt = a.dtype
+        for i in range(self.n_layers):
+            if i:
+                a = torch.relu(pre).to(dt)
+            pre = self.chain_bn(torch.matmul(a, getattr(self, f"w{i}").to(dt)), i)
+        B, R, C = pre.shape
+        mx = torch.amax(pre.sub_(pen[..., None]).reshape(B, R // pool, pool, C), dim=2)
+        out = torch.relu(mx) if final_relu else mx
+        return out.masked_fill(mx < -5e8, -1e9).to(dt)
+
+    def chain_pool_train(self, a, pen, pool: int, final_relu: bool = True):
+        """`chain_pool` on the batch statistics, through `mlp_pool_fused`;
+        the running statistics move to 0.9 old + 0.1 new (biased variance),
+        in place."""
+        from pointcloud_tpu_torch.ops.preextract_fused import mlp_pool_fused
+
+        out, stats = mlp_pool_fused(a, self.chain("w"), self.chain("scale"),
+                                    self.chain("offset"), pen, pool, final_relu)
+        update_chain_stats(self, stats, a.shape[0] * a.shape[1])
+        return out.to(a.dtype)
+
+
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm(use_running_average=not train, momentum=0.9,
     epsilon=1e-5) over the last axis: fp32 normalisation, result cast to

@@ -33,8 +33,8 @@ from torch import nn
 
 from pointcloud_tpu_torch.models.layers import (
     BatchNorm,
+    ChainLayers,
     Dense,
-    lecun_normal_,
     update_chain_stats,
 )
 from pointcloud_tpu_torch.models.pointnet import check_train_mask_contract
@@ -47,7 +47,6 @@ from pointcloud_tpu_torch.ops.preextract_fused import (
     preextract_pool_fused,
 )
 
-EPS = 1e-5  # BatchNorm epsilon of PreExtraction's own layers
 
 
 class DenseBNAct(nn.Module):
@@ -151,13 +150,12 @@ class LocalGrouper(nn.Module):
         return new_xyz, grouped, new_mask
 
 
-class PreExtraction(nn.Module):
+class PreExtraction(ChainLayers):
     """Per-neighbourhood residual MLP + max-pool over K: (B, G, K, D) ->
     (B, G, C).
 
     The bias-free configurations own their Dense kernels and BatchNorm
-    variables directly, with the JAX package's names: `w{i}` (cin, co) in
-    flax's layout, `scale{i}`, `offset{i}`, buffers `mean{i}`, `var{i}`, for
+    variables directly (ChainLayers: the JAX package's names), for
     the layout [(D, C)] + blocks x [(C, mid), (mid, C)]. Each product is
     dtype-native (bf16 in, bf16 out; fp32 in full fp32), each BatchNorm
     fp32 on the running statistics, the residual adds follow
@@ -176,7 +174,6 @@ class PreExtraction(nn.Module):
         self.blocks = blocks
         self.dtype = dtype
         if use_bias:
-            self.n_layers = 0
             self.DenseBNAct_0 = DenseBNAct(in_features, out_channels, True, dtype)
             for i in range(blocks):
                 self.add_module(f"ResBlock_{i}", ResBlock(
@@ -186,29 +183,7 @@ class PreExtraction(nn.Module):
         layout = [(in_features, out_channels)]
         for _ in range(blocks):
             layout += [(out_channels, mid), (mid, out_channels)]
-        self.n_layers = len(layout)
-        for i, (ci, co) in enumerate(layout):
-            self.register_parameter(f"w{i}", nn.Parameter(torch.empty(ci, co)))
-            self.register_parameter(f"scale{i}", nn.Parameter(torch.empty(co)))
-            self.register_parameter(f"offset{i}", nn.Parameter(torch.empty(co)))
-            self.register_buffer(f"mean{i}", torch.empty(co))
-            self.register_buffer(f"var{i}", torch.empty(co))
-
-    def reset_parameters(self, generator: torch.Generator):
-        for i in range(self.n_layers):
-            w = getattr(self, f"w{i}")
-            lecun_normal_(w, generator, fan_in=w.shape[0])
-            nn.init.ones_(getattr(self, f"scale{i}"))
-            nn.init.zeros_(getattr(self, f"offset{i}"))
-            nn.init.zeros_(getattr(self, f"mean{i}"))
-            nn.init.ones_(getattr(self, f"var{i}"))
-
-    def _bn(self, h, i):
-        """BatchNorm of layer i on the running statistics, fp32."""
-        mul = torch.rsqrt(getattr(self, f"var{i}") + EPS) * getattr(self, f"scale{i}")
-        # h.float() is h itself in fp32; nothing else reads h
-        return h.float().sub_(getattr(self, f"mean{i}")).mul_(mul).add_(
-            getattr(self, f"offset{i}"))
+        self.register_chain(layout)
 
     def forward(self, x, train: bool = False):
         if self.use_bias:
@@ -223,7 +198,7 @@ class PreExtraction(nn.Module):
         dt = self.dtype or x.dtype
         a = x.reshape(B, G * K, D).to(dt)
         L = self.n_layers
-        pre = self._bn(torch.matmul(a, self.w0.to(dt)), 0)
+        pre = self.chain_bn(torch.matmul(a, self.w0.to(dt)), 0)
         relu0 = torch.relu(pre)  # RES_BNRELU's source, fp32
         rs = []  # stored block outputs r_j, in dt
         for u in range(1, L):
@@ -236,7 +211,7 @@ class PreExtraction(nn.Module):
             a = torch.relu(pre).to(dt)
             if u % 2 == 1 and (u + 1) // 2 >= 2:
                 rs.append(a)
-            pre = self._bn(torch.matmul(a, getattr(self, f"w{u}").to(dt)), u)
+            pre = self.chain_bn(torch.matmul(a, getattr(self, f"w{u}").to(dt)), u)
         if self.blocks == 1:
             pre = pre + relu0
         else:
@@ -249,11 +224,9 @@ class PreExtraction(nn.Module):
         then the running-statistics update."""
         B, G, K, D = x.shape
         dt = self.dtype or x.dtype
-        ws, scales, offsets = (
-            [getattr(self, f"{name}{i}") for i in range(self.n_layers)]
-            for name in ("w", "scale", "offset"))
-        out, stats = preextract_pool_fused(x.reshape(B, G * K, D).to(dt), ws,
-                                           scales, offsets, K)
+        out, stats = preextract_pool_fused(x.reshape(B, G * K, D).to(dt),
+                                           self.chain("w"), self.chain("scale"),
+                                           self.chain("offset"), K)
         update_chain_stats(self, stats, B * G * K)
         return out
 

@@ -14,7 +14,9 @@ In eval, DenseBNMaxPool takes the plain matmul + pool, as the JAX package
 does. In train mode it always goes through `dense_pool_stats` (the CUDA
 kernels on the card, the plain version on the CPU): the JAX package's 2e8
 element threshold (pointnet.py:189-197) was measured on a TPU and does not
-carry over. BatchNorm statistics in train mode include masked points, as in
+carry over. MLPChainPool, off PointNetEncoder's path as in the JAX
+package, runs its whole chain through `mlp_pool_fused` in train mode.
+BatchNorm statistics in train mode include masked points, as in
 the JAX package (check_train_mask_contract).
 """
 
@@ -25,6 +27,7 @@ from torch import nn
 
 from pointcloud_tpu_torch.models.layers import (
     BatchNorm,
+    ChainLayers,
     Dense,
     batch_stats,
     lecun_normal_,
@@ -133,19 +136,22 @@ class DenseBNMaxPool(nn.Module):
     Input (..., R, Cin): 3-D pools the whole R axis -> (..., C); 4-D
     (B, S, K, Cin) pools K per group -> (B, S, C). mask matches the input
     minus the channel dim. The BN parameters are `scale` and `offset`, the
-    Dense bias is `bias`, as in flax. In train mode the product, the batch
-    statistics (over all rows, masked ones included) and the pool come from
-    `dense_pool_stats`, so the (..., R, C) pre-pool tensor is never stored.
+    Dense bias is `bias`, as in flax; `use_bias=False` registers no bias
+    (the flax tree has none) and the product takes a zero one. In train
+    mode the product, the batch statistics (over all rows, masked ones
+    included) and the pool come from `dense_pool_stats`, so the
+    (..., R, C) pre-pool tensor is never stored.
     """
 
     def __init__(self, in_features: int, features: int,
-                 final_relu: bool = False, epsilon: float = 1e-5, dtype=None):
+                 final_relu: bool = False, epsilon: float = 1e-5, dtype=None,
+                 use_bias: bool = True):
         super().__init__()
         self.final_relu = final_relu
         self.epsilon = epsilon
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
         self.scale = nn.Parameter(torch.empty(features))
         self.offset = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.empty(features))
@@ -153,18 +159,22 @@ class DenseBNMaxPool(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator):
         lecun_normal_(self.weight, generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
         nn.init.ones_(self.scale)
         nn.init.zeros_(self.offset)
         nn.init.zeros_(self.mean)
         nn.init.ones_(self.var)
 
+    def _bias(self, dt):
+        if self.bias is None:
+            return torch.zeros(self.weight.shape[0], dtype=dt, device=self.weight.device)
+        return self.bias.to(dt)
+
     def forward(self, x, train: bool = False, mask=None):
         dt = self.dtype or x.dtype
         if not train:
-            z = torch.nn.functional.linear(
-                x.to(dt), self.weight.to(dt), self.bias.to(dt)
-            )
+            z = torch.nn.functional.linear(x.to(dt), self.weight.to(dt), self._bias(dt))
             sel = _pool_select(z, mask, self.scale)  # (*lead, C)
             return _normalize_pooled(sel, self.mean, self.var, self.scale,
                                      self.offset, self.epsilon, dt,
@@ -185,13 +195,50 @@ class DenseBNMaxPool(nn.Module):
         sgn = torch.where(self.scale >= 0, 1.0, -1.0).float().detach()
         psel, _, ssum, ssq = dense_pool_stats(
             xr.to(dt).contiguous(), self.weight.t().to(dt).contiguous(),
-            self.bias.to(dt), sgn, pen, pool)
+            self._bias(dt), sgn, pen, pool)
         sel = (sgn.to(dt) * psel).reshape(*lead, C)
         mean = ssum / float(n_rows)
         var = torch.clamp(ssq / float(n_rows) - mean * mean, min=0.0)
         update_running_stats(self, mean, var)
         return _normalize_pooled(sel, mean, var, self.scale, self.offset,
                                  self.epsilon, dt, self.final_relu, mask)
+
+
+class MLPChainPool(ChainLayers):
+    """L Dense + BatchNorm (+ ReLU) layers, then a masked max-pool over the
+    whole cloud: `PointwiseMLP(features[:-1])` and a bias-free
+    `DenseBNMaxPool(features[-1], final_relu)` in one module. Each mid
+    layer is Dense -> BatchNorm -> ReLU; the last layer's post-BN values
+    before any ReLU are max-pooled over the points, and `final_relu`
+    rectifies the pooled vector. The layers are ChainLayers' (flax's
+    names, no Dense bias; BatchNorm momentum 0.9, epsilon 1e-5, as the JAX
+    module's chain uses).
+
+    Input (B, N, Cin) -> (B, features[-1]). Masked points stay out of the
+    pool but feed the BatchNorm statistics (check_train_mask_contract); a
+    cloud without a valid point gives -1e9. In train mode the chain runs
+    through `mlp_pool_fused` with one group of N rows a cloud: on CUDA
+    tensors always its four kernels (csrc/mlp_chain.cu), where the JAX
+    package takes its fused chain only on a TPU above 1e7 elements (its
+    models/pointnet.py:369-373); on the CPU the plain chain. Eval is plain
+    matmuls on the running statistics, as the JAX package's.
+    """
+
+    def __init__(self, in_features: int, features, final_relu: bool = False,
+                 dtype=None):
+        super().__init__()
+        self.final_relu = final_relu
+        self.dtype = dtype
+        self.register_chain(list(zip((in_features, *features[:-1]), features)))
+
+    def forward(self, x, train: bool = False, mask=None):
+        check_train_mask_contract(train, mask)
+        B, N, _ = x.shape
+        dt = self.dtype or x.dtype
+        pen = (torch.zeros((B, N), dtype=torch.float32, device=x.device)
+               if mask is None else torch.where(mask, 0.0, 1e9).float())
+        pool = self.chain_pool_train if train else self.chain_pool
+        return pool(x.to(dt), pen, N, self.final_relu)[:, 0, :]
 
 
 class PointwiseMLP(nn.Module):

@@ -30,12 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pointcloud_tpu_torch.models.layers import (
-    BatchNorm,
-    Dense,
-    lecun_normal_,
-    update_chain_stats,
-)
+from pointcloud_tpu_torch.models.layers import BatchNorm, ChainLayers, Dense
 from pointcloud_tpu_torch.models.pointnet import (
     DenseBNMaxPool,
     check_train_mask_contract,
@@ -47,13 +42,11 @@ from pointcloud_tpu_torch.ops.geometry import (
     sample_and_group,
     sample_and_group_all,
 )
-from pointcloud_tpu_torch.ops.preextract_fused import mlp_pool_fused
 
 _NEG = -1e9
-EPS = 1e-5  # BatchNorm epsilon of the JAX package's SA levels
 
 
-class SetAbstraction(nn.Module):
+class SetAbstraction(ChainLayers):
     """One SA level: `group` (FPS + ball grouping, or the whole cloud when
     `group_all`), then `pool` (the shared MLP and the masked max over each
     group). `in_channels` is 3 + the features' width."""
@@ -65,24 +58,7 @@ class SetAbstraction(nn.Module):
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.group_all = group_all
         self.dtype = dtype
-        self.n_layers = len(mlp)
-        cin = in_channels
-        for i, co in enumerate(mlp):
-            self.register_parameter(f"w{i}", nn.Parameter(torch.empty(cin, co)))
-            self.register_parameter(f"scale{i}", nn.Parameter(torch.empty(co)))
-            self.register_parameter(f"offset{i}", nn.Parameter(torch.empty(co)))
-            self.register_buffer(f"mean{i}", torch.empty(co))
-            self.register_buffer(f"var{i}", torch.empty(co))
-            cin = co
-
-    def reset_parameters(self, generator: torch.Generator):
-        for i in range(self.n_layers):
-            w = getattr(self, f"w{i}")
-            lecun_normal_(w, generator, fan_in=w.shape[0])
-            nn.init.ones_(getattr(self, f"scale{i}"))
-            nn.init.zeros_(getattr(self, f"offset{i}"))
-            nn.init.zeros_(getattr(self, f"mean{i}"))
-            nn.init.ones_(getattr(self, f"var{i}"))
+        self.register_chain(list(zip((in_channels, *mlp[:-1]), mlp)))
 
     def group(self, xyz, features, mask=None):
         """(new_xyz, grouped (B, S, K, Cin), group_mask, new_mask)."""
@@ -94,42 +70,21 @@ class SetAbstraction(nn.Module):
                                 features, mask=mask)
 
     def pool(self, grouped, group_mask):
-        """The shared MLP on every grouped row and the max over each group:
-        (B, S, K, Cin) -> (B, S, C_last), -1e9 on groups without a valid
-        row. Each layer's product is rounded to the activation dtype, its
-        BatchNorm (running statistics) is fp32, and ReLU(pre) in the
-        activation dtype feeds the next layer; the last layer's max is taken
-        before its ReLU, over pre - 1e9 on invalid rows."""
+        """The shared MLP on every grouped row and the max over each group
+        (`chain_pool`, then its ReLU): (B, S, K, Cin) -> (B, S, C_last),
+        -1e9 on groups without a valid row."""
         B, S, K, cin = grouped.shape
         dt = self.dtype or grouped.dtype
-        a = grouped.reshape(B, S * K, cin).to(dt)
-        for i in range(self.n_layers):
-            if i:
-                a = torch.relu(pre).to(dt)
-            h = torch.matmul(a, getattr(self, f"w{i}").to(dt))
-            mul = torch.rsqrt(getattr(self, f"var{i}") + EPS) * getattr(self, f"scale{i}")
-            # h.float() is h itself in fp32; nothing else reads h
-            pre = h.float().sub_(getattr(self, f"mean{i}")).mul_(mul).add_(
-                getattr(self, f"offset{i}"))
         pen = torch.where(group_mask.reshape(B, S * K), 0.0, 1e9)
-        mx = torch.amax(pre.sub_(pen[..., None]).reshape(B, S, K, -1), dim=2)
-        out = torch.relu(mx).masked_fill_(mx < -5e8, _NEG)
-        return out.to(dt)
+        return self.chain_pool(grouped.reshape(B, S * K, cin).to(dt), pen, K)
 
     def pool_train(self, grouped, group_mask):
-        """`pool` on the batch statistics, through `mlp_pool_fused`; the
-        running statistics move to 0.9 old + 0.1 new (biased variance), in
-        place."""
+        """`pool` on the batch statistics, through `mlp_pool_fused`
+        (`chain_pool_train`)."""
         B, S, K, cin = grouped.shape
         dt = self.dtype or grouped.dtype
         pen = torch.where(group_mask.reshape(B, S * K), 0.0, 1e9)
-        ws, scales, offsets = (
-            [getattr(self, f"{name}{i}") for i in range(self.n_layers)]
-            for name in ("w", "scale", "offset"))
-        out, stats = mlp_pool_fused(grouped.reshape(B, S * K, cin).to(dt), ws,
-                                    scales, offsets, pen, K)
-        update_chain_stats(self, stats, B * S * K)
-        return out.to(dt)
+        return self.chain_pool_train(grouped.reshape(B, S * K, cin).to(dt), pen, K)
 
     def forward(self, xyz, features, train: bool = False, mask=None):
         new_xyz, grouped, group_mask, new_mask = self.group(xyz, features, mask)

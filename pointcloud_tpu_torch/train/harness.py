@@ -8,12 +8,14 @@ the training step (forward in train mode, loss, backward, Adam);
 `make_eval_step` returns the eval forward + loss. `train()` runs the loop
 over npz datasets with TensorBoard logging and checkpoints under the
 reference's `output/{dataset}/{Model}_{Backbone}/version_N` layout, and
-resumes from a checkpoint. Ported: the Autoencoder (Earth Mover's Distance,
-its default loss, or Chamfer with loss_override="chamfer") and the Segmenter
-(EMD with class weights), on the PointNet, PointNet2, PointMLP and PointMLPE
-backbones. The MultiSegmenter and the StatePredictor come in a later slice
-and raise here. `train()` runs on one device: data parallelism and
-multi-host training are not ported.
+resumes from a checkpoint. Every model type of cfg.models is ported on
+every backbone of backbone_factory (PointNet, PointNet2, PointMLP,
+PointMLPE): the Autoencoder (Earth Mover's Distance, its default loss, or
+Chamfer with loss_override="chamfer"), the Segmenter (EMD with class
+weights), the MultiSegmenter (per-class experts under the segmenting
+Chamfer) and the StatePredictor (state heads under the per-state MSE).
+`train()` runs on one device: data parallelism and multi-host training are
+not ported.
 
 Checkpoints are the port's own format (the JAX package writes orbax
 directories): `step_E/checkpoint.pt`, one `torch.save` file of the model's
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import math
 import os
 import re
 import time
@@ -36,15 +39,27 @@ import torch
 from torch import nn
 
 from pointcloud_tpu_torch import cfg
-from pointcloud_tpu_torch.data.dataset import BatchLoader, PointCloudDataset
+from pointcloud_tpu_torch.data.dataset import (
+    BatchLoader,
+    PointCloudDataset,
+    PointCloudGTDataset,
+)
 from pointcloud_tpu_torch.envs.scenes import scene_config
 from pointcloud_tpu_torch.interop import load_state_exactly
 from pointcloud_tpu_torch.losses import (
     ChamferDistance,
     EarthMoverDistance,
+    SegmentingChamferDistance,
+    StatePredictionLoss,
     _noop_log,
 )
-from pointcloud_tpu_torch.models.architectures import AE, SegAE, backbone_factory
+from pointcloud_tpu_torch.models.architectures import (
+    AE,
+    MultiGTEncoder,
+    MultiSegAE,
+    SegAE,
+    backbone_factory,
+)
 from pointcloud_tpu_torch.models.layers import BatchNorm, Dense, init_flax_
 from pointcloud_tpu_torch.models.pointnet import DenseBNMaxPool
 from pointcloud_tpu_torch.transforms import Normalize
@@ -78,6 +93,19 @@ def create_model(
 ) -> TrainSpec:
     """Build the TrainSpec of one configuration, its weights fresh or loaded.
 
+    Model types (cfg.models), as the JAX package wires them:
+      * Autoencoder: AE under EMD, or Chamfer with loss_override="chamfer";
+      * Segmenter: SegAE under EMD with class weights;
+      * MultiSegmenter: MultiSegAE with one expert per class of a latent
+        dim above 0, ceil(share * sample_points) points each (computed in
+        Python floats), under SegmentingChamferDistance; the target is
+        xyz + the class label;
+      * StatePredictor: MultiGTEncoder with one head per state of a dim
+        above 0, under StatePredictionLoss, whose 3-d states are mapped
+        through the scene's bbox into the unit cube (`norm_pos`); the
+        target is a dict of states (dict_target), and no out_transform.
+    loss_override is read by the Autoencoder alone, as in the JAX package.
+
     The weights follow flax's init (lecun_normal kernels, zero biases,
     BatchNorm ones/zeros, zero STN head), drawn on the CPU from a
     torch.Generator seeded with `seed`, so every device gets the same
@@ -85,26 +113,15 @@ def create_model(
     the JAX package's. Activations are bf16 on a CUDA device under
     cfg.precision == 'bf16-mixed' and fp32 on the CPU.
 
-    loss_override='chamfer' swaps the Autoencoder's EMD loss for Chamfer; the
-    Segmenter has no other loss than EMD.
-
     load_dir: a checkpoint's step_N directory whose weights replace the
-    fresh ones. With encoder_only, every key under `decoder` keeps its fresh
-    init (the reference's strict=False load of an encoder); any other key
-    the checkpoint lacks, any key the model lacks and any shape that differs
-    raise. Where the JAX function returns (spec, variables), this one
-    returns the spec with the weights already loaded.
+    fresh ones. With encoder_only, every key under a `decoder*` module keeps
+    its fresh init (the reference's strict=False load of an encoder; the
+    MultiSegmenter's bottlenecks and the StatePredictor's heads load); any
+    other key the checkpoint lacks, any key the model lacks and any shape
+    that differs raise. Where the JAX function returns (spec, variables),
+    this one returns the spec with the weights already loaded.
     """
-    if model_type in ("MultiSegmenter", "StatePredictor"):
-        missing = {
-            "MultiSegmenter": "MultiSegAE and SegmentingChamferDistance",
-            "StatePredictor": "MultiGTEncoder and StatePredictionLoss",
-        }[model_type]
-        raise NotImplementedError(
-            f"model type {model_type!r} is not ported yet ({missing} are "
-            f"missing; Autoencoder and Segmenter are ported)"
-        )
-    if model_type not in ("Autoencoder", "Segmenter"):
+    if model_type not in cfg.models:
         raise NotImplementedError(f"Unknown model type: {model_type}")
     if backbone not in backbone_factory:
         raise NotImplementedError(
@@ -115,7 +132,8 @@ def create_model(
     sc = scene_config(scene)
     dtype = cfg.compute_dtype(device)
     encoder_backbone = backbone_factory[backbone](feature_dims=3, dtype=dtype)
-    num_classes = len(sc.classes) if model_type == "Segmenter" else None
+    out_transform = Normalize(sc.bbox)
+    dict_target = False
     if model_type == "Autoencoder":
         model = AE(
             encoder_backbone,
@@ -124,38 +142,72 @@ def create_model(
             bottleneck=sum(sc.class_latent_dim),
             dtype=dtype,
         )
-    else:  # the target is (B, N, 4): xyz + the class label as a float
+        if loss_override == "chamfer":
+            loss = ChamferDistance()
+        else:
+            loss = EarthMoverDistance(
+                eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=None,
+                anneal_from=None,  # the constant-eps training operating point
+            )
+    elif model_type == "Segmenter":  # the target is (B, N, 4): xyz + label
+        C = len(sc.classes)
         model = SegAE(
             encoder_backbone,
-            num_classes=num_classes,
+            num_classes=C,
             out_points=sc.sample_points,
             bottleneck=sum(sc.class_latent_dim),
             dtype=dtype,
         )
-    if model_type == "Autoencoder" and loss_override == "chamfer":
-        loss = ChamferDistance()
-    else:
         loss = EarthMoverDistance(
-            eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=num_classes,
-            anneal_from=None,  # the constant-eps training operating point
+            eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=C,
+            anneal_from=None,
         )
+    elif model_type == "MultiSegmenter":  # the target is (B, N, 4), as above
+        name_points_dims = [
+            (n, math.ceil(p * sc.sample_points), d)
+            for (n, p, d) in zip(sc.classes, sc.class_distribution, sc.class_latent_dim)
+            if d > 0
+        ]
+        class_labels = {n: sc.classes.index(n) for (n, _, _) in name_points_dims}
+        model = MultiSegAE(encoder_backbone, class_labels, tuple(name_points_dims),
+                           dtype=dtype)
+        loss = SegmentingChamferDistance(class_labels)
+    else:  # StatePredictor
+        state_dims = {n: d for (n, d) in zip(sc.states, sc.state_dim) if d > 0}
+        bbox = torch.tensor(sc.bbox, dtype=torch.float32, device=device)
+        lo, span = bbox[:, 0], bbox[:, 1] - bbox[:, 0]
+
+        def norm_pos(x):
+            """A 3-d position from the scene's bbox into the unit cube."""
+            return (x - lo) / span
+
+        transforms = {n: norm_pos for n, d in state_dims.items() if d == 3}
+        model = MultiGTEncoder(encoder_backbone, state_dims, dtype=dtype)
+        loss = StatePredictionLoss(list(state_dims), transforms)
+        out_transform = None
+        dict_target = True
     init_flax_(model, torch.Generator().manual_seed(seed))
     if load_dir:
         payload = load_checkpoint_variables(load_dir, encoder_only=encoder_only)
         load_state(model, payload["model"], keep_fresh=encoder_only)
-    out_features = ["rgb"] if model_type == "Autoencoder" else ["segmentation"]
+    if dict_target:
+        open_dataset = lambda input_dir: PointCloudGTDataset(  # noqa: E731
+            root_dir=input_dir, in_features=["rgb"])
+    else:
+        out_features = ["rgb"] if model_type == "Autoencoder" else ["segmentation"]
+        open_dataset = lambda input_dir: PointCloudDataset(  # noqa: E731
+            root_dir=input_dir, in_features=["rgb"], out_features=out_features)
     return TrainSpec(
         model=model.to(device).eval(),
         loss=loss,
-        open_dataset=lambda input_dir: PointCloudDataset(
-            root_dir=input_dir, in_features=["rgb"], out_features=out_features
-        ),
+        open_dataset=open_dataset,
         in_transform=Normalize(sc.bbox),
-        out_transform=Normalize(sc.bbox),
+        out_transform=out_transform,
         model_type=model_type,
         backbone=backbone,
         scene_name=scene,
         scene=sc,
+        dict_target=dict_target,
     )
 
 
@@ -198,7 +250,7 @@ def zero_gradient_biases(model: nn.Module) -> set[str]:
     names = set()
     for prefix, mod in model.named_modules():
         at = prefix + "." if prefix else ""
-        if isinstance(mod, DenseBNMaxPool):
+        if isinstance(mod, DenseBNMaxPool) and mod.bias is not None:
             names.add(at + "bias")
         kids = list(mod.named_children())
         for (name, a), (_, b) in zip(kids, kids[1:]):

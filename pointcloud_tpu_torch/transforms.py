@@ -1,12 +1,16 @@
-"""Point-cloud transforms (port of pointcloud_tpu/transforms.py:40-55,
-:77-155, :219-226).
+"""Point-cloud transforms (port of pointcloud_tpu/transforms.py).
 
 A transform is a callable `(pc, mask=None) -> (pc, mask)`. Where the JAX
 package maps a single-cloud transform over the batch with `jax.vmap`, these
 act on any leading dimensions: pc (..., N, D), mask (..., N) bool. Filters
-clear mask bits and keep every row; samplers take the mask and return a
+(FilterBBox, FilterClasses) clear mask bits and keep every row; samplers
+(SampleFurthestPoints, SampleRandomPoints) take the mask and return a
 fixed-size, fully valid cloud. The sensor's chain is
 Compose([FilterBBox(bbox), SampleFurthestPoints(K)]).
+
+Where a JAX transform draws from a PRNG key, SampleRandomPoints draws from
+an explicit torch.Generator on the cloud's device; the two generators give
+other numbers, so its tests compare supports and distributions.
 """
 
 from __future__ import annotations
@@ -87,6 +91,32 @@ class FilterBBox:
         return pc, mask & inside
 
 
+class SampleRandomPoints:
+    """Uniformly sample K points, with replacement, among the valid rows of
+    each cloud, drawing from `generator` (a torch.Generator on the cloud's
+    device; the global generator is never used). A cloud without a valid
+    row gives its row 0 K times, as the JAX version does (a categorical
+    draw over all -inf logits picks index 0)."""
+
+    def __init__(self, K: int, generator: torch.Generator | None = None):
+        self.K = K
+        self.generator = generator
+
+    def __call__(self, pc, mask=None):
+        if self.generator is None:
+            raise ValueError("SampleRandomPoints requires a torch.Generator")
+        mask = _ensure_mask(pc, mask)
+        lead, (N, D) = pc.shape[:-2], pc.shape[-2:]
+        flat = pc.reshape(-1, N, D)
+        weights = mask.reshape(-1, N).float()
+        weights[:, 0] += (~mask.reshape(-1, N).any(dim=1)).float()
+        idx = torch.multinomial(weights, self.K, replacement=True,
+                                generator=self.generator)
+        out = index_points(flat, idx)
+        ones = torch.ones((*lead, self.K), dtype=torch.bool, device=pc.device)
+        return out.reshape(*lead, self.K, D), ones
+
+
 class SampleFurthestPoints:
     """FPS-downsample to exactly K valid points (ops/fps.py)."""
 
@@ -102,6 +132,80 @@ class SampleFurthestPoints:
         out = index_points(flat, idx)
         ones = torch.ones((*lead, self.K), dtype=torch.bool, device=pc.device)
         return out.reshape(*lead, self.K, D), ones
+
+
+class FilterClasses:
+    """Keep only points whose integer label (column `seg_dim`, truncated to
+    int32) is whitelisted."""
+
+    def __init__(self, whitelist: Sequence[int], seg_dim: int):
+        self.whitelist = tuple(whitelist)
+        self.seg_dim = seg_dim
+
+    def __call__(self, pc, mask=None):
+        mask = _ensure_mask(pc, mask)
+        label = pc[..., self.seg_dim].to(torch.int32)
+        keep = torch.zeros_like(mask)
+        for w in self.whitelist:
+            keep = keep | (label == w)
+        return pc, mask & keep
+
+
+class OneHotEncode:
+    """The integer label column at `seg_dim` -> `num_classes` one-hot
+    columns appended after the other columns (a label outside
+    [0, num_classes) gives a zero row, as jax.nn.one_hot)."""
+
+    def __init__(self, num_classes: int, seg_dim: int):
+        self.num_classes = num_classes
+        self.seg_dim = seg_dim
+
+    def __call__(self, pc, mask=None):
+        mask = _ensure_mask(pc, mask)
+        label = pc[..., self.seg_dim].to(torch.int32)
+        ids = torch.arange(self.num_classes, dtype=torch.int32, device=pc.device)
+        onehot = (label[..., None] == ids).to(pc.dtype)
+        rest = torch.cat([pc[..., : self.seg_dim], pc[..., self.seg_dim + 1 :]],
+                         dim=-1)
+        return torch.cat([rest, onehot], dim=-1), mask
+
+
+class IntegerEncode:
+    """One-hot (or logit) columns starting at `seg_dim` -> one integer
+    column (the first maximal class), which replaces them and every column
+    after them."""
+
+    def __init__(self, num_classes: int, seg_dim: int):
+        self.num_classes = num_classes
+        self.seg_dim = seg_dim
+
+    def __call__(self, pc, mask=None):
+        mask = _ensure_mask(pc, mask)
+        probs = pc[..., self.seg_dim : self.seg_dim + self.num_classes]
+        label = torch.argmax(probs, dim=-1).to(pc.dtype)
+        return torch.cat([pc[..., : self.seg_dim], label[..., None]], dim=-1), mask
+
+
+def class_mean_pos(pc, cls: int, seg_dim: int, mask=None):
+    """The centroid of the valid points of class `cls` (label at column
+    `seg_dim`): pc (..., N, D) -> (..., 3); the origin for a cloud without
+    such a point."""
+    mask = _ensure_mask(pc, mask)
+    sel = mask & (pc[..., seg_dim].to(torch.int32) == cls)
+    w = sel.to(pc.dtype)
+    count = torch.sum(w, dim=-1)
+    from pointcloud_tpu_torch import cfg
+
+    if cfg.debug:
+        print(f"DEBUG: class_mean_pos cls={cls} count={count.tolist()}")
+    total = torch.sum(pc[..., :3] * w[..., None], dim=-2)
+    return total / torch.clamp(count, min=1.0)[..., None]
+
+
+def seg_to_color(labels, class_colors):
+    """Integer labels (any shape) -> their classes' RGB colours (..., 3)."""
+    colors = torch.as_tensor(class_colors, dtype=torch.float32, device=labels.device)
+    return colors[labels.to(torch.int64)]
 
 
 def apply_np(transform, pc: np.ndarray, mask=None, seed: int = 0):

@@ -145,12 +145,18 @@ def test_interop_is_total():
 
 
 def test_create_model_rejects_unported_configs():
-    for args, kw in (
-        (("MultiSegmenter", "PointNet", "Cube"), {}),
-        (("StatePredictor", "PointNet", "Cube"), {}),
-    ):
+    """Every model type of cfg.models builds on every backbone of the
+    factory; an unknown model type or backbone raises."""
+    from pointcloud_tpu_torch import cfg as tcfg
+
+    for model_type in tcfg.models:
+        for backbone in tbackbones:
+            spec = tharness.create_model(model_type, backbone, "Cube", device="cpu")
+            assert spec.model_type == model_type and spec.backbone == backbone
+    for args in (("Classifier", "PointNet", "Cube"),
+                 ("MultiSegmenter", "PointNet2MSG", "Cube")):
         with pytest.raises(NotImplementedError):
-            tharness.create_model(*args, device="cpu", **kw)
+            tharness.create_model(*args, device="cpu")
 
 
 def test_scene_table_is_the_jax_packages():
@@ -175,13 +181,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "pointcloud_tpu_torch.ops.group_gather, pointcloud_tpu_torch.cfg, "
         "pointcloud_tpu_torch.data, pointcloud_tpu_torch.data.dataset, "
         "pointcloud_tpu_torch.data.native_loader, pointcloud_tpu_torch.utils, "
-        "pointcloud_tpu_torch.utils.profiling, pointcloud_tpu_torch.train.harness\n"
+        "pointcloud_tpu_torch.utils.profiling, pointcloud_tpu_torch.train.harness, "
+        "pointcloud_tpu_torch.models.architectures, pointcloud_tpu_torch.models.pointnet\n"
         "from pointcloud_tpu_torch.train import make_train_step, train\n"
         "from pointcloud_tpu_torch.interop import checkpoint_from_jax\n"
         "from pointcloud_tpu_torch.transforms import apply_np\n"
         "from pointcloud_tpu_torch.data.native_loader import get_library\n"
         "get_library()\n"
-        "from pointcloud_tpu_torch.losses import EarthMoverDistance\n"
+        "from pointcloud_tpu_torch.losses import EarthMoverDistance, "
+        "FilteringChamferDistance, SegmentingChamferDistance, StatePredictionLoss\n"
+        "from pointcloud_tpu_torch.models import GTEncoder, MLPChainPool, "
+        "MultiGTEncoder, MultiSegAE\n"
+        "from pointcloud_tpu_torch.transforms import FilterClasses, IntegerEncode, "
+        "OneHotEncode, SampleRandomPoints, class_mean_pos, seg_to_color\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "
         "'pointcloud_tpu.'))]\n"

@@ -2306,3 +2306,130 @@ def test_bn_pool_matches_plain_at_driven_shapes(dev, groups, C, pool, dtype, res
     assert (got[2][0, 1] == 0).all()  # equal rows: the first
     if pen is not None:
         assert (got[0][0, 2] == -1e9).all()
+
+
+# ---- the MultiSegmenter's segmenting Chamfer and MLPChainPool ----
+
+SEG_SIZES = {"cube": (1, 21), "arm": (2, 820), "gripper": (4, 103)}  # label, points
+
+
+def segmenting_case(dev, seed, sizes, B=4, N=2048, absent=(), masked=False):
+    """Predictions of the experts `sizes` ({name: (label, points)}) and a
+    labelled target cloud; `absent` lists (cloud, label) pairs that cloud
+    lacks."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pred = {c: torch.rand((B, n, 3), generator=g, device=dev)
+            for c, (_, n) in sizes.items()}
+    labels = torch.randint(0, 5, (B, N), generator=g, device=dev)
+    for cloud, lab in absent:
+        labels[cloud] = torch.where(labels[cloud] == lab, (lab + 1) % 5, labels[cloud])
+    target = torch.cat([torch.rand((B, N, 3), generator=g, device=dev),
+                        labels[..., None].float()], dim=-1)
+    tmask = torch.rand((B, N), generator=g, device=dev) > 0.1 if masked else None
+    return pred, target, tmask
+
+
+@pytest.mark.parametrize("sizes,absent,masked", [
+    (SEG_SIZES, (), False), (SEG_SIZES, ((0, 1), (1, 4)), False),
+    (SEG_SIZES, ((2, 2),), True), ({"gripper": (4, 103)}, (), False)])
+def test_segmenting_chamfer_launches_the_kernels_and_matches_plain(dev, sizes, absent,
+                                                                   masked, monkeypatch):
+    """The Cube scene's three experts and the Table scene's one (whose
+    broadcast target is a strided view until the loss copies it, as the
+    kernel needs). One nn_sweep launch forward and one chamfer_bwd backward; the value
+    within 1e-5 of the plain version's relative to its size (an absent
+    class puts ~1e10 into it); the gradients within 1e-5 of each tensor's
+    largest entry of the plain version's taken at the kernel's own nearest
+    neighbours (the CPU run's nn_sweep hands back the card's indices), and
+    the card's indices equal to the plain version's off 1e-5 ties."""
+    from pointcloud_tpu_torch.losses import SegmentingChamferDistance
+    from pointcloud_tpu_torch.ops import chamfer as tchamfer
+
+    pred, target, tmask = segmenting_case(dev, 3, sizes, absent=absent, masked=masked)
+    loss_fn = SegmentingChamferDistance({c: lab for c, (lab, _) in sizes.items()})
+    leaves = {k: v.clone().requires_grad_() for k, v in pred.items()}
+    n0, c0 = nn_sweep.launches, chamfer_bwd.launches
+    calls = []
+    real = tchamfer.nn_sweep
+
+    def seen(*a):
+        out = real(*a)
+        calls.append((a, out))
+        return out
+
+    monkeypatch.setattr(tchamfer, "nn_sweep", seen)
+    loss = loss_fn(leaves, target, target_mask=tmask)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert nn_sweep.launches == n0 + 1 and chamfer_bwd.launches == c0 + 1
+    (args, card), = calls
+    def with_card_indices(*a):
+        min_x, _, min_y, _ = nn_sweep_reference(*a)
+        return min_x, card[1].cpu(), min_y, card[3].cpu()
+
+    monkeypatch.setattr(tchamfer, "nn_sweep", with_card_indices)
+    cpu = {k: v.detach().cpu().requires_grad_() for k, v in pred.items()}
+    want = loss_fn(cpu, target.cpu(), target_mask=None if tmask is None else tmask.cpu())
+    want.backward()
+    got, want = float(loss.detach()), float(want.detach())
+    assert abs(got - want) <= 1e-5 * abs(want)
+    assert (want > 1e9) == bool(absent)
+    for k in pred:
+        g, w = leaves[k].grad.cpu(), cpu[k].grad
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max(), k
+    plain = nn_sweep_reference(*(a.cpu() for a in args))
+    x, y, xm, ym = (a.cpu() for a in args)
+    d = ((x[:, :, None].double() - y[:, None].double()) ** 2).sum(-1)
+    for i, qm, tm, dd in ((1, xm, ym, d), (3, ym, xm, d.transpose(1, 2))):
+        two = torch.topk(dd.masked_fill(~tm[:, None, :], 1e10), 2, dim=2,
+                         largest=False).values
+        clear = (two[..., 1] - two[..., 0] > 1e-5) & qm & tm.any(dim=1, keepdim=True)
+        assert (card[i].cpu() == plain[i])[clear].all()
+        lonely = qm & ~tm.any(dim=1, keepdim=True)
+        assert (card[i].cpu()[lonely] == 0).all()  # no target: index 0, as JAX
+
+
+@pytest.mark.parametrize("N", [2048, 2000])
+@pytest.mark.parametrize("final_relu", [False, True])
+def test_mlp_chain_pool_train_matches_its_plain_chain(dev, N, final_relu):
+    """MLPChainPool in train mode on the card, fp32, with one group of N
+    rows a cloud: the four kernels (1 + 2 + 1 forward, 3 backward) against
+    the same module on the CPU (the plain chain): output, input and
+    parameter gradients and running statistics within 2e-4 of each
+    tensor's largest entry; a cloud without a valid point gives -1e9."""
+    from pointcloud_tpu_torch.models import MLPChainPool
+    from pointcloud_tpu_torch.models.layers import init_flax_
+
+    torch.manual_seed(N)
+    mods = []
+    for d in (dev, torch.device("cpu")):
+        m = MLPChainPool(6, (64, 128, 256), final_relu=final_relu)
+        init_flax_(m, torch.Generator().manual_seed(1))
+        mods.append(m.to(d))
+    x = torch.randn((4, N, 6))
+    mask = torch.rand((4, N)) > 0.2
+    mask[3] = False
+    cw = torch.randn((4, 256))
+    res = []
+    counts = (mm_stats.launches, bnact_mm_stats.launches, bn_pool.launches,
+              chain_bwd_pass.launches)
+    for m in mods:
+        d = next(m.parameters()).device
+        xl = x.to(d).requires_grad_()
+        out = m(xl, train=True, mask=mask.to(d))
+        (torch.where(out > -5e8, out, 0.0) * cw.to(d)).sum().backward()
+        res.append((out.detach().cpu(), xl.grad.cpu(),
+                    {k: p.grad.cpu() for k, p in m.named_parameters()},
+                    {k: b.cpu() for k, b in m.named_buffers()}))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            got = (mm_stats.launches, bnact_mm_stats.launches, bn_pool.launches,
+                   chain_bwd_pass.launches)
+            assert tuple(a - b for a, b in zip(got, counts)) == (1, 2, 1, 3)
+    (out, dx, dp, st), (rout, rdx, rdp, rst) = res
+    assert (out[3] == -1e9).all() and (rout[3] == -1e9).all()
+    live = rout > -5e8
+    assert torch.equal(out > -5e8, live)
+    assert (out - rout).abs()[live].max() <= 2e-4 * rout.abs()[live].max()
+    for g, w in [(dx, rdx), *zip(dp.values(), rdp.values()), *zip(st.values(), rst.values())]:
+        assert (g - w).abs().max() <= 2e-4 * w.abs().max()

@@ -106,8 +106,9 @@ def test_interop_loads_a_pointnet2_tree_exactly():
 
 def test_train_mode_raises_until_its_slice():
     """The PointNet2 train step is ported: it builds and the model runs in
-    train mode, and the default EMD loss builds. The model types whose heads
-    and losses are not ported still raise until their slices."""
+    train mode, and the default EMD loss builds. Every model type builds on
+    PointNet2 now (the MultiSegmenter's segmenting Chamfer among them); an
+    unknown one raises."""
     tspec = tharness.create_model("Autoencoder", "PointNet2", "Cube",
                                   loss_override="chamfer", device="cpu")
     assert callable(tharness.make_train_step(tspec, tharness.make_optimizer(tspec)))
@@ -115,8 +116,8 @@ def test_train_mode_raises_until_its_slice():
     assert out.shape == (2, 2048, 6) and out.requires_grad
     emd = tharness.create_model("Autoencoder", "PointNet2", "Cube", device="cpu")
     assert type(emd.loss).__name__ == "EarthMoverDistance"
-    with pytest.raises(NotImplementedError, match="MultiSegAE"):
-        tharness.create_model("MultiSegmenter", "PointNet2", "Cube", device="cpu")
+    multi = tharness.create_model("MultiSegmenter", "PointNet2", "Cube", device="cpu")
+    assert type(multi.loss).__name__ == "SegmentingChamferDistance"
     with pytest.raises(NotImplementedError, match="Unknown model type"):
         tharness.create_model("Classifier", "PointNet2", "Cube",
                               loss_override="chamfer", device="cpu")

@@ -113,7 +113,8 @@ def record_pool_gaps(monkeypatch, distinct=False):
     preextract_pool_fused on CPU tensors) record the smallest gap between a
     group's best and second-best value, over all groups and channels, into
     the returned list: where two rows lie within round-off the two packages
-    may send a pooled gradient to different rows. With `distinct`, the
+    may send a pooled gradient to different rows. Groups without a valid
+    row (the -1e9 sentinel, no gradient) are left out. With `distinct`, the
     second-best is the best value below the best: rows that tie exactly
     (PointMLP's, whose every input channel a ReLU zeroed) compute the same
     operations on the same values in either package, and both send the
@@ -132,7 +133,10 @@ def record_pool_gaps(monkeypatch, distinct=False):
             second = torch.where(v < best, v, -torch.inf).amax(dim=2, keepdim=True)
         else:
             second = torch.topk(v, 2, dim=2).values[:, :, 1:]
-        gaps.append(float((best - second).min()))
+        # a group without a valid row pools to the -1e9 sentinel and sends
+        # no gradient: its rows' gaps do not count
+        gap = (best - second).masked_fill(best < -5e8, torch.inf)
+        gaps.append(float(gap.min()))
         return plain_pool(h, sc, pen, pool, final_relu, res)
 
     monkeypatch.setattr(tpf, "_PLAIN", (*tpf._PLAIN[:2], recording_pool))
