@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-times --step-times  # kernels and steps alone
     python3 chip_smoke.py --train-loop  # the training loop (phase 15) alone
     python3 chip_smoke.py --heads  # the MultiSegmenter and StatePredictor (16) alone
+    python3 chip_smoke.py --bridge  # the Vision GoalEnvs (17) alone
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
@@ -167,7 +168,23 @@ lines:
      models card vs CPU at B=2 (eval outputs, first loss, gradients, first
      update); train() of each model type (PointNet2) for one epoch over
      phase 15's frames (which carry `ground_truth` pairs), launches checked
-     step by step, then an encoder_only load and `encode`.
+     step by step, then an encoder_only load and `encode`;
+ 17. the sensor -> encoder -> GoalEnv bridge on the synthetic backend:
+     random PointNet2 checkpoints in the port's format (Autoencoder on
+     Table; Segmenter, MultiSegmenter, StatePredictor on Cube; StatePredictor
+     on PegInHole) in a temporary output root under build/; VisionReach,
+     VisionPushSeg, VisionPush, VisionPushGT and VisionPegInHole built from
+     the env classes on the card (no gymnasium there: the stand-ins of
+     envs/spaces.py), reset and 20 steps each at full width (the sensor's
+     FilterBBox + fps from 16,384 raw points to 2,048, the encoder's SA1 and
+     SA2), bf16: exact fps / ball_group launches at reset and every step,
+     every sensed cloud bit-equal to the plain chain on the card, the step's
+     host time split into sensor, encode and the rest, the encoders rebuilt
+     at fp32 card vs CPU (1e-4 of the largest entry); the sensor chain and
+     fps alone at that shape, timed beside the plain version and the bound;
+     generate_dataset (20 frames, frames/s) and generate_pc (3 frames) equal
+     to the CPU's; one short latent_distributions run of VisionReach's
+     encoder and its threshold read back by a new env.
 Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound (the dense-pool backward at phase 4's
@@ -180,7 +197,7 @@ idle share, beside the host's enqueue time; the dense-pool forward's and
 `sinkhorn`'s device time a step read from it). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
 13, encode, the sensor chain, each train() run of 15 and 16, step by step,
-and the paths of 16)
+the paths of 16, and each env reset and step of 17)
 every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
@@ -197,6 +214,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet): fp32 on the CUDA cores, dense
@@ -1118,12 +1136,16 @@ def randomize_(module, gen):
     generator `gen`: weights ~ N(0, 1/fan_in), biases and offsets ~ N(0,
     0.1), BatchNorm scales of random sign with |scale| in [0.5, 1.5] (a
     negative one sends the pool through its min branch), running means ~
-    N(0, 0.1) and variances in [0.5, 2]."""
+    N(0, 0.1) and variances in [0.5, 2]. The chain layers' numbered leaves
+    (`w{i}` (cin, co), `scale{i}`, `var{i}`, ...) are drawn as their names
+    say."""
     with torch.no_grad():
         for name, t in module.state_dict().items():
-            leaf, shape = name.rsplit(".", 1)[-1], t.shape
+            leaf, shape = name.rsplit(".", 1)[-1].rstrip("0123456789"), t.shape
             if leaf == "weight":
                 v = torch.randn(shape, generator=gen) / shape[1] ** 0.5
+            elif leaf == "w":
+                v = torch.randn(shape, generator=gen) / shape[0] ** 0.5
             elif leaf == "scale":
                 v = torch.where(torch.rand(shape, generator=gen) < 0.2, -1.0, 1.0)
                 v = v * (0.5 + torch.rand(shape, generator=gen))
@@ -5598,6 +5620,347 @@ def heads_phase(seed, smi, err, x2):
     heads_loop(seed, smi)
 
 
+############################ 17. the sensor -> encoder -> GoalEnv bridge ############################
+
+BRIDGE_STEPS = 20  # env steps of each Vision env
+# the registered Vision envs driven: (id, task, encoder, model type, scene)
+BRIDGE_ENVS = (
+    ("VisionReach-v0", "RoboReach", "GlobalAEEncoder", "Autoencoder", "Table"),
+    ("VisionPushSeg-v0", "RoboPush", "GlobalSegmenterEncoder", "Segmenter", "Cube"),
+    ("VisionPush-v0", "RoboPush", "MultiSegmenterEncoder", "MultiSegmenter", "Cube"),
+    ("VisionPushGT-v0", "RoboPush", "StatePredictor", "StatePredictor", "Cube"),
+    ("VisionPegInHole-v0", "RoboPegInHole", "StatePredictor", "StatePredictor", "PegInHole"),
+)
+
+
+class HostTimed:
+    """A callable's host ms a call (the env layer's calls return numpy, so
+    each ends synchronised with the card) and its last result."""
+
+    def __init__(self, fn):
+        self.fn, self.ms, self.out = fn, [], []
+
+    def __call__(self, *a, **k):
+        t0 = time.perf_counter()
+        out = self.fn(*a, **k)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.out.append(out)
+        return out
+
+
+def write_bridge_checkpoints(root, seed):
+    """Random PointNet2 weights (randomize_) of each model the Vision envs
+    read, in the port's checkpoint format under
+    root/<scene>/<Model>_PointNet2/version_0/checkpoints/step_0."""
+    import os
+
+    from pointcloud_tpu_torch.train.harness import (
+        checkpoint_payload,
+        create_model,
+        make_optimizer,
+        save_checkpoint,
+    )
+
+    gen = torch.Generator().manual_seed(seed + 30)
+    for model_type, scene in sorted({(m, s) for _, _, _, m, s in BRIDGE_ENVS}):
+        spec = create_model(model_type, "PointNet2", scene, device="cpu", seed=seed)
+        randomize_(spec.model, gen)
+        save_checkpoint(os.path.join(root, scene, f"{model_type}_PointNet2", "version_0",
+                                     "checkpoints"), 0,
+                        checkpoint_payload(spec, make_optimizer(spec), 0))
+
+
+def plain_sensed(raw, bbox, K):
+    """The plain chain on the card: FilterBBox, then fps_reference (the
+    plain FPS, launched here op by op on the card) over the raw clouds
+    `raw` (R, N, C) at once, and the gather: (R, K, C)."""
+    from pointcloud_tpu_torch.ops import fps_reference
+    from pointcloud_tpu_torch.ops.geometry import index_points
+    from pointcloud_tpu_torch.transforms import FilterBBox
+
+    _, mask = FilterBBox(bbox)(raw)
+    idx = fps_reference(raw[..., :3].contiguous(), K, mask)
+    return index_points(raw, idx)
+
+
+def encoder_shim(env, device):
+    """What an encoder reads of its env, on another device."""
+    import types
+
+    return types.SimpleNamespace(
+        scene=env.scene, classes=env.classes, class_latent_dim=env.class_latent_dim,
+        states=env.states, state_dim=env.state_dim, bbox=env.bbox, device=device,
+        visual_goal=env.visual_goal)
+
+
+def card_vs_cpu_encodings(env, sensed, label):
+    """The env's encoder class rebuilt at fp32 on the card and on the CPU:
+    __call__ on each sensed observation, every output within 1e-4 of its
+    largest entry. Returns the largest relative error."""
+    from pointcloud_tpu_torch import cfg
+
+    cls, keys = type(env.encoder), (env.encoder.obs_keys, env.encoder.goal_keys)
+    before = cfg.precision
+    cfg.precision = "fp32"
+    try:
+        card = cls(encoder_shim(env, torch.device("cuda")), *keys)
+        cpu = cls(encoder_shim(env, torch.device("cpu")), *keys)
+        worst = 0.0
+        for obs in sensed:
+            for got, want in zip(card(obs), cpu(obs)):
+                err = float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
+                if got.shape != want.shape or not err <= 1e-4:
+                    raise AssertionError(f"{label}: fp32 encoding card vs CPU {err:.3e} "
+                                         f"of the largest entry")
+                worst = max(worst, err)
+    finally:
+        cfg.precision = before
+    return worst
+
+
+def bridge_env(env_id, task, encoder, seed, smi):
+    """One Vision env through its classes on the card: reset and
+    BRIDGE_STEPS steps with exact fps / ball_group launches each, every
+    sensed cloud against the plain chain on the card, the step split into
+    sensor, encode and the rest, and the encoder at fp32 card vs CPU.
+    Returns (env, {part: sorted step ms})."""
+    from pointcloud_tpu_torch.envs import envs as tenvs
+    from pointcloud_tpu_torch.vision import pc_encoder as tenc
+    from pointcloud_tpu_torch.vision.pc_sensor import PointCloudSensor
+
+    extra = {"simulate_goal": True} if env_id == "VisionReach-v0" else {}
+    t0 = time.perf_counter()
+    env = getattr(tenvs, task)(sensor=PointCloudSensor, encoder=getattr(tenc, encoder),
+                               device="cuda", **extra)
+    build_s = time.perf_counter() - t0
+    env.backend.capture_pointcloud = capture = HostTimed(env.backend.capture_pointcloud)
+    env.sensor.observe = sensor = HostTimed(env.sensor.observe)
+    env._encode_current = current = HostTimed(env._encode_current)
+    passthrough = getattr(env.encoder, "passthrough_goal", False)
+    zero_counts()
+    env.reset(seed=seed)
+    counts = read_counts()
+    expect_counts(f"{env_id} reset", counts, fps=4 if passthrough else 6,
+                  ball_group=2 if passthrough else 4)
+    rng = np.random.default_rng(seed)
+    step_ms = []
+    for t in range(BRIDGE_STEPS):
+        action = rng.uniform(-1, 1, env.action_space.shape).astype(np.float32)
+        zero_counts()
+        t1 = time.perf_counter()
+        obs, reward, _, _, _ = env.step(action)
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        expect_counts(f"{env_id} step {t}", read_counts(), fps=3, ball_group=2)
+        if reward not in (-1, 0) or not all(np.isfinite(v).all() for v in obs.values()):
+            raise AssertionError(f"{env_id} step {t}: reward {reward}, obs {obs}")
+    K = env.sample_points
+    raw = np.stack([np.concatenate([pts, feats["rgb"]], 1) for pts, feats in capture.out])
+    want = plain_sensed(torch.from_numpy(raw).cuda(), env.bbox, K).cpu().numpy()
+    got = np.stack([np.concatenate([o["points"], o["rgb"]], 1) for o in sensor.out])
+    if got.shape != (2 + BRIDGE_STEPS, K, 6) or not np.array_equal(got, want):
+        raise AssertionError(f"{env_id}: a sensed cloud differs from the plain chain's")
+    # the steps' own calls (the reset made 2 sensor calls and 1 _encode_current):
+    # rendering the raw cloud, the sensor's chain, the encoder, the rest
+    render = capture.ms[2:]
+    chain = [s - r for s, r in zip(sensor.ms[2:], render)]
+    enc = [c - s for c, s in zip(current.ms[1:], sensor.ms[2:])]
+    parts = {"step": sorted(step_ms), "render": sorted(render), "sensor": sorted(chain),
+             "encode": sorted(enc),
+             "rest": sorted(a - c for a, c in zip(step_ms, current.ms[1:]))}
+    err = card_vs_cpu_encodings(env, [o for o in sensor.out[-3:]], env_id)
+    med = {k: v[len(v) // 2] for k, v in parts.items()}
+    log(f"  {env_id} ({task} + {encoder} on PointNet2, {K} points, bf16): built in "
+        f"{build_s:.2f} s; {BRIDGE_STEPS} steps, each launching fps 3 (sensor 1, SA1, "
+        f"SA2) and ball_group 2; {len(raw)} sensed clouds bit-equal to the plain chain "
+        f"on the card; fp32 encodings card vs CPU within {err:.2e} of the largest entry")
+    log(f"    step median {med['step']:.3f} ms, max {parts['step'][-1]:.3f} | render "
+        f"(numpy) {med['render']:.3f} / {parts['render'][-1]:.3f} | sensor chain "
+        f"{med['sensor']:.3f} / {parts['sensor'][-1]:.3f} | encode {med['encode']:.3f} / "
+        f"{parts['encode'][-1]:.3f} | rest of the host's work {med['rest']:.3f} / "
+        f"{parts['rest'][-1]:.3f} (host clock, median / max) | {smi}")
+    return env, parts
+
+
+class ProportionalReach:
+    """A ground-truth Reach policy: action = clip(12 (desired - achieved))."""
+
+    def predict(self, obs, deterministic=True):
+        delta = obs["desired_goal"] - obs["achieved_goal"]
+        return np.concatenate([np.clip(12.0 * delta, -1, 1), [0.0]]).astype(np.float32), None
+
+
+def same_frames(a, b, label):
+    import os
+
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        raise AssertionError(f"{label}: frames {names} against {sorted(os.listdir(b))}")
+    for name in names:
+        x = np.load(os.path.join(a, name), allow_pickle=True)
+        y = np.load(os.path.join(b, name), allow_pickle=True)
+        for k in y.files:
+            if y[k].dtype == object:
+                same = all(nx == ny and np.array_equal(vx, vy)
+                           for (nx, vx), (ny, vy) in zip(x[k], y[k]))
+            else:
+                same = x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            if not same:
+                raise AssertionError(f"{label}: {name} {k} differs card vs CPU")
+    return len(names)
+
+
+def encode_kernel_times(env, smi):
+    """fps and ball_group at SA1 and SA2 of one `encode` (B=1) on the env's
+    last sensed cloud, with the env's PointNet2 backbone: each equal to its
+    plain version, timed (CUDA events) beside its plain version, the
+    library yardstick (ball_group) and the bound. Returns {level: (fps ms,
+    fps bound, ball ms, ball plain ms, ball library ms, ball bound)}."""
+    from pointcloud_tpu_torch.ops import (
+        ball_group,
+        ball_group_reference,
+        farthest_point_sample,
+        fps_reference,
+    )
+    from pointcloud_tpu_torch.vision.pc_encoder import _normalize_pc
+
+    model = env.encoder.model
+    bb = getattr(model, "preencoder", None) or model.encoder.backbone
+    xn = torch.from_numpy(_normalize_pc(env.observation, ["rgb"])[None]).cuda()
+    out = {}
+    for lvl, sa, (xyz, feats, cents) in zip(
+            ("SA1", "SA2"), (bb.SetAbstraction_0, bb.SetAbstraction_1),
+            sa_level_inputs(bb, xn)):
+        if not torch.equal(farthest_point_sample(xyz, sa.npoint),
+                           fps_reference(xyz, sa.npoint)):
+            raise AssertionError(f"encode {lvl}: fps differs from the plain version")
+        args = (xyz, feats, cents, None, sa.nsample, sa.radius)
+        got, want = ball_group(*args), ball_group_reference(*args)
+        if not all(torch.equal(a, w) for a, w in zip(got, want)):
+            raise AssertionError(f"encode {lvl}: ball_group differs from the plain version")
+        B, N, F = feats.shape
+        S, k = cents.shape[1], sa.nsample
+        f_ms = cuda_ms(lambda: farthest_point_sample(xyz, S), iters=20)
+        f_bnd = fps_bound(B, N, S)
+        b_ms = cuda_ms(lambda: ball_group(*args), iters=20)
+        b_plain = cuda_ms(lambda: ball_group_reference(*args), iters=3, warmup=1)
+        b_lib = cuda_ms(lambda: ball_library(xyz, feats, cents, k, sa.radius), iters=3,
+                        warmup=1)
+        b_bnd = ball_bound(B, N, S, k, F, feats.element_size(), got[1], got[2])
+        out[lvl] = (f_ms, f_bnd, b_ms, b_plain, b_lib, b_bnd)
+        log(f"  encode {lvl} (B=1, N={N}, S={S}, k={k}, F={F} bf16): fps {f_ms:.4f} ms "
+            f"(bound {f_bnd[0]:.5f}, {f_bnd[1]}); ball_group {b_ms:.4f} ms, plain "
+            f"{b_plain:.3f}, library cdist + topk + gather {b_lib:.3f}, bound "
+            f"{b_bnd[0]:.5f} ({b_bnd[1]}); both equal to their plain versions | {smi}")
+    return out
+
+
+def bridge_phase(seed, smi):
+    """Phase 17 (see the module docstring). Returns its numbers."""
+    import os
+    import shutil
+    import tempfile
+
+    from pointcloud_tpu_torch.data.generate import generate_pc
+    from pointcloud_tpu_torch.envs import envs as tenvs
+    from pointcloud_tpu_torch.envs.synthetic import SyntheticScene, generate_dataset
+    from pointcloud_tpu_torch.ops import _build, farthest_point_sample, fps_plan, fps_reference
+    from pointcloud_tpu_torch.train.calibrate import latent_distributions
+    from pointcloud_tpu_torch.transforms import FilterBBox, sensor_chain
+    from pointcloud_tpu_torch.vision import pc_encoder as tenc
+    from pointcloud_tpu_torch.vision.pc_sensor import PointCloudSensor
+
+    log("[bridge] the Vision GoalEnvs on the card: synthetic backend -> PointCloudSensor "
+        "(FilterBBox + fps, 16,384 -> 2,048 points) -> PointNet2 encoder zoo")
+    work = tempfile.mkdtemp(prefix="bridge-", dir=_build.BUILD_DIR)
+    before_root = tenc.OUTPUT_ROOT
+    out = {}
+    try:
+        tenc.OUTPUT_ROOT = os.path.join(work, "output")
+        write_bridge_checkpoints(tenc.OUTPUT_ROOT, seed)
+        envs = {}
+        for env_id, task, encoder, _, _ in BRIDGE_ENVS:
+            env, parts = bridge_env(env_id, task, encoder, seed, smi)
+            out[env_id] = parts
+            envs[env_id] = env
+        out["encode"] = encode_kernel_times(envs["VisionPush-v0"], smi)
+
+        # the sensor chain alone at the synthetic scene's shape
+        sim = SyntheticScene("Cube", seed=seed, device="cuda")
+        points, rgb, labels = sim.render_points()
+        pc = torch.from_numpy(np.concatenate([points, rgb], 1)).cuda()
+        bbox, K = sim.cfg["bbox"], sim.cfg["sample_points"]
+        chain = sensor_chain(bbox, K, "FPS", 0, "cuda")
+        zero_counts()
+        chain(pc)
+        torch.cuda.synchronize()
+        expect_counts("sensor chain", read_counts(), fps=1)
+        chain_ms = host_ms(lambda: chain(pc), 20, 3)
+        xyz = pc[None, :, :3].contiguous()
+        mask = FilterBBox(bbox)(pc)[1][None].contiguous()
+        fps_ms = cuda_ms(lambda: farthest_point_sample(xyz, K, mask), 20)
+        plain_ms = cuda_ms(lambda: fps_reference(xyz, K, mask), 1, warmup=1)
+        if not torch.equal(farthest_point_sample(xyz, K, mask), fps_reference(xyz, K, mask)):
+            raise AssertionError("fps at the sensor's synthetic shape differs from plain")
+        plan = fps_plan(1, pc.shape[0])
+        bnd = fps_bound(1, pc.shape[0], K)
+        out["sensor"] = (chain_ms[len(chain_ms) // 2], fps_ms, plain_ms, bnd)
+        log(f"  sensor chain on one {pc.shape[0]}-point synthetic Cube cloud "
+            f"({int(mask.sum())} in the bbox) -> {K}: median {chain_ms[len(chain_ms) // 2]:.3f}"
+            f" ms, max {chain_ms[-1]:.3f} (host clock, synchronised); fps alone "
+            f"{fps_ms:.3f} ms ({plan.route} route, {plan.cluster} blocks of "
+            f"{plan.per_block} points) against its plain version {plain_ms:.1f} ms "
+            f"and a bound of {bnd[0]:.4f} ms ({bnd[1]}) | {smi}")
+
+        # generate_dataset on the card, frames/s; its first frames against the CPU's
+        gen_dir = os.path.join(work, "frames")
+        zero_counts()
+        t0 = time.perf_counter()
+        generate_dataset(os.path.join(gen_dir, "card"), scene="Cube", frames=20, seed=seed,
+                         device="cuda")
+        secs = time.perf_counter() - t0
+        expect_counts("generate_dataset", read_counts(), fps=20)
+        generate_dataset(os.path.join(gen_dir, "cpu"), scene="Cube", frames=3, seed=seed,
+                         device="cpu")
+        for i in range(3, 20):
+            os.remove(os.path.join(gen_dir, "card", f"{i}.npz"))
+        same_frames(os.path.join(gen_dir, "card"), os.path.join(gen_dir, "cpu"),
+                    "generate_dataset")
+        out["generate_dataset"] = 20 / secs
+        log(f"  generate_dataset(Cube, 20 frames of {K} points): {20 / secs:.1f} frames/s "
+            f"on the card (one fps launch a frame); its first 3 frames equal to the "
+            f"CPU's | {smi}")
+        zero_counts()
+        generate_pc(os.path.join(gen_dir, "pc_card"), tenvs.RoboPush, horizon=3, runs=1,
+                    seed=seed, device="cuda")
+        expect_counts("generate_pc", read_counts(), fps=5)
+        generate_pc(os.path.join(gen_dir, "pc_cpu"), tenvs.RoboPush, horizon=3, runs=1,
+                    seed=seed, device="cpu")
+        n = same_frames(os.path.join(gen_dir, "pc_card"), os.path.join(gen_dir, "pc_cpu"),
+                        "generate_pc")
+        log(f"  generate_pc(RoboPush, 3 frames, segmentation): {n} frames equal to the "
+            f"CPU's; fps 5 launches (the reset's goal and current observations, 3 steps)")
+
+        # one short calibration of VisionReach's encoder, and its sidecar read back
+        reach = envs["VisionReach-v0"]
+        threshold, before, during = latent_distributions(
+            "VisionReach-v0", ProportionalReach(), horizon=15, runs=2, env=reach, save=True)
+        if threshold is None or threshold.shape != (3,) or not np.isfinite(threshold).all():
+            raise AssertionError(f"calibration: threshold {threshold}")
+        again = tenvs.RoboReach(sensor=PointCloudSensor, encoder=tenc.GlobalAEEncoder,
+                                device="cuda")
+        if not np.array_equal(again.encoder.latent_threshold, threshold):
+            raise AssertionError("calibration: the saved threshold does not read back")
+        log(f"  latent_distributions(VisionReach, proportional GT policy, 2 runs x 15 "
+            f"steps): threshold {np.array2string(threshold, precision=4)} from "
+            f"{len(before)} + {len(during)} episodes, saved and read back by a new env")
+        for env in list(envs.values()) + [again]:
+            env.close()
+    finally:
+        tenc.OUTPUT_ROOT = before_root
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5622,6 +5985,10 @@ def main(argv=None) -> int:
     ap.add_argument("--heads", action="store_true",
                     help="only build, then run phase 16 (the MultiSegmenter and "
                          "the StatePredictor); prints no result lines")
+    ap.add_argument("--bridge", action="store_true",
+                    help="only build, then run phase 17 (the Vision GoalEnvs: "
+                         "sensor, encoder zoo, generate, calibrate); prints no "
+                         "result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps the redesigned "
                          "kernels serve (step_times); with --kernel-times, "
@@ -5658,6 +6025,15 @@ def main(argv=None) -> int:
         x2 = raw_batch(torch.Generator(device="cuda").manual_seed(args.seed), sc, 2,
                        sc.sample_points, torch.device("cuda"))
         heads_phase(args.seed, smi, {"nn_sweep": 0.0, "chamfer_bwd": 0.0}, x2)
+        return 0
+    if args.bridge:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        bridge_phase(args.seed, smi)
         return 0
     if args.kernel_times or args.step_times:
         from pointcloud_tpu_torch.ops import _build
@@ -6153,6 +6529,9 @@ def main(argv=None) -> int:
 
     # ---- 16. the MultiSegmenter and the StatePredictor ----
     heads_phase(args.seed, smi, err, x_raw[:2])
+
+    # ---- 17. the sensor -> encoder -> GoalEnv bridge ----
+    bridge_phase(args.seed, smi)
 
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""

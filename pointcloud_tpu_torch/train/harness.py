@@ -63,6 +63,7 @@ from pointcloud_tpu_torch.models.architectures import (
 from pointcloud_tpu_torch.models.layers import BatchNorm, Dense, init_flax_
 from pointcloud_tpu_torch.models.pointnet import DenseBNMaxPool
 from pointcloud_tpu_torch.transforms import Normalize
+from pointcloud_tpu_torch.utils import resolve_device
 
 
 @dataclasses.dataclass
@@ -476,10 +477,7 @@ def train(
     multi-host training (the JAX function's data_parallel and multihost)
     are not ported.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train(device='cuda') needs a CUDA device; pass "
-                           "device='cpu' to train on the CPU")
+    device = resolve_device(device)
     epochs = epochs or cfg.vision_epochs
     batch_size = batch_size or cfg.vision_batch_size
 

@@ -219,3 +219,17 @@ def apply_np(transform, pc: np.ndarray, mask=None, seed: int = 0):
         torch.manual_seed(seed)
         out_pc, out_mask = transform(pc_t, mask_t)
     return out_pc.numpy(), out_mask.numpy()
+
+
+def sensor_chain(bbox, K: int, sampler: str | None, seed: int, device) -> Compose:
+    """The sensor's chain: FilterBBox(bbox), then SampleFurthestPoints(K)
+    ('FPS'), SampleRandomPoints(K) on a torch.Generator on `device` seeded
+    with `seed` ('RS'), or nothing (None: the filter alone). The JAX package
+    takes a PRNG key from `seed` where this seeds the generator."""
+    stages = [FilterBBox(bbox)]
+    if sampler == "FPS":
+        stages.append(SampleFurthestPoints(K))
+    elif sampler == "RS":
+        generator = torch.Generator(device=device).manual_seed(seed)
+        stages.append(SampleRandomPoints(K, generator))
+    return Compose(stages)

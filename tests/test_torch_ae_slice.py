@@ -11,6 +11,7 @@ Chamfer loss 1e-5 absolute (the BASELINE guard).
 
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -165,6 +166,9 @@ def test_scene_table_is_the_jax_packages():
     assert vars(tscenes.scene_config("Cube")) == vars(jscenes.scene_config("Cube"))
 
 
+GENERATE_CLI = str(Path(__file__).parents[1] / "generate_pc_torch.py")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, pointcloud_tpu_torch, pointcloud_tpu_torch.ops, "
@@ -194,6 +198,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "MultiGTEncoder, MultiSegAE\n"
         "from pointcloud_tpu_torch.transforms import FilterClasses, IntegerEncode, "
         "OneHotEncode, SampleRandomPoints, class_mean_pos, seg_to_color\n"
+        "import pointcloud_tpu_torch.envs.sensors, pointcloud_tpu_torch.envs.spaces, "
+        "pointcloud_tpu_torch.envs.encoders, pointcloud_tpu_torch.envs.utils, "
+        "pointcloud_tpu_torch.envs.synthetic, pointcloud_tpu_torch.envs.camera, "
+        "pointcloud_tpu_torch.envs.backends, pointcloud_tpu_torch.envs.base_env, "
+        "pointcloud_tpu_torch.envs.envs, pointcloud_tpu_torch.envs.registration, "
+        "pointcloud_tpu_torch.vision, pointcloud_tpu_torch.vision.pc_sensor, "
+        "pointcloud_tpu_torch.vision.pc_encoder, pointcloud_tpu_torch.train.calibrate, "
+        "pointcloud_tpu_torch.data.generate\n"
+        "from pointcloud_tpu_torch.envs.registration import register_all\n"
+        "from pointcloud_tpu_torch.transforms import sensor_chain\n"
+        "from pointcloud_tpu_torch.utils import resolve_device\n"
+        "import importlib.util; spec = importlib.util.spec_from_file_location("
+        f"'generate_pc_torch', {GENERATE_CLI!r}); "
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "
         "'pointcloud_tpu.'))]\n"

@@ -2433,3 +2433,68 @@ def test_mlp_chain_pool_train_matches_its_plain_chain(dev, N, final_relu):
     assert (out - rout).abs()[live].max() <= 2e-4 * rout.abs()[live].max()
     for g, w in [(dx, rdx), *zip(dp.values(), rdp.values()), *zip(st.values(), rst.values())]:
         assert (g - w).abs().max() <= 2e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("scene,outside", [("Cube", 0.0), ("PegInHole", 0.25)])
+def test_sensor_chain_at_the_synthetic_shape(dev, scene, outside):
+    """The sensor's chain on a synthetic scene's 16,384-point raw cloud (a
+    share moved outside the bbox): one fps launch on the cluster route,
+    bit-equal to the plain chain on the card and on the CPU."""
+    from pointcloud_tpu_torch.envs.synthetic import SyntheticPegScene, SyntheticScene
+    from pointcloud_tpu_torch.transforms import FilterBBox, sensor_chain
+
+    sim = (SyntheticPegScene(seed=2, device="cpu") if scene == "PegInHole"
+           else SyntheticScene(scene, seed=2, device="cpu"))
+    points, rgb, labels = sim.render_points()
+    pc = torch.from_numpy(np.concatenate([points, rgb, labels[:, None].astype(np.float32)], 1))
+    out = torch.rand(len(pc), generator=torch.Generator().manual_seed(3)) < outside
+    pc[out, 0] += 10.0
+    bbox, K = sim.cfg["bbox"], sim.cfg["sample_points"]
+    assert fps_plan(1, len(pc)).route == "cluster"
+    before = farthest_point_sample.launches
+    got, mask = sensor_chain(bbox, K, "FPS", 0, dev)(pc.to(dev))
+    torch.cuda.synchronize()
+    assert farthest_point_sample.launches - before == 1 and bool(mask.all())
+    _, valid = FilterBBox(bbox)(pc.to(dev))
+    plain = pc.to(dev)[fps_reference(pc[None, :, :3].to(dev).contiguous(), K, valid[None])[0].long()]
+    cpu, _ = sensor_chain(bbox, K, "FPS", 0, "cpu")(pc)
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), cpu)
+
+
+def test_pointcloud_sensor_env_on_the_card_equals_the_cpu(dev):
+    """RoboPush with the PointCloudSensor (Passthrough encoder) on the card
+    and on the CPU: reset and 2 steps give the same observations, sensed
+    clouds and goals; one fps launch an observation."""
+    from pointcloud_tpu_torch.envs.envs import RoboPush
+    from pointcloud_tpu_torch.vision.pc_sensor import PointCloudSensor
+
+    res = []
+    for d in (dev, torch.device("cpu")):
+        env = RoboPush(sensor=PointCloudSensor, require_segmentation=True, device=d)
+        before = farthest_point_sample.launches
+        seq = [env.reset(seed=6)[0]]
+        for t in range(2):
+            seq.append(env.step(np.full(4, 0.3 - 0.2 * t, np.float32))[0])
+        if d.type == "cuda":
+            assert farthest_point_sample.launches - before == 4  # goal + 3 observations
+        res.append((seq, dict(env.observation), dict(env.goal_obs)))
+    (seq, obs, goal), (cseq, cobs, cgoal) = res
+    for a, b in zip(seq, cseq):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+    for k in ("points", "rgb", "segmentation"):
+        np.testing.assert_array_equal(obs[k], cobs[k])
+        np.testing.assert_array_equal(goal[k], cgoal[k])
+
+
+def test_generate_dataset_on_the_card_equals_the_cpu(dev, tmp_path):
+    from pointcloud_tpu_torch.envs.synthetic import generate_dataset
+
+    for d in ("cuda", "cpu"):
+        generate_dataset(str(tmp_path / d), scene="PegInHole", frames=2, seed=4, device=d)
+    for name in ("0.npz", "1.npz"):
+        a = np.load(tmp_path / "cuda" / name, allow_pickle=True)
+        b = np.load(tmp_path / "cpu" / name, allow_pickle=True)
+        for k in ("points", "rgb", "segmentation", "boundingbox"):
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
