@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-loop  # the training loop (phase 15) alone
     python3 chip_smoke.py --heads  # the MultiSegmenter and StatePredictor (16) alone
     python3 chip_smoke.py --bridge  # the Vision GoalEnvs (17) alone
+    python3 chip_smoke.py --rl  # the RL agents on the card (18) alone
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
@@ -184,7 +185,29 @@ lines:
      fps alone at that shape, timed beside the plain version and the bound;
      generate_dataset (20 frames, frames/s) and generate_pc (3 frames) equal
      to the CPU's; one short latent_distributions run of VisionReach's
-     encoder and its threshold read back by a new env.
+     encoder and its threshold read back by a new env;
+ 18. the RL agents on the card (rl/): phase 17's random Autoencoder
+     checkpoint on Table; tqc() on VisionReach (rl.vec_env.make_env, the
+     env classes and the TimeLimit stand-in on the card) at tqc.yml's
+     VisionReach settings passed as arguments (no PyYAML there): (64, 64)
+     actor and 2 critics of 25 quantiles, batch 256, gamma 0.95, tau 0.05,
+     HER future-4; one env, 600 env steps, updates from step 300, one test
+     epoch of 2 episodes: every env step launches exactly 3 fps and 2
+     ball_group, finite losses, the saved policy reloaded by load_policy
+     acting as the live one; the same with 4 envs in SubprocVecGoalEnv
+     workers on the card; the loop's env steps/s split into env step,
+     update and act (the actor's forwards of the collection steps), each
+     timed in the loop, and the rest (HER sampling, the draws and copies,
+     bookkeeping) by subtraction; one update of
+     tqc.yml's widest agent (RoboPush: (512, 512, 512), batch 2048, 2
+     critics) timed and held card against CPU from the same parameters,
+     warm Adam state, batch and Gaussian draws, and updates/s at (64, 64) x
+     256 and at that width; her() on RoboReach at tests/test_rl.py's
+     learning bar (hidden (64, 64), 4 x 1500 steps, batch 128, seed 0: the
+     best test success >= 0.6); latent_distributions on VisionReach with
+     each saved policy given as a path (the HER policy's threshold finite,
+     saved and read back; the TQC policy's run only loads and drives, as
+     that policy is not expected to succeed).
 Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound (the dense-pool backward at phase 4's
@@ -197,7 +220,8 @@ idle share, beside the host's enqueue time; the dense-pool forward's and
 `sinkhorn`'s device time a step read from it). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
 13, encode, the sensor chain, each train() run of 15 and 16, step by step,
-the paths of 16, and each env reset and step of 17)
+the paths of 16, each env reset and step of 17, and each env step of the
+RL loop in 18)
 every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
@@ -5648,9 +5672,10 @@ class HostTimed:
         return out
 
 
-def write_bridge_checkpoints(root, seed):
+def write_bridge_checkpoints(root, seed, only=None):
     """Random PointNet2 weights (randomize_) of each model the Vision envs
-    read, in the port's checkpoint format under
+    read (or of the (model, scene) pairs in `only`), in the port's
+    checkpoint format under
     root/<scene>/<Model>_PointNet2/version_0/checkpoints/step_0."""
     import os
 
@@ -5662,7 +5687,7 @@ def write_bridge_checkpoints(root, seed):
     )
 
     gen = torch.Generator().manual_seed(seed + 30)
-    for model_type, scene in sorted({(m, s) for _, _, _, m, s in BRIDGE_ENVS}):
+    for model_type, scene in sorted(only or {(m, s) for _, _, _, m, s in BRIDGE_ENVS}):
         spec = create_model(model_type, "PointNet2", scene, device="cpu", seed=seed)
         randomize_(spec.model, gen)
         save_checkpoint(os.path.join(root, scene, f"{model_type}_PointNet2", "version_0",
@@ -5961,6 +5986,356 @@ def bridge_phase(seed, smi):
     return out
 
 
+# tqc.yml's VisionReach entry (and RoboReach's), passed as arguments: the GPU
+# machine has no PyYAML
+RL_REACH = dict(hidden=(64, 64), critic_hidden=(64, 64), n_critics=2, n_quantiles=25,
+                top_quantiles_to_drop=2, batch_size=256, gamma=0.95, polyak=1 - 0.05,
+                lr=1e-3, use_her=True, her_strategy="future", her_ratio=4 / (4 + 1))
+RL_STEPS, RL_START = 600, 300  # env steps of a TQC run; random actions and no updates before
+RL_PUSH = ((512, 512, 512), 2048)  # tqc.yml's widest agent (RoboPush): net_arch, batch
+
+
+class StepChecked:
+    """An env whose every step on the card must launch exactly 3 fps (sensor,
+    SA1, SA2) and 2 ball_group (SA1, SA2); its build's and steps' host ms."""
+
+    def __init__(self, env, label, build_ms):
+        self.env, self.label, self.build_ms, self.ms = env, label, build_ms, []
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def step(self, action):
+        zero_counts()
+        t0 = time.perf_counter()
+        out = self.env.step(action)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        expect_counts(f"{self.label} step {len(self.ms)}", read_counts(), fps=3, ball_group=2)
+        return out
+
+
+_CHECKED = []  # the StepChecked envs this process made, in order
+
+
+def checked_env(env_id):
+    """A picklable env_fn (functools.partial of it): make_env's env on the
+    card, every step's launches checked, in the vector env's workers too."""
+    from pointcloud_tpu_torch.rl.vec_env import make_env
+
+    t0 = time.perf_counter()
+    env = make_env(env_id, max_episode_steps=50, device="cuda")
+    env = StepChecked(env, f"{env_id} env {len(_CHECKED)}", (time.perf_counter() - t0) * 1e3)
+    _CHECKED.append(env)
+    return env
+
+
+@contextlib.contextmanager
+def timed_method(cls, name, ms):
+    """cls.name's synchronised host ms a call appended to `ms`."""
+    inner = getattr(cls, name)
+
+    def wrapper(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, inner)
+
+
+@contextlib.contextmanager
+def timed_agent(upd_ms, act_ms, losses):
+    """Every update step tqc() makes: its synchronised host ms and its two
+    losses; and every forward of the agent's actor outside an update and
+    with a Gaussian draw (tqc()'s sample_act, one a collection step after
+    start_steps): its synchronised host ms."""
+    import importlib
+
+    # the module, not the function of that name that rl/__init__ exports
+    tqc_mod = importlib.import_module("pointcloud_tpu_torch.rl.tqc")
+    make = tqc_mod.make_agent
+    handles, busy, t_act = [], [False], [0.0]
+
+    def acting(kwargs):
+        return not busy[0] and not kwargs.get("deterministic", False)
+
+    def before(module, args, kwargs):
+        if acting(kwargs):
+            torch.cuda.synchronize()
+            t_act[0] = time.perf_counter()
+
+    def after(module, args, kwargs, out):
+        if acting(kwargs):
+            torch.cuda.synchronize()
+            act_ms.append((time.perf_counter() - t_act[0]) * 1e3)
+
+    def made(*a, **k):
+        agent = make(*a, **k)
+        inner = agent.update
+
+        def update(*ua):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            busy[0] = True
+            try:
+                out = inner(*ua)
+            finally:
+                busy[0] = False
+            losses.append([float(v) for v in out])
+            upd_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        agent.update = update
+        handles.append(agent.actor.register_forward_pre_hook(before, with_kwargs=True))
+        handles.append(agent.actor.register_forward_hook(after, with_kwargs=True))
+        return agent
+
+    tqc_mod.make_agent = made
+    try:
+        yield
+    finally:
+        tqc_mod.make_agent = make
+        for h in handles:
+            h.remove()
+
+
+def rl_tqc_run(env_id, seed, n_envs, save_path, smi):
+    """tqc() on `env_id` at RL_REACH with `n_envs` envs (checked_env in the
+    main process and in each worker); returns (policy, {part: ms}, losses).
+    The loop's time leaves out the envs' builds, the workers' start and the
+    test epoch."""
+    import functools
+
+    from pointcloud_tpu_torch.rl import vec_env
+    from pointcloud_tpu_torch.rl.tqc import tqc
+
+    upd_ms, act_ms, losses, vstep_ms, spawn_ms, lines = [], [], [], [], [], []
+    first = len(_CHECKED)
+    env_fn = functools.partial(checked_env, env_id)
+    t0 = time.perf_counter()
+    with timed_agent(upd_ms, act_ms, losses), \
+            timed_method(vec_env.SubprocVecGoalEnv, "step", vstep_ms), \
+            timed_method(vec_env.SubprocVecGoalEnv, "__init__", spawn_ms):
+        policy, history = tqc(env_fn, seed=seed, steps_per_epoch=RL_STEPS, epochs=1,
+                              start_steps=RL_START, update_after=RL_START, max_ep_len=50,
+                              num_test_episodes=2, save_path=save_path, log_fn=lines.append,
+                              n_envs=n_envs, vec_env="subproc", device="cuda", **RL_REACH)
+    total = (time.perf_counter() - t0) * 1e3
+    if len(history) != 1 or not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"{env_id} tqc(n_envs={n_envs}): history {history}, "
+                             f"{len(losses)} updates, losses finite: "
+                             f"{bool(np.isfinite(losses).all()) if losses else None}")
+    train, test = _CHECKED[first:]  # tqc() makes env, then test_env
+    parts = {"env": sum(train.ms) if n_envs == 1 else sum(vstep_ms), "test": sum(test.ms),
+             "update": sum(upd_ms), "build": train.build_ms + test.build_ms,
+             "spawn": sum(spawn_ms)}
+    if n_envs == 1 and len(train.ms) != RL_STEPS:
+        raise AssertionError(f"{env_id}: {len(train.ms)} env steps, expected {RL_STEPS}")
+    calls = (RL_STEPS - RL_START) // n_envs
+    if len(act_ms) != calls:
+        raise AssertionError(f"{env_id}: {len(act_ms)} timed act calls, expected {calls}")
+    loop = total - parts["test"] - parts["build"] - parts["spawn"]
+    parts["act"] = sum(act_ms)
+    parts["rest"] = loop - parts["env"] - parts["update"] - parts["act"]
+    parts["total"], parts["loop"] = total, loop
+    hidden, B = RL_REACH["hidden"], RL_REACH["batch_size"]
+    log(f"  tqc({env_id}, n_envs={n_envs}, {RL_STEPS} env steps, {len(upd_ms)} updates at "
+        f"{hidden} x {B}): {RL_STEPS / loop * 1e3:.1f} env steps/s over the loop "
+        f"({loop / 1e3:.2f} s): env steps {parts['env'] / 1e3:.2f} s"
+        + (f" ({n_envs} envs a step in workers)" if n_envs > 1 else "")
+        + f", updates {parts['update'] / 1e3:.2f} s ({np.median(upd_ms):.3f} ms median, "
+        f"synchronised), act {calls} actor forwards {parts['act'] / 1e3:.2f} s "
+        f"({np.median(act_ms):.3f} ms median, synchronised, in the loop), HER sampling + "
+        f"the draws and copies + the rest {parts['rest'] / 1e3:.2f} s (by subtraction); left "
+        f"out: the envs' builds {parts['build'] / 1e3:.2f} s"
+        + (f", the workers' start {parts['spawn'] / 1e3:.2f} s" if n_envs > 1 else "")
+        + f", the test epoch's {len(test.ms)} env steps {parts['test'] / 1e3:.2f} s; every "
+        f"env step{' (in the workers too)' if n_envs > 1 else ''} launched 3 fps and 2 "
+        f"ball_group; last q_loss {losses[-1][0]:.4f}, pi_loss "
+        f"{losses[-1][1]:.4f} | {smi}")
+    log(f"    {lines[-1]}")
+    return policy, parts, losses
+
+
+def rl_update_times(seed, smi):
+    """One TQC update at tqc.yml's VisionReach agent ((64, 64) x 256) and
+    RoboPush agent ((512, 512, 512) x 2048) on the card, CUDA events over 20
+    updates on one batch; the RoboPush one also card vs CPU from the same
+    state; a torch.profiler trace of 3 updates each (device busy against the
+    host clock). Returns {(hidden, B): (ms, busy ms)}."""
+    import copy
+
+    from pointcloud_tpu_torch.rl.tqc import batch_tensors, make_agent
+    from pointcloud_tpu_torch.rl.vec_env import make_env
+
+    env = make_env("RoboPush-v0", device="cuda")
+    obs = env.observation_space["observation"].shape[0]
+    goal = env.observation_space["desired_goal"].shape[0]
+    act = env.action_space.shape[0]
+    env.close()
+
+    def batch(rng, B):
+        return {"obs": rng.standard_normal((B, obs)).astype(np.float32),
+                "desired": rng.standard_normal((B, goal)).astype(np.float32),
+                "act": rng.uniform(-1, 1, (B, act)).astype(np.float32),
+                "rew": -(rng.random(B) < 0.7).astype(np.float32),
+                "next_obs": rng.standard_normal((B, obs)).astype(np.float32),
+                "done": (rng.random(B) < 0.1).astype(np.float32)}
+
+    out = {}
+    for hidden, B in (RL_REACH["hidden"], RL_REACH["batch_size"]), RL_PUSH:
+        kw = dict(hidden=hidden, critic_hidden=hidden, n_critics=2, n_quantiles=25,
+                  top_quantiles_to_drop=2, gamma=0.95, polyak=0.95, lr=1e-3)
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator().manual_seed(seed)
+        card = make_agent(obs + goal, act, 1.0, generator=gen, device="cuda", **kw)
+        b = batch_tensors(batch(rng, B), "cuda")
+        n1, n2 = torch.randn(2, B, act, device="cuda")
+        ms = cuda_ms(lambda: card.update(b, n1, n2), iters=20, warmup=3)
+        busy, _ = trace_steps(lambda x, y: card.update(b, n1, n2), None, None, ms,
+                              f"TQC update {hidden} x {B}")
+        out[(hidden, B)] = (ms, busy)
+        line = (f"  TQC update {hidden} x {B} (2 critics x 25 quantiles, fp32, obs {obs} + "
+                f"goal {goal}, act {act}): {ms:.3f} ms, {1e3 / ms:.0f} updates/s")
+        if (hidden, B) == RL_PUSH:
+            cpu = make_agent(obs + goal, act, 1.0, generator=torch.Generator().manual_seed(seed),
+                             device="cpu", **kw)
+            cg = torch.Generator().manual_seed(seed + 1)
+            for _ in range(3):  # a warm Adam state: moments of three updates
+                cpu.update(batch_tensors(batch(rng, B), "cpu"), torch.randn(B, act, generator=cg),
+                           torch.randn(B, act, generator=cg))
+            for name in ("actor", "critic", "critic_target", "pi_opt", "q_opt", "a_opt"):
+                getattr(card, name).load_state_dict(copy.deepcopy(getattr(cpu, name).state_dict()))
+            with torch.no_grad():
+                card.log_alpha.copy_(cpu.log_alpha)
+            one = batch(rng, B)
+            c1, c2 = torch.randn(B, act, generator=cg), torch.randn(B, act, generator=cg)
+            got = card.update(batch_tensors(one, "cuda"), c1.cuda(), c2.cuda())
+            want = cpu.update(batch_tensors(one, "cpu"), c1, c2)
+            loss_err = max(abs(float(g) - float(w)) / abs(float(w)) for g, w in zip(got, want))
+            worst = 0.0
+            for name in ("actor", "critic", "critic_target"):
+                ref = dict(getattr(cpu, name).named_parameters())
+                for pname, p in getattr(card, name).named_parameters():
+                    w = ref[pname].detach()
+                    worst = max(worst, float((p.detach().cpu() - w).abs().max() / w.abs().max()))
+            alpha_err = abs(float(card.log_alpha.detach()) - float(cpu.log_alpha.detach()))
+            if not (loss_err <= 1e-5 and worst <= 1e-4 and alpha_err <= 1e-6):
+                raise AssertionError(f"TQC update {hidden} x {B} card vs CPU: losses "
+                                     f"{loss_err:.2e} relative, parameters {worst:.2e} of "
+                                     f"the largest entry, log_alpha {alpha_err:.2e}")
+            line += (f"; one update card vs CPU from the same parameters, warm Adam state, "
+                     f"batch and draws: losses within {loss_err:.2e} relative (gate 1e-5), "
+                     f"parameters within {worst:.2e} of each tensor's largest entry (gate "
+                     f"1e-4), log_alpha {alpha_err:.2e}")
+        log(line + f" | {smi}")
+    return out
+
+
+def rl_phase(seed, smi):
+    """Phase 18 (see the module docstring). Returns its numbers."""
+    import functools
+    import os
+    import shutil
+    import tempfile
+
+    from pointcloud_tpu_torch.ops import _build
+    from pointcloud_tpu_torch.rl.ddpg import her
+    from pointcloud_tpu_torch.rl.policy import load_policy
+    from pointcloud_tpu_torch.rl.vec_env import make_env
+    from pointcloud_tpu_torch.train.calibrate import latent_distributions
+    from pointcloud_tpu_torch.vision import pc_encoder as tenc
+
+    log("[rl] the RL agents on the card: TQC + HER on VisionReach (sensor fps 16,384 -> "
+        "2,048, PointNet2 encoder, bf16), 1 and 4 envs; the widest update; DDPG + HER's "
+        "learning bar on RoboReach; calibration from a policy path")
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the workers need room
+    work = tempfile.mkdtemp(prefix="rl-", dir=_build.BUILD_DIR)
+    before_root, before_env = tenc.OUTPUT_ROOT, os.environ.get("PCTPU_OUTPUT_ROOT")
+    out = {}
+    try:
+        # spawned vector-env workers read the root from the environment
+        tenc.OUTPUT_ROOT = os.environ["PCTPU_OUTPUT_ROOT"] = os.path.join(work, "output")
+        write_bridge_checkpoints(tenc.OUTPUT_ROOT, seed, only={("Autoencoder", "Table")})
+        tqc_path = os.path.join(work, "tqc.pkl")
+        policy, out["tqc1"], _ = rl_tqc_run("VisionReach-v0", seed, 1, tqc_path, smi)
+        loaded = load_policy(tqc_path, device="cuda")
+        env = make_env("VisionReach-v0", max_episode_steps=50, device="cuda")
+        obs, _ = env.reset(seed=seed)
+        for t in range(5):
+            a, _ = policy.predict(obs)
+            b, _ = loaded.predict(obs)
+            if not np.array_equal(a, b):
+                raise AssertionError(f"the reloaded TQC policy acts {b} where the live one "
+                                     f"acts {a}")
+            obs, *_ = env.step(a)
+        log("  the saved TQC policy reloaded by load_policy acts as the live one (5 sensed "
+            "observations, bit-equal)")
+        env.close()
+        _, out["tqc4"], _ = rl_tqc_run("VisionReach-v0", seed, 4, None, smi)
+        out["updates"] = rl_update_times(seed, smi)
+
+        # DDPG + HER on RoboReach at tests/test_rl.py's learning bar
+        her_path = os.path.join(work, "reach.pkl")
+        lines = []
+        t0 = time.perf_counter()
+        _, history = her(functools.partial(make_env, "RoboReach-v0", max_episode_steps=30,
+                                           device="cuda"),
+                         hidden=(64, 64), epochs=4, steps_per_epoch=1500, start_steps=300,
+                         update_after=300, batch_size=128, max_ep_len=30,
+                         num_test_episodes=10, seed=0, save_path=her_path,
+                         log_fn=lines.append, device="cuda")
+        secs = time.perf_counter() - t0
+        out["her"] = (history, secs)
+        log(f"  her(RoboReach, hidden (64, 64), 4 x 1500 steps, batch 128, seed 0): test "
+            f"success {history} in {secs:.1f} s (bar: best >= 0.6) | {smi}")
+        if not max(history) >= 0.6:
+            raise AssertionError(f"DDPG + HER missed the learning bar: {history}")
+
+        # calibration of VisionReach's encoder with each policy given as a path. The
+        # 600-step TQC policy is not expected to succeed, so its run shows only that the
+        # path loads and drives the calibration (a threshold of None is no fault); the
+        # HER policy passed the learning bar, and its threshold must be finite and read
+        # back by a new env.
+        for path, label, held in ((tqc_path, "TQC", False), (her_path, "DDPG + HER", True)):
+            reach = make_env("VisionReach-v0", max_episode_steps=30, device="cuda")
+            threshold, before, during = latent_distributions(
+                "VisionReach-v0", path, horizon=30, runs=3, env=reach, save=True,
+                device="cuda")
+            shown = (np.array2string(threshold, precision=4) if threshold is not None
+                     else "None (no success)")
+            log(f"  latent_distributions(VisionReach, the {label} policy as a path, 3 runs x "
+                f"30 steps): threshold {shown} from {len(before)} + {len(during)} episodes"
+                + ("" if held else " (not held: the policy is not expected to succeed)"))
+            if threshold is not None and (threshold.shape != (3,)
+                                          or not np.isfinite(threshold).all()):
+                raise AssertionError(f"calibration with the {label} policy: threshold "
+                                     f"{threshold}")
+            if not held:
+                continue
+            if threshold is None:
+                raise AssertionError(f"calibration with the {label} policy: no success")
+            again = make_env("VisionReach-v0", device="cuda").unwrapped
+            if not np.array_equal(again.encoder.latent_threshold, threshold):
+                raise AssertionError("calibration: the saved threshold does not read back")
+            again.close()
+        out["threshold"] = threshold
+    finally:
+        tenc.OUTPUT_ROOT = before_root
+        if before_env is None:
+            os.environ.pop("PCTPU_OUTPUT_ROOT", None)
+        else:
+            os.environ["PCTPU_OUTPUT_ROOT"] = before_env
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5989,6 +6364,9 @@ def main(argv=None) -> int:
                     help="only build, then run phase 17 (the Vision GoalEnvs: "
                          "sensor, encoder zoo, generate, calibrate); prints no "
                          "result lines")
+    ap.add_argument("--rl", action="store_true",
+                    help="only build, then run phase 18 (the RL agents on the "
+                         "card); prints no result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps the redesigned "
                          "kernels serve (step_times); with --kernel-times, "
@@ -6034,6 +6412,15 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0]
         bridge_phase(args.seed, smi)
+        return 0
+    if args.rl:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        rl_phase(args.seed, smi)
         return 0
     if args.kernel_times or args.step_times:
         from pointcloud_tpu_torch.ops import _build
@@ -6532,6 +6919,9 @@ def main(argv=None) -> int:
 
     # ---- 17. the sensor -> encoder -> GoalEnv bridge ----
     bridge_phase(args.seed, smi)
+
+    # ---- 18. the RL agents ----
+    rl_phase(args.seed, smi)
 
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""

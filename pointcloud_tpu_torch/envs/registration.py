@@ -5,8 +5,9 @@ The JAX package's 4 ground-truth envs (Passthrough pair) and 12 vision
 envs (PointCloudSensor with the encoder zoo) under the namespace
 `pointcloud_tpu_torch/`, e.g. `pointcloud_tpu_torch/VisionPush-v0`, so both
 packages' envs live in one process under their own ids. Each env runs on
-the `device` given to gym.make (default 'cuda'). Idempotent; needs
-gymnasium.
+the `device` given to gym.make (default 'cuda'). register_all is idempotent
+and needs gymnasium; env_table, the id -> (task, kwargs) table it registers,
+does not.
 """
 
 from __future__ import annotations
@@ -16,12 +17,10 @@ NAMESPACE = "pointcloud_tpu_torch"
 _registered = False
 
 
-def register_all():
-    global _registered
-    if _registered:
-        return
-    from gymnasium.envs.registration import register, registry
-
+def env_table() -> dict:
+    """{name: (task class, constructor kwargs)} of the sixteen envs; the
+    vision envs' kwargs name their sensor and encoder classes. register_all
+    registers these, and rl.vec_env.make_env builds its envs from them."""
     from pointcloud_tpu_torch.envs.envs import (
         RoboPegInHole,
         RoboPickAndPlace,
@@ -29,17 +28,13 @@ def register_all():
         RoboReach,
     )
 
-    def reg(name, entry_point, **kwargs):
-        env_id = f"{NAMESPACE}/{name}"
-        if env_id in registry:
-            return
-        register(id=env_id, entry_point=entry_point, max_episode_steps=50, **kwargs)
-
     # ground-truth envs (robosuite_envs/__init__.py:6-28)
-    reg("RoboReach-v0", RoboReach)
-    reg("RoboPush-v0", RoboPush)
-    reg("RoboPickAndPlace-v0", RoboPickAndPlace)
-    reg("RoboPegInHole-v0", RoboPegInHole)
+    table = {
+        "RoboReach-v0": (RoboReach, {}),
+        "RoboPush-v0": (RoboPush, {}),
+        "RoboPickAndPlace-v0": (RoboPickAndPlace, {}),
+        "RoboPegInHole-v0": (RoboPegInHole, {}),
+    }
 
     # vision envs (pointcloud_vision/__init__.py:7-151); env construction,
     # not registration, reads the trained checkpoints.
@@ -74,10 +69,21 @@ def register_all():
         "VisionPegInHoleMultiSeg-v0": (RoboPegInHole, MultiSegmenterEncoder, {}),
     }
     for name, (task, encoder, extra) in vision.items():
-        reg(
-            name,
-            task,
-            kwargs={"sensor": PointCloudSensor, "encoder": encoder, **extra},
-        )
+        table[name] = (task, {"sensor": PointCloudSensor, "encoder": encoder, **extra})
+    return table
+
+
+def register_all():
+    global _registered
+    if _registered:
+        return
+    from gymnasium.envs.registration import register, registry
+
+    for name, (task, kwargs) in env_table().items():
+        env_id = f"{NAMESPACE}/{name}"
+        if env_id in registry:
+            continue
+        extra = {"kwargs": kwargs} if kwargs else {}
+        register(id=env_id, entry_point=task, max_episode_steps=50, **extra)
 
     _registered = True

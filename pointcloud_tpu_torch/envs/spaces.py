@@ -1,4 +1,5 @@
-"""The gym surface of the env layer: `Box`, `Dict` and the `GoalEnv` base.
+"""The gym surface of the env layer: `Box`, `Dict`, the `GoalEnv` base and
+the `TimeLimit` wrapper.
 
 Where gymnasium is installed they are gymnasium's own classes, and the
 GoalEnv is gymnasium_robotics' where that is installed too, else the
@@ -6,10 +7,14 @@ JAX package's fallback (pointcloud_tpu/envs/base_env.py:22-29). Elsewhere
 (the GPU machine has no gymnasium) they are host-side stand-ins with only
 the surface the layer uses:
   * Box: low, high, shape, dtype, sample(), seed();
-  * Dict: .spaces (keys sorted, as gymnasium sorts a plain dict's);
+  * Dict: .spaces (keys sorted, as gymnasium sorts a plain dict's) and
+    space[key];
   * GoalEnv: reset(seed=) sets `np_random` as gymnasium.utils.seeding does,
     PCG64 over SeedSequence(seed), so goal draws are the same stream; it is
-    seeded from fresh entropy when first read without a seed.
+    seeded from fresh entropy when first read without a seed;
+  * TimeLimit: gymnasium.wrappers.TimeLimit's semantics (truncated=True once
+    the steps since reset reach max_episode_steps; reset clears the count)
+    with the wrapped env's spaces, `unwrapped` and close().
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ def _generator(seed=None) -> np.random.Generator:
 if find_spec("gymnasium") is not None:
     import gymnasium
     from gymnasium.spaces import Box, Dict
+    from gymnasium.wrappers import TimeLimit
 
     if find_spec("gymnasium_robotics") is not None:
         from gymnasium_robotics.core import GoalEnv
@@ -86,6 +92,9 @@ else:
         def __init__(self, spaces):
             self.spaces = dict(sorted(spaces.items()))
 
+        def __getitem__(self, key):
+            return self.spaces[key]
+
     class GoalEnv:
         """The gymnasium GoalEnv surface the env layer uses."""
 
@@ -104,3 +113,34 @@ else:
         def reset(self, *, seed=None, options=None):
             if seed is not None:
                 self._np_random = _generator(seed)
+
+    class TimeLimit:
+        """Truncate an episode after max_episode_steps steps."""
+
+        def __init__(self, env, max_episode_steps: int):
+            if not (isinstance(max_episode_steps, int) and max_episode_steps > 0):
+                raise ValueError(f"Expect the `max_episode_steps` to be positive, actually: "
+                                 f"{max_episode_steps}")
+            self.env = env
+            self._max_episode_steps = max_episode_steps
+            self._elapsed_steps = None
+            self.observation_space = env.observation_space
+            self.action_space = env.action_space
+
+        @property
+        def unwrapped(self):
+            return self.env.unwrapped
+
+        def step(self, action):
+            observation, reward, terminated, truncated, info = self.env.step(action)
+            self._elapsed_steps += 1
+            if self._elapsed_steps >= self._max_episode_steps:
+                truncated = True
+            return observation, reward, terminated, truncated, info
+
+        def reset(self, *, seed=None, options=None):
+            self._elapsed_steps = 0
+            return self.env.reset(seed=seed, options=options)
+
+        def close(self):
+            return self.env.close()

@@ -68,7 +68,10 @@ def _leaves(tree: Mapping, prefix: tuple = ()):
 
 
 def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
-    """The port's state_dict (fp32 CPU tensors) for a flax variables tree."""
+    """The port's state_dict for a flax variables tree: fp32 CPU tensors that
+    own their memory. A tree's leaves may be read-only views of another
+    package's buffers (np.asarray of a JAX CPU array is one), and an optimizer
+    state built from these tensors is updated in place."""
     out: dict[str, torch.Tensor] = {}
     for collection, tree in variables.items():
         if collection not in _LEAVES:
@@ -90,7 +93,7 @@ def flax_to_state_dict(variables: Mapping) -> dict[str, torch.Tensor]:
             key = ".".join(path[:-1] + (name,))
             if key in out:
                 raise KeyError(f"two flax leaves map to {key}")
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            out[key] = torch.tensor(arr)
     return out
 
 
@@ -119,6 +122,26 @@ def load_state_exactly(module: nn.Module, state: Mapping) -> nn.Module:
 def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     """Load a flax variables tree into `module` (every key, exactly)."""
     return load_state_exactly(module, flax_to_state_dict(variables))
+
+
+def flax_params(module: nn.Module) -> dict:
+    """The flax `{"params": ...}` tree (nested dicts of fp32 numpy arrays) of
+    a module made of Dense layers: flax_to_state_dict's inverse for
+    .../weight (out, in) -> .../kernel (in, out) and .../bias. Any other
+    state raises KeyError."""
+    params: dict = {}
+    for key, value in module.state_dict().items():
+        *path, leaf = key.split(".")
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight" and arr.ndim == 2:
+            leaf, arr = "kernel", arr.T
+        elif leaf != "bias":
+            raise KeyError(f"{key}: only Dense weights and biases map to flax params")
+        node = params
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return {"params": params}
 
 
 def _sorted_leaves(tree: Mapping, prefix: tuple = ()):

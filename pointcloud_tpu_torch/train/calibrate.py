@@ -10,8 +10,7 @@ during success, and sets
 
 which check_success consults for latent encoders (base_env check_success).
 The threshold is saved to the encoder's metadata sidecar. The policy is a
-predict()-protocol object; loading one from a path needs the RL port
-(rl.policy.load_policy), which is not here yet.
+predict()-protocol object or a path that rl.policy.load_policy reads.
 """
 
 from __future__ import annotations
@@ -38,15 +37,13 @@ def latent_distributions(
     vision_task: a registered env id of the port (e.g.
     'pointcloud_tpu_torch/VisionReach-v0', made on `device`; needs
     gymnasium), unused when `env` is given. policy: a predict()-protocol
-    object; a path raises NotImplementedError until the RL port brings
-    rl.policy.load_policy. Returns (threshold, all_before_succ, all_dists).
+    object, or a path loaded by rl.policy.load_policy (a .pkl's actor on
+    `device`). Returns (threshold, all_before_succ, all_dists).
     """
     if isinstance(policy, str):
-        raise NotImplementedError(
-            "a policy given as a path needs rl.policy.load_policy, which the "
-            "port does not have yet (ROADMAP Queue 1 item 15); pass an object "
-            "with predict(obs, deterministic=True) -> (action, state)"
-        )
+        from pointcloud_tpu_torch.rl.policy import load_policy
+
+        policy = load_policy(policy, device=device)
     if env is None:
         import gymnasium as gym
 

@@ -17,6 +17,7 @@ setup(
     package_data={
         "pointcloud_tpu.rl": ["tqc.yml"],
         "pointcloud_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        "pointcloud_tpu_torch.rl": ["tqc.yml"],
     },
     python_requires=">=3.10",
     install_requires=[

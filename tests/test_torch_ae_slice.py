@@ -167,6 +167,7 @@ def test_scene_table_is_the_jax_packages():
 
 
 GENERATE_CLI = str(Path(__file__).parents[1] / "generate_pc_torch.py")
+TRAIN_RL_CLI = str(Path(__file__).parents[1] / "train_rl_torch.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -211,6 +212,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from pointcloud_tpu_torch.utils import resolve_device\n"
         "import importlib.util; spec = importlib.util.spec_from_file_location("
         f"'generate_pc_torch', {GENERATE_CLI!r}); "
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "import pointcloud_tpu_torch.rl, pointcloud_tpu_torch.rl.buffers, "
+        "pointcloud_tpu_torch.rl.config, pointcloud_tpu_torch.rl.core, "
+        "pointcloud_tpu_torch.rl.ddpg, pointcloud_tpu_torch.rl.tqc, "
+        "pointcloud_tpu_torch.rl.policy, pointcloud_tpu_torch.rl.sb3, "
+        "pointcloud_tpu_torch.rl.export_policy, pointcloud_tpu_torch.rl.vec_env\n"
+        "from pointcloud_tpu_torch.rl.vec_env import make_env\n"
+        "from pointcloud_tpu_torch.envs.registration import env_table; env_table()\n"
+        "from pointcloud_tpu_torch.envs.spaces import TimeLimit\n"
+        "from pointcloud_tpu_torch.interop import flax_params\n"
+        "spec = importlib.util.spec_from_file_location("
+        f"'train_rl_torch', {TRAIN_RL_CLI!r}); "
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
         "'pointcloud_tpu') or m.startswith(('jax.', 'flax.', 'optax.', "

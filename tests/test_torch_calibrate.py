@@ -8,7 +8,9 @@ JAX package's on the CPU.
   imagination) under a proportional ground-truth policy, in both packages
   from the same weights: the threshold within 1e-4 of the JAX function's,
   saved to the sidecar and read back by a new env.
-- A policy given as a path raises NotImplementedError until the RL port.
+- A policy given as a path (.pkl of either actor type, written by the port)
+  loads through rl.policy.load_policy and calibrates as the JAX package's
+  function does with the same file.
 """
 
 import numpy as np
@@ -52,9 +54,35 @@ def test_fake_env_cases_equal(script, kw, capsys):
             np.testing.assert_array_equal(ts[0], js[0])
 
 
-def test_a_policy_path_needs_the_rl_port():
-    with pytest.raises(NotImplementedError, match="load_policy"):
-        tcalibrate("unused", "policy.zip", env=_FakeCalibEnv([1], [0.1], [0.1]))
+def test_a_policy_path_needs_the_rl_port(tmp_path, capsys):
+    """The RL port brings load_policy: a path of either actor type loads
+    (on the CPU here) and calibrates; the JAX package's function given the
+    same file agrees."""
+    import torch
+
+    from pointcloud_tpu_torch.rl import core as tcore
+    from pointcloud_tpu_torch.rl.ddpg import _save
+    from pointcloud_tpu_torch.rl.tqc import TQC
+
+    for kind in ("ddpg", "tqc"):
+        path = str(tmp_path / f"{kind}.pkl")
+        gen = torch.Generator().manual_seed(0)
+        if kind == "ddpg":  # the fake env's observation is 2 wide, its goal 1; 2 actions
+            _save(path, tcore.init_params(tcore.Actor(3, 2, 1.0, (8,)), gen))
+        else:
+            actor = tcore.init_params(tcore.SquashedGaussianActor(3, 2, 1.0, (8,)), gen)
+            TQC(actor, 1.0).save(path)
+        out = []
+        for fn, kw in ((tcalibrate, {"device": "cpu"}), (jcalibrate, {})):
+            env = _FakeCalibEnv([1, 2], [0.6, 0.2], [0.2, 0.2])
+            capsys.readouterr()
+            thr, before, during = fn("unused", path, env=env, horizon=5, runs=2, save=True,
+                                     **kw)
+            out.append((thr, before, during, env.encoder.saved, capsys.readouterr().out))
+        (t, tb, td, ts, tout), (j, jb, jd, js, jout) = out
+        assert t is not None and tout == jout, kind
+        for got, want in ((t, j), (tb, jb), (td, jd), (ts[0], js[0])):
+            np.testing.assert_array_equal(got, want)
 
 
 class ProportionalReach:

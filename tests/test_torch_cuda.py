@@ -2498,3 +2498,150 @@ def test_generate_dataset_on_the_card_equals_the_cpu(dev, tmp_path):
         for k in ("points", "rgb", "segmentation", "boundingbox"):
             assert a[k].dtype == b[k].dtype
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def _rl_batch(rng, B, obs, goal, act):
+    return {"obs": rng.standard_normal((B, obs)).astype(np.float32),
+            "desired": rng.standard_normal((B, goal)).astype(np.float32),
+            "act": rng.uniform(-1, 1, (B, act)).astype(np.float32),
+            "rew": -(rng.random(B) < 0.7).astype(np.float32),
+            "next_obs": rng.standard_normal((B, obs)).astype(np.float32),
+            "done": (rng.random(B) < 0.1).astype(np.float32)}
+
+
+def _rl_close(got, want, tol, what):
+    err = float((got.detach().cpu() - want.detach()).abs().max() / want.detach().abs().max())
+    assert err <= tol, f"{what}: {err:.3e} of the largest entry"
+
+
+@pytest.mark.parametrize("hidden,clip", [((64, 64), False), ((512, 512, 512), False),
+                                         ((64, 64), True)])
+def test_squashed_actor_noise_path_card_vs_cpu(dev, hidden, clip):
+    """The TQC actor with a Gaussian draw, fp32 on the card and on the CPU
+    from the same weights and draw: actions and log probabilities within
+    1e-5 of their largest entry (clip: log_std at its upper clip)."""
+    from pointcloud_tpu_torch.rl.core import SquashedGaussianActor, init_params
+
+    cpu = init_params(SquashedGaussianActor(24, 4, 1.0, hidden), torch.Generator().manual_seed(0))
+    if clip:
+        with torch.no_grad():
+            getattr(cpu, f"Dense_{len(hidden) + 1}").bias.fill_(30.0)
+    card = SquashedGaussianActor(24, 4, 1.0, hidden).to(dev)
+    card.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(1)
+    o, noise = torch.randn(256, 24, generator=gen), torch.randn(256, 4, generator=gen)
+    a, logp = card(o.to(dev), noise.to(dev))
+    ca, clogp = cpu(o, noise)
+    _rl_close(a, ca, 1e-5, "action")
+    _rl_close(logp, clogp, 1e-5, "logp")
+    d, _ = card(o.to(dev), deterministic=True)
+    _rl_close(d, cpu(o, deterministic=True)[0], 1e-5, "deterministic action")
+
+
+@pytest.mark.parametrize("hidden,B", [((64, 64), 256), ((512, 512, 512), 2048)])
+def test_tqc_update_card_vs_cpu(dev, hidden, B):
+    """One TQC update (tqc.yml's VisionReach and RoboPush agents) on the
+    card and on the CPU from the same parameters, warm Adam state (three
+    CPU updates first), batch and Gaussian draws: losses within 1e-5
+    relative, every parameter and log_alpha within 1e-4 of its tensor's
+    largest entry."""
+    import copy
+
+    from pointcloud_tpu_torch.rl.tqc import batch_tensors, make_agent
+
+    obs, goal, act = 19, 3, 4
+    kw = dict(hidden=hidden, critic_hidden=hidden, n_critics=2, n_quantiles=25,
+              top_quantiles_to_drop=2, gamma=0.95, polyak=0.95, lr=1e-3)
+    cpu = make_agent(obs + goal, act, 1.0, generator=torch.Generator().manual_seed(0),
+                     device="cpu", **kw)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(2)
+    for _ in range(3):
+        cpu.update(batch_tensors(_rl_batch(rng, B, obs, goal, act), "cpu"),
+                   torch.randn(B, act, generator=gen), torch.randn(B, act, generator=gen))
+    card = make_agent(obs + goal, act, 1.0, generator=torch.Generator().manual_seed(9),
+                      device=dev, **kw)
+    for name in ("actor", "critic", "critic_target", "pi_opt", "q_opt", "a_opt"):
+        getattr(card, name).load_state_dict(copy.deepcopy(getattr(cpu, name).state_dict()))
+    with torch.no_grad():
+        card.log_alpha.copy_(cpu.log_alpha)
+    batch = _rl_batch(rng, B, obs, goal, act)
+    n1, n2 = torch.randn(B, act, generator=gen), torch.randn(B, act, generator=gen)
+    got = card.update(batch_tensors(batch, dev), n1.to(dev), n2.to(dev))
+    want = cpu.update(batch_tensors(batch, "cpu"), n1, n2)
+    for g, w, what in zip(got, want, ("q_loss", "pi_loss")):
+        assert abs(float(g) - float(w)) <= 1e-5 * abs(float(w)), (what, float(g), float(w))
+    for name in ("actor", "critic", "critic_target"):
+        want_params = dict(getattr(cpu, name).named_parameters())
+        for pname, p in getattr(card, name).named_parameters():
+            _rl_close(p, want_params[pname], 1e-4, f"{name}.{pname}")
+    assert abs(float(card.log_alpha.detach()) - float(cpu.log_alpha.detach())) <= 1e-6
+
+
+class _DictPolicy(torch.nn.Module):
+    """A stand-in for an exported sb3 policy module (what export_policy
+    writes to a .pth): forward(obs dict, deterministic) -> (action, None)."""
+
+    def __init__(self, in_dim, act):
+        super().__init__()
+        self.lin = torch.nn.Linear(in_dim, act)
+
+    def forward(self, obs, deterministic=True):
+        return torch.tanh(self.lin(torch.cat([obs[k] for k in sorted(obs)], dim=-1))), None
+
+
+def _write_policy(path, fmt, obs, goal, act):
+    import io
+    import zipfile
+
+    from pointcloud_tpu_torch.rl import core
+    from pointcloud_tpu_torch.rl.ddpg import _save
+    from pointcloud_tpu_torch.rl.tqc import TQC
+
+    gen = torch.Generator().manual_seed(5)
+    if fmt == "tqc.pkl":
+        TQC(core.init_params(core.SquashedGaussianActor(obs + goal, act, 1.0, (64, 64)), gen),
+            1.0).save(path)
+    elif fmt == "ddpg.pkl":
+        _save(path, core.init_params(core.Actor(obs + goal, act, 1.0, (64, 64)), gen))
+    elif fmt == "policy.pth":
+        torch.manual_seed(5)
+        torch.save(_DictPolicy(obs + 2 * goal, act), path)
+    else:
+        dims, sd = [obs + 2 * goal, 64, 64], {}
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            sd[f"actor.latent_pi.{2 * i}.weight"] = torch.randn(b, a, generator=gen) / a ** 0.5
+            sd[f"actor.latent_pi.{2 * i}.bias"] = torch.randn(b, generator=gen)
+        sd["actor.mu.weight"] = torch.randn(act, 64, generator=gen) / 8
+        sd["actor.mu.bias"] = torch.randn(act, generator=gen)
+        buf = io.BytesIO()
+        torch.save(sd, buf)
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("policy.pth", buf.getvalue())
+
+
+@pytest.mark.parametrize("fmt", ["tqc.pkl", "ddpg.pkl", "policy.pth", "model.zip"])
+def test_load_policy_runs_on_the_card(dev, tmp_path, fmt):
+    """load_policy(path, device='cuda') puts each format's policy on the
+    card, and its actions equal those of the same file loaded on the CPU
+    within 1e-5 of the largest entry."""
+    from pointcloud_tpu_torch.rl.policy import Sb3TqcPolicy, load_policy
+
+    obs, goal, act = 5, 3, 4
+    path = str(tmp_path / fmt)
+    _write_policy(path, fmt, obs, goal, act)
+    card, cpu = load_policy(path, device="cuda"), load_policy(path, device="cpu")
+    if isinstance(card, Sb3TqcPolicy):
+        tensors = [t for wb in (*card.hidden, card.mu) for t in wb]
+    else:
+        tensors = list((getattr(card, "actor", None) or card.policy).parameters())
+    assert tensors and all(t.device.type == "cuda" for t in tensors)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        o = {"observation": rng.standard_normal(obs).astype(np.float32),
+             "achieved_goal": rng.standard_normal(goal).astype(np.float32),
+             "desired_goal": rng.standard_normal(goal).astype(np.float32)}
+        a, _ = card.predict(o, deterministic=True)
+        b, _ = cpu.predict(o, deterministic=True)
+        assert a.shape == b.shape == (act,) and a.dtype == np.float32
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), (fmt, a, b)
