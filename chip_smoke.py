@@ -7,6 +7,9 @@
     python3 chip_smoke.py --heads  # the MultiSegmenter and StatePredictor (16) alone
     python3 chip_smoke.py --bridge  # the Vision GoalEnvs (17) alone
     python3 chip_smoke.py --rl  # the RL agents on the card (18) alone
+    python3 chip_smoke.py --parallel  # the one-rank NCCL group, the rings (19) alone
+    python3 chip_smoke.py --viewers  # the viewers and the rollout CLIs (20) alone
+    python3 chip_smoke.py --multi-card  # one rank a card over every card (2 or more)
 
 Phases; any failure raises and the script exits non-zero without its result
 lines:
@@ -207,7 +210,32 @@ lines:
      best test success >= 0.6); latent_distributions on VisionReach with
      each saved policy given as a path (the HER policy's threshold finite,
      saved and read back; the TQC policy's run only loads and drives, as
-     that policy is not expected to succeed).
+     that policy is not expected to succeed);
+ 19. parallelism on one card (parallel/): a one-rank NCCL group on
+     127.0.0.1 at a free port (parallel.initialize); phase 15's frames and
+     train("Autoencoder", "PointNet2", "Cube") at the CLI's B=25, one EMD
+     epoch of 4 steps with multihost=True under the group and again with
+     data_parallel=False: losses, parameters, running statistics and Adam's
+     state bit-equal, the same kernel launches every step (the all-reduces
+     of one rank are exact); train_torch.py --multihost as a process of its
+     own with torchrun's variables (WORLD_SIZE=1), one epoch; ring_chamfer
+     at one rank on B=8 x 65,536 points (RING_MIN_ELEMENTS), value and
+     gradients against chamfer_distance (1e-6 relative), its nn_sweep and
+     chamfer_bwd launches counted, both timed; ring_sinkhorn_match at one
+     rank on B=2 x 2,048 against the sinkhorn kernel under the EMD rule
+     (99.5% of rows equal, the rest within 1e-6 in score), both timed.
+     World sizes above one are held on the CPU (tests/test_torch_ring.py,
+     test_torch_data_parallel.py, test_torch_multihost.py);
+ 20. the viewers on the card, without matplotlib: train() writes a
+     checkpoint (2 steps), load_viewer_model reads it back (every tensor
+     equal), assemble_prediction on a val frame; assemble_prediction for
+     the four model types on random PointNet2 weights at full width, fp32,
+     card vs CPU (xyz 1e-4, label colours equal, 99.5% for the Segmenter's
+     argmax); sim_torch.py --benchmark 2 and one calibrate_latent_torch.py
+     run (a DDPG policy file) on VisionReach, synthetic backend, in
+     processes where importing matplotlib fails.
+Not in the default run (it needs one card): `--multi-card`, one rank a card
+over every card of the machine (multi_card_phase).
 Within phases 3-6 and 8-13 each kernel is held against its plain version again
 at its path's shapes and inputs, then timed there beside its plain version,
 a library yardstick and its bound (the dense-pool backward at phase 4's
@@ -220,8 +248,8 @@ idle share, beside the host's enqueue time; the dense-pool forward's and
 `sinkhorn`'s device time a step read from it). For each path
 (3, 4, 5, 6, 8, the four of 9, the three of 10, the three of 11, the two of
 13, encode, the sensor chain, each train() run of 15 and 16, step by step,
-the paths of 16, each env reset and step of 17, and each env step of the
-RL loop in 18)
+the paths of 16, each env reset and step of 17, each env step of the
+RL loop in 18, each train() run of 19 step by step, and the ring in 19)
 every kernel's launch count is set
 to 0 just before and read just after. The last three lines of standard output are
 nvidia-smi's name and power limit, the `kernels` JSON object and the `ok`
@@ -6336,6 +6364,639 @@ def rl_phase(seed, smi):
     return out
 
 
+B_RING, P_RING = 8, 65536  # 3.4e10 cost elements: RING_MIN_ELEMENTS
+B_RSK, P_RSK = 2, 2048  # the ring Sinkhorn's pair: the EMD paths' cloud size
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_state(label, a, b):
+    """Two state_dicts (or optimizer state_dicts' tensors) bit-equal."""
+    flat_a, flat_b = [], []
+    for src, dst in ((a, flat_a), (b, flat_b)):
+        def walk(obj, path=""):
+            if isinstance(obj, torch.Tensor):
+                dst.append((path, obj))
+            elif isinstance(obj, dict):
+                for k in sorted(obj, key=str):
+                    walk(obj[k], f"{path}.{k}")
+            elif isinstance(obj, (list, tuple)):
+                for i, v in enumerate(obj):
+                    walk(v, f"{path}.{i}")
+        walk(src)
+    if [p for p, _ in flat_a] != [p for p, _ in flat_b]:
+        raise AssertionError(f"{label}: the states hold other keys")
+    for (path, x), (_, y) in zip(flat_a, flat_b):
+        if not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f"{label}: {path} differs")
+    return len(flat_a)
+
+
+def parallel_phase(seed, smi):
+    """Phase 19: the parallel path on one card, a one-rank NCCL group (see
+    the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from pointcloud_tpu_torch.ops import (
+        _build,
+        chamfer_distance,
+        eps_schedule,
+        matching_difference,
+        sinkhorn,
+        sinkhorn_reference,
+    )
+    from pointcloud_tpu_torch.ops.chamfer import RING_MIN_ELEMENTS
+    from pointcloud_tpu_torch.parallel import initialize, ring_chamfer, ring_sinkhorn_match
+    from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+    from pointcloud_tpu_torch.train.harness import latest_checkpoint, load_checkpoint_raw, train
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    if not initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda"):
+        raise AssertionError("initialize() did not join the one-rank group")
+    log(f"[parallel] one-rank {dist.get_backend()} group on 127.0.0.1 (world "
+        f"{dist.get_world_size()}, joined in {time.perf_counter() - t0:.2f} s) | {smi}")
+    work = tempfile.mkdtemp(prefix="parallel-", dir=_build.BUILD_DIR)
+    try:
+        sc = create_model("Autoencoder", "PointNet2", "Cube", device="cpu").scene
+        P = sc.sample_points
+        data = os.path.join(work, "input", "Cube")
+        write_frames(os.path.join(data, "train"), sc, LOOP_TRAIN, P, seed)
+        write_frames(os.path.join(data, "val"), sc, LOOP_VAL, P, seed + 1)
+
+        # train() without a group against train() under one, the same steps
+        runs = {}
+        for label, kw in (("no group (data_parallel=False)", {"data_parallel": False}),
+                          ("multihost=True, one-rank NCCL group", {"multihost": True})):
+            counts = StepCounts()
+            zero_counts()
+            t1 = time.perf_counter()
+            try:
+                loss, ckpt_dir = train(
+                    "Autoencoder", "PointNet2", "Cube", epochs=1, batch_size=B_LOOP,
+                    input_root=os.path.join(work, "input"),
+                    output_root=os.path.join(work, "out", str(len(runs))), seed=seed,
+                    device="cuda", on_epoch=counts.on_epoch, **kw)
+            finally:
+                counts.close()
+            runs[label] = (loss, ckpt_dir, counts, time.perf_counter() - t1)
+        (l_n, d_n, c_n, s_n), (l_g, d_g, c_g, s_g) = runs.values()
+        e_g, e_n = c_g.epochs[0], c_n.epochs[0]
+        if len(c_g.steps) != LOOP_TRAIN // B_LOOP or c_g.steps != c_n.steps \
+                or c_g.vals != c_n.vals or any(s != c_g.steps[0] for s in c_g.steps):
+            raise AssertionError(f"train() launches a step: group {c_g.steps}, without "
+                                 f"{c_n.steps}; validation {c_g.vals} / {c_n.vals}")
+        if (l_g, e_g["train_loss"], e_g["val_loss"]) != (l_n, e_n["train_loss"],
+                                                         e_n["val_loss"]):
+            raise AssertionError(f"train() under the group: loss {l_g}, val "
+                                 f"{e_g['val_loss']}; without: {l_n}, {e_n['val_loss']}")
+        ck_g = load_checkpoint_raw(latest_checkpoint(d_g))
+        ck_n = load_checkpoint_raw(latest_checkpoint(d_n))
+        n_model = same_state("train() parameters and statistics", ck_g["model"],
+                             ck_n["model"])
+        n_opt = same_state("train() Adam state", ck_g["optimizer"], ck_n["optimizer"])
+        log(f"  train('Autoencoder', 'PointNet2', 'Cube'), B={B_LOOP}, 1 epoch of "
+            f"{len(c_g.steps)} steps under the group: loss {l_g:.6f}, val "
+            f"{e_g['val_loss']:.6f}, {s_g:.2f} s ({e_g['seconds'] / e_g['steps'] * 1e3:.3f} "
+            f"ms a step); without a group, run first, {s_n:.2f} s "
+            f"({e_n['seconds'] / e_n['steps'] * 1e3:.3f} ms a step): losses, {n_model} "
+            f"model tensors and {n_opt} Adam tensors bit-equal, launches a step "
+            f"{c_g.steps[0]} in both | {smi}")
+
+        # the step itself, chained on one batch, with and without the group,
+        # in turns (none, group, group, none)
+        steps = {}
+        for label in ("none", "group"):
+            spec = create_model("Autoencoder", "PointNet2", "Cube", device=dev, seed=seed)
+            steps[label] = make_train_step(spec, make_optimizer(spec),
+                                           dist.group.WORLD if label == "group" else None)
+        xb = raw_batch(torch.Generator(device=dev).manual_seed(seed + 41), sc, B_LOOP, P,
+                       dev)
+        timed = {"none": [], "group": []}
+        for label in ("none", "group", "group", "none"):
+            tr = drive_train(steps[label], xb, xb, 10)
+            timed[label].append((tr["ms"], tr["enqueue_ms"], tr["counts"]))
+        if timed["none"][0][2] != timed["group"][0][2]:
+            raise AssertionError(f"chained steps launch {timed['none'][0][2]} without "
+                                 f"the group, {timed['group'][0][2]} under it")
+        log("  make_train_step chained on one batch, B=25, 10 steps, in turns (none, "
+            "group, group, none): ms a step without the group "
+            + ", ".join(f"{ms:.3f} (host enqueue {enq:.3f})" for ms, enq, _ in timed["none"])
+            + "; under the one-rank NCCL group "
+            + ", ".join(f"{ms:.3f} (host enqueue {enq:.3f})" for ms, enq, _ in timed["group"])
+            + f" | {smi}")
+
+        # train_torch.py --multihost as a one-rank process of its own
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                   WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+        cli_out = os.path.join(work, "cli")
+        t1 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, os.path.join(repo, "train_torch.py"), "Cube", "Autoencoder",
+             "--backbone", "PointNet2", "--epochs", "1", "--batch_size", str(B_LOOP),
+             "--input_root", os.path.join(work, "input"), "--output_root", cli_out,
+             "--multihost"], cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t1
+        cli_ck = os.path.join(cli_out, "Cube", "Autoencoder_PointNet2", "version_0",
+                              "checkpoints", "step_0", "checkpoint.pt")
+        if r.returncode != 0 or "multihost: joined" not in r.stdout \
+                or not os.path.isfile(cli_ck):
+            raise AssertionError(f"train_torch.py --multihost exit {r.returncode}:\n"
+                                 f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        epoch_line = next(line for line in r.stdout.splitlines() if "epoch 0:" in line)
+        log(f"  train_torch.py --multihost (WORLD_SIZE=1, a process of its own): exit 0 "
+            f"in {cli_s:.1f} s, step_0 written; {epoch_line.strip()}")
+
+        # the ring Chamfer at one rank, above the threshold
+        gen = torch.Generator(device=dev).manual_seed(seed + 40)
+        x = torch.rand((B_RING, P_RING, 3), generator=gen, device=dev)
+        y = torch.rand((B_RING, P_RING, 3), generator=gen, device=dev)
+        if B_RING * P_RING * P_RING < RING_MIN_ELEMENTS:
+            raise AssertionError("the ring's clouds lie below RING_MIN_ELEMENTS")
+        xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        zero_counts()
+        v = ring_chamfer(xg, yg)
+        v.backward()
+        torch.cuda.synchronize()
+        ring_counts = read_counts()
+        expect_counts("ring_chamfer at one rank", ring_counts, nn_sweep=1, chamfer_bwd=1)
+        xo, yo = x.clone().requires_grad_(), y.clone().requires_grad_()
+        w = chamfer_distance(xo, yo)
+        w.backward()
+        e_val = abs(float(v.detach()) - float(w.detach())) / abs(float(w.detach()))
+        e_grad = max(rel_err(xg.grad, xo.grad), rel_err(yg.grad, yo.grad))
+        if e_val > 1e-6 or e_grad > 1e-6:
+            raise AssertionError(f"ring_chamfer vs chamfer_distance: value rel err "
+                                 f"{e_val:.2e}, gradients {e_grad:.2e}")
+
+        def ring_step():
+            a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+            ring_chamfer(a, b).backward()
+
+        def one_step():
+            a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+            chamfer_distance(a, b).backward()
+
+        ring_ms, one_ms = cuda_ms(ring_step, iters=5), cuda_ms(one_step, iters=5)
+        log(f"  ring_chamfer at one rank, B={B_RING} x {P_RING} x {P_RING} x 3 "
+            f"({B_RING * P_RING * P_RING / RING_MIN_ELEMENTS:.0f}x RING_MIN_ELEMENTS): "
+            f"value {float(v.detach()):.8f}, launches {ring_counts}; against chamfer_distance: "
+            f"value rel err {e_val:.1e}, gradients {e_grad:.1e}; forward + backward "
+            f"{ring_ms:.3f} ms against {one_ms:.3f} ms | {smi}")
+
+        # the ring Sinkhorn at one rank against the kernel
+        xs = torch.rand((B_RSK, P_RSK, 3), generator=gen, device=dev)
+        ys = torch.rand((B_RSK, P_RSK, 3), generator=gen, device=dev)
+        ring = ring_sinkhorn_match(xs, ys, 0.005, 50)
+        kern = sinkhorn(xs, ys, 0.005, 50)
+        *_, f, g = sinkhorn_reference(xs, ys, eps_schedule(0.005, 50))
+        same, gap, d_err = matching_difference(xs, ys, f, g, ring, kern)
+        if same < 0.995 or gap > 1e-6 or d_err > 1e-6:
+            raise AssertionError(f"ring_sinkhorn_match vs sinkhorn: {same:.5f} of rows "
+                                 f"equal, score gap {gap:.2e}, dists {d_err:.2e}")
+        rsk_ms = cuda_ms(lambda: ring_sinkhorn_match(xs, ys, 0.005, 50), iters=3, warmup=1)
+        ksk_ms = cuda_ms(lambda: sinkhorn(xs, ys, 0.005, 50), iters=3, warmup=1)
+        log(f"  ring_sinkhorn_match at one rank, B={B_RSK} x {P_RSK} x {P_RSK}, eps "
+            f"0.005 x 50: {round((1 - same) * B_RSK * P_RSK)} of {B_RSK * P_RSK} rows to "
+            f"another target than the sinkhorn kernel's (score gap {gap:.1e}), dists "
+            f"{d_err:.1e} elsewhere; {rsk_ms:.3f} ms (plain logsumexp tiles) against the "
+            f"kernel's {ksk_ms:.3f} ms | {smi}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+VIEW_TYPES = ("Autoencoder", "Segmenter", "MultiSegmenter", "StatePredictor")
+
+
+def viewers_phase(seed, smi):
+    """Phase 20: the viewers' model path and the rollout CLIs on the card,
+    without matplotlib (see the module docstring)."""
+    import importlib
+    import os
+    import shutil
+    import tempfile
+
+    from pointcloud_tpu_torch import cfg
+    from pointcloud_tpu_torch.envs.scenes import cfg_scene
+    from pointcloud_tpu_torch.ops import _build
+    from pointcloud_tpu_torch.rl import core as rl_core
+    from pointcloud_tpu_torch.train import create_model
+    from pointcloud_tpu_torch.train.harness import latest_checkpoint, load_checkpoint_raw, train
+    from pointcloud_tpu_torch.transforms import Normalize, apply_np
+    from pointcloud_tpu_torch.viewers.reconstruct import assemble_prediction, load_viewer_model
+
+    dev = torch.device("cuda")
+    had_mpl = "matplotlib" in sys.modules
+    log(f"[viewers] load_viewer_model, assemble_prediction, sim_torch.py, "
+        f"calibrate_latent_torch.py | {smi}")
+    work = tempfile.mkdtemp(prefix="viewers-", dir=_build.BUILD_DIR)
+    try:
+        sc = create_model("Autoencoder", "PointNet2", "Cube", device="cpu").scene
+        P = sc.sample_points
+        data = os.path.join(work, "input", "Cube")
+        write_frames(os.path.join(data, "train"), sc, 2 * B_LOOP, P, seed)
+        write_frames(os.path.join(data, "val"), sc, B_LOOP, P, seed + 1)
+        out = os.path.join(work, "output")
+        _, ckpt_dir = train("Autoencoder", "PointNet2", "Cube", epochs=1, batch_size=B_LOOP,
+                            input_root=os.path.join(work, "input"), output_root=out,
+                            seed=seed, device="cuda", log_meshes=False)
+        spec, variables = load_viewer_model("Cube", "Autoencoder", "PointNet2",
+                                            output_root=out, device="cuda")
+        ck = load_checkpoint_raw(latest_checkpoint(ckpt_dir))
+        n = same_state("load_viewer_model", spec.model.state_dict(), ck["model"])
+        in_pc, target = spec.open_dataset(os.path.join(data, "val"))[0]
+        norm = Normalize(sc.bbox)
+        in_pc, target = apply_np(norm, in_pc)[0], apply_np(norm, target)[0]
+        ms = host_ms(lambda: assemble_prediction("Autoencoder", spec, None, in_pc, target),
+                     calls=5, warmup=1)
+        pred = assemble_prediction("Autoencoder", spec, None, in_pc, target)
+        if pred[0].shape != (P, 3) or not np.isfinite(pred[0]).all():
+            raise AssertionError(f"assemble_prediction of the trained model: "
+                                 f"{pred[0].shape}")
+        log(f"  load_viewer_model of train()'s {os.path.basename(latest_checkpoint(ckpt_dir))}:"
+            f" {n} tensors equal to the checkpoint's, decoders included; "
+            f"assemble_prediction (bf16) on a val frame {ms[len(ms) // 2]:.3f} ms median, "
+            f"host clock | {smi}")
+
+        # the four model types at full width, fp32, card vs CPU
+        colors = cfg_scene["Cube"]["class_colors"]
+        rng = np.random.default_rng(seed)
+        gen = torch.Generator().manual_seed(seed + 50)
+        cloud = rng.random((P, 6), dtype=np.float32)
+        cfg.precision = "fp32"
+        try:
+            for model_type in VIEW_TYPES:
+                cpu = create_model(model_type, "PointNet2", "Cube", device="cpu", seed=seed)
+                randomize_(cpu.model, gen)
+                card = create_model(model_type, "PointNet2", "Cube", device=dev, seed=seed)
+                card.model.load_state_dict(cpu.model.state_dict())
+                if model_type == "StatePredictor":
+                    tgt = {"cube_pos": rng.random(3, dtype=np.float32),
+                           "robot0_eef_pos": rng.random(3, dtype=np.float32)}
+                elif model_type == "Autoencoder":
+                    tgt = cloud
+                else:
+                    tgt = np.concatenate([rng.random((P, 3), dtype=np.float32),
+                                          rng.integers(0, len(sc.classes), (P, 1))
+                                          .astype(np.float32)], axis=1)
+                got = assemble_prediction(model_type, card, None, cloud, tgt, colors)
+                want = assemble_prediction(model_type, cpu, None, cloud, tgt, colors)
+                # xyz, and the Autoencoder's predicted colours, to 1e-4; the
+                # other types' colours come from labels and must match
+                pairs = [(got[0], want[0]), (got[2], want[2])]
+                if model_type == "Autoencoder":
+                    pairs.append((got[1], want[1]))
+                    same = 1.0
+                else:
+                    same = float((got[1] == want[1]).all(axis=1).mean())
+                e_xyz = max(float(np.abs(g - w).max()) / max(1.0, float(np.abs(w).max()))
+                            for g, w in pairs)
+                need = 0.995 if model_type == "Segmenter" else 1.0
+                if got[0].shape != want[0].shape or e_xyz > 1e-4 or same < need \
+                        or not np.array_equal(got[3], want[3]):
+                    raise AssertionError(f"assemble_prediction {model_type} card vs CPU: "
+                                         f"xyz err {e_xyz:.2e}, equal colours {same}")
+                card_ms = host_ms(lambda: assemble_prediction(
+                    model_type, card, None, cloud, tgt, colors), calls=5, warmup=1)
+                log(f"  assemble_prediction {model_type} (PointNet2, fp32, "
+                    f"{len(got[0])} points shown): card vs CPU xyz rel err {e_xyz:.1e}, "
+                    f"colours equal on {same:.4f} of them; card {card_ms[2]:.3f} ms "
+                    f"median, host clock")
+        finally:
+            cfg.precision = "bf16-mixed"
+        if "matplotlib" in sys.modules and not had_mpl:
+            raise AssertionError("the viewers' model path imported matplotlib")
+
+        # the CLIs, in processes that cannot import matplotlib
+        block = os.path.join(work, "no_matplotlib", "matplotlib")
+        os.makedirs(block)
+        with open(os.path.join(block, "__init__.py"), "w") as fh:
+            fh.write("raise ImportError('matplotlib is blocked in this check')\n")
+        vroot = os.path.join(work, "vision")
+        write_bridge_checkpoints(vroot, seed, only={("Autoencoder", "Table")})
+        policy = os.path.join(work, "reach.pkl")  # RoboReach: 3 + 3 in, 4 actions
+        importlib.import_module("pointcloud_tpu_torch.rl.ddpg")._save(
+            policy, rl_core.init_params(rl_core.Actor(6, 4, 1.0, (64, 64)),
+                                        torch.Generator().manual_seed(seed)))
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PCTPU_OUTPUT_ROOT=vroot,
+                   PYTHONPATH=os.pathsep.join([os.path.dirname(block), repo]))
+        for cli, args, want in (
+                ("sim_torch.py", ["VisionReach-v0", "--benchmark", "2", "--horizon", "10"],
+                 "episodes =  2"),
+                ("calibrate_latent_torch.py", ["VisionReach-v0", policy, "--runs", "1",
+                                               "--horizon", "10", "--no_save"],
+                 "threshold =")):
+            t1 = time.perf_counter()
+            r = subprocess.run([sys.executable, os.path.join(repo, cli), *args], cwd=repo,
+                               env=env, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0 or want not in r.stdout:
+                raise AssertionError(f"{cli} exit {r.returncode}:\n{r.stdout[-3000:]}\n"
+                                     f"{r.stderr[-3000:]}")
+            tail = " / ".join(line.strip() for line in r.stdout.splitlines()
+                              if line.startswith(("mean reward", "success rate",
+                                                  "threshold")))
+            shown = " ".join(os.path.basename(a) if a == policy else a for a in args)
+            log(f"  {cli} {shown} (synthetic backend, matplotlib blocked): exit 0 in "
+                f"{time.perf_counter() - t1:.1f} s; {tail}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+RING_SIZES = ((1, 16384), (2, 65536), (8, 65536))  # (B, N = M): 2.7e8, 8.6e9, 3.4e10 pairs
+MC_POINTS, MC_TRAIN_B = 2048, 256  # the multi-card steps' clouds and global batch
+
+
+def _synced_ms(fn, dev, iters):
+    """Host-clock ms a call of fn over `iters` calls after one warm-up, with
+    the device synchronised before and after (CUDA events would time this
+    card alone, not the ranks' exchanges)."""
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+@contextlib.contextmanager
+def one_card_routes():
+    """Computation on this card alone while a group of several ranks exists:
+    chamfer_distance and emd_match take no ring, whose collectives need
+    every rank (RING_MIN_ELEMENTS out of reach)."""
+    from pointcloud_tpu_torch.ops import chamfer
+
+    saved = chamfer.RING_MIN_ELEMENTS
+    chamfer.RING_MIN_ELEMENTS = 1 << 62
+    try:
+        yield
+    finally:
+        chamfer.RING_MIN_ELEMENTS = saved
+
+
+def multi_card_rank(rank, world, port, seed, work, device_type, smi, out):
+    """One rank of `--multi-card` (see multi_card_phase): joins a
+    `world`-rank group on 127.0.0.1:port and runs every check on its device;
+    rank 0 prints each result as it comes. Puts (rank, None) on `out` at
+    the end, or (rank, the traceback) if it raises."""
+    import os
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from pointcloud_tpu_torch import cfg
+        from pointcloud_tpu_torch.ops import (
+            chamfer_distance,
+            eps_schedule,
+            matching_difference,
+            sinkhorn,
+            sinkhorn_reference,
+        )
+        from pointcloud_tpu_torch.ops.chamfer import ring_eligible
+        from pointcloud_tpu_torch.parallel import initialize, ring_chamfer, ring_sinkhorn_match
+        from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+        from pointcloud_tpu_torch.train.harness import latest_checkpoint, shard_batch, train
+
+        os.environ["LOCAL_RANK"] = str(rank)
+        initialize(f"127.0.0.1:{port}", world, rank, device=device_type)
+        group = dist.group.WORLD
+        dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+               else torch.device("cpu"))
+        def report(text):
+            if rank == 0:
+                log(f"  {text} | {smi}")
+                sys.stdout.flush()
+
+        def same_on_every_rank(label, t):
+            ref = t.detach().clone()
+            dist.broadcast(ref, src=0, group=group)
+            if not torch.equal(ref, t.detach()):
+                raise AssertionError(f"rank {rank}: {label} differs from rank 0's")
+
+        # the ring Chamfer over the ranks against one card's chamfer_distance
+        for B, N in RING_SIZES:
+            gen = torch.Generator().manual_seed(seed + N)
+            x = torch.rand((B, N, 3), generator=gen).to(dev)
+            y = torch.rand((B, N, 3), generator=gen).to(dev)
+            got = []
+            for fn in (lambda a, b: ring_chamfer(a, b, group),
+                       lambda a, b: chamfer_distance(a, b)):
+                a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+                with one_card_routes():
+                    v = fn(a, b)
+                    v.backward()
+                got.append((v.detach(), a.grad, b.grad))
+            (vr, gxr, gyr), (vo, gxo, gyo) = got
+            e_val = float((vr - vo).abs() / vo.abs())
+            rows = [float(((g - w).abs().amax(-1) <= 1e-5 * w.abs().max()).float().mean())
+                    for g, w in ((gxr, gxo), (gyr, gyo))]
+            if e_val > 1e-5 or min(rows) < 0.999:
+                raise AssertionError(f"ring_chamfer B={B} N={N} over {world} ranks: value "
+                                     f"rel err {e_val:.2e}, gradient rows equal {rows}")
+            same_on_every_rank("ring_chamfer's x gradient", gxr)
+
+            def ring_call():
+                a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+                ring_chamfer(a, b, group).backward()
+
+            def one_call():
+                a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+                with one_card_routes():
+                    chamfer_distance(a, b).backward()
+
+            ring_ms = _synced_ms(ring_call, dev, 5)
+            dist.barrier(group)
+            one_ms = _synced_ms(one_call, dev, 5)
+            report(f"ring_chamfer B={B} x {N} x {N} ({B * N * N:.2e} pairs) over {world} "
+                   f"ranks: {ring_ms:.3f} ms forward + backward against one card's "
+                   f"chamfer_distance {one_ms:.3f} ms; value rel err {e_val:.1e}, gradient "
+                   f"rows equal {min(rows):.5f}, the gradient the same bits on every rank")
+
+        # the ring Sinkhorn over the ranks against the kernel on this card
+        gen = torch.Generator().manual_seed(seed + 7)
+        xs = torch.rand((2, MC_POINTS, 3), generator=gen).to(dev)
+        ys = torch.rand((2, MC_POINTS, 3), generator=gen).to(dev)
+        ring = ring_sinkhorn_match(xs, ys, 0.005, 50, group=group)
+        kern = sinkhorn(xs, ys, 0.005, 50)
+        *_, f, g = sinkhorn_reference(xs, ys, eps_schedule(0.005, 50))
+        same, gap, d_err = matching_difference(xs, ys, f, g, ring, kern)
+        if same < 0.995 or gap > 1e-6 or d_err > 1e-6:
+            raise AssertionError(f"ring_sinkhorn_match over {world} ranks: {same} rows "
+                                 f"equal, gap {gap:.2e}, dists {d_err:.2e}")
+        same_on_every_rank("ring_sinkhorn_match's assignment", ring[1])
+        rsk = _synced_ms(lambda: ring_sinkhorn_match(xs, ys, 0.005, 50, group=group), dev, 3)
+        report(f"ring_sinkhorn_match B=2 x {MC_POINTS} over {world} ranks: {same:.5f} of rows "
+               f"equal to the kernel's (gap {gap:.1e}, dists {d_err:.1e}), {rsk:.3f} ms")
+
+        # the data-parallel step (fp32) against one card's step on the global batch
+        gen = torch.Generator().manual_seed(seed + 9)
+        Bg = 4 * world
+        xg = torch.rand((Bg, MC_POINTS, 6), generator=gen).to(dev)
+        cfg.precision = "fp32"
+        try:
+            runs = []
+            for grp in (group, None):
+                spec = create_model("Autoencoder", "PointNet2", "Cube", device=dev, seed=seed)
+                step = make_train_step(spec, make_optimizer(spec), grp)
+                xb = shard_batch(group, xg) if grp is not None else xg
+                with contextlib.nullcontext() if grp is not None else one_card_routes():
+                    loss, _ = step(xb, xb)
+                runs.append((float(loss), spec.model.state_dict()))
+        finally:
+            cfg.precision = "bf16-mixed"
+        (l_dp, s_dp), (l_one, s_one) = runs
+        e_par = max(float((s_dp[k] - s_one[k]).abs().max()) for k, p in s_dp.items()
+                    if k.rsplit(".", 1)[-1].rstrip("0123456789") in ("w", "scale", "offset",
+                                                                     "weight", "bias"))
+        # 2 lr: the most one Adam step of opposite sign puts between two copies
+        # (plus an fp32 rounding of the parameter)
+        if abs(l_dp - l_one) > 1e-5 * max(1.0, abs(l_one)) \
+                or e_par > 2 * cfg.vision_lr * (1 + 1e-3):
+            raise AssertionError(f"data-parallel step over {world} ranks: loss {l_dp} "
+                                 f"against {l_one}, parameters off by {e_par:.2e}")
+        for k, v in s_dp.items():
+            same_on_every_rank(f"the data-parallel step's {k}", v)
+        report(f"make_train_step(group) fp32 PointNet2 + EMD, global B={Bg} over {world} "
+               f"ranks against one card on the global batch: loss {l_dp:.7f} / "
+               f"{l_one:.7f}, parameters within {e_par:.2e} (2 lr = {2 * cfg.vision_lr}), "
+               f"every tensor the same bits on every rank")
+
+        # bf16 throughput: global B=256 over the ranks against B=256 on one card
+        xt = torch.rand((MC_TRAIN_B, MC_POINTS, 6), generator=gen).to(dev)
+        times, firsts = {}, {}
+        for label, grp in (("one card", None), ("ranks", group), ("one card", None),
+                           ("ranks", group)):
+            spec = create_model("Autoencoder", "PointNet2", "Cube", loss_override="chamfer",
+                                device=dev, seed=seed)
+            step = make_train_step(spec, make_optimizer(spec), grp)
+            xb = shard_batch(group, xt) if grp is not None else xt
+            if grp is None and rank != 0:
+                dist.barrier(group)
+                continue
+            with contextlib.nullcontext() if grp is not None else one_card_routes():
+                first = float(step(xb, xb)[0])
+                ms = _synced_ms(lambda: step(xb, xb), dev, 10)
+            times.setdefault(label, []).append(ms)
+            firsts.setdefault(label, first)
+            if grp is None:
+                dist.barrier(group)
+        if rank == 0:
+            e_first = abs(firsts["ranks"] - firsts["one card"]) / firsts["one card"]
+            if e_first > 1e-2:
+                raise AssertionError(f"bf16 step over {world} ranks: first loss "
+                                     f"{firsts['ranks']} against one card's "
+                                     f"{firsts['one card']}")
+            routed = ring_eligible(MC_TRAIN_B, MC_POINTS, MC_POINTS, group)
+            report(f"PointNet2 + Chamfer train step, bf16, global B={MC_TRAIN_B}: first "
+                   f"loss {firsts['ranks']:.6f} over the ranks (its Chamfer "
+                   f"{'through' if routed else 'not through'} the data-parallel ring "
+                   f"route at {MC_TRAIN_B} x {MC_POINTS}^2 cost elements), "
+                   f"{firsts['one card']:.6f} on one card; over "
+                   f"{world} ranks (B={MC_TRAIN_B // world} a card) "
+                   + " / ".join(f"{t:.3f}" for t in times["ranks"])
+                   + f" ms a step; one card B={MC_TRAIN_B} "
+                   + " / ".join(f"{t:.3f}" for t in times["one card"])
+                   + " ms (host clock, 10 chained steps, in turns)")
+
+        # train(multihost=True) over the ranks: one epoch of phase 15's frames
+        loss, ckpt_dir = train("Autoencoder", "PointNet2", "Cube", epochs=1,
+                               batch_size=B_LOOP * world,
+                               input_root=os.path.join(work, "input"),
+                               output_root=os.path.join(work, "output"), seed=seed,
+                               device=device_type, multihost=True, log_meshes=False)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train(multihost=True) over {world} ranks: loss {loss}")
+        same_on_every_rank("train()'s final loss", torch.tensor([loss], device=dev))
+        dist.barrier(group)
+        if rank == 0 and not latest_checkpoint(ckpt_dir):
+            raise AssertionError("rank 0 wrote no checkpoint")
+        report(f"train(multihost=True) PointNet2 + EMD, global B={B_LOOP * world} over "
+               f"{world} ranks, one epoch: loss {loss:.6f} on every rank, rank 0's "
+               f"checkpoint {os.path.basename(latest_checkpoint(ckpt_dir)) if rank == 0 else ''}")
+        dist.destroy_process_group()
+        out.put((rank, None))
+    except BaseException:  # reported by the parent, which raises
+        out.put((rank, traceback.format_exc()))
+
+
+def multi_card_phase(seed, smi, world=None, device_type="cuda"):
+    """`--multi-card`: one rank a card over every card of the machine (an
+    NCCL group of torch.cuda.device_count() ranks; needs two or more), each
+    rank a process: the ring Chamfer at B=1 x 16,384 and B=2 and 8 x
+    65,536 against one card's chamfer_distance (value 1e-5, gradient rows
+    99.9%, the same bits on every rank) and timed beside it; the ring
+    Sinkhorn against the kernel by the EMD rule; the fp32 data-parallel step
+    against one card's step on the global batch (loss 1e-5, parameters 2 lr,
+    every tensor the same bits on every rank); the bf16 PointNet2 train step
+    at global B=256 over the ranks against one card; train(multihost=True)
+    for an epoch. Not part of the default run, which needs one card."""
+    import multiprocessing as mp
+    import os
+    import queue
+    import shutil
+    import tempfile
+
+    from pointcloud_tpu_torch.ops import _build
+    from pointcloud_tpu_torch.train import create_model
+
+    world = world or torch.cuda.device_count()
+    if world < 2:
+        raise AssertionError(f"--multi-card needs two or more cards; this machine has {world}")
+    log(f"[multi-card] {world} ranks, one a card, over NCCL on 127.0.0.1 | {smi}")
+    work = tempfile.mkdtemp(prefix="multi_card-", dir=_build.BUILD_DIR)
+    try:
+        sc = create_model("Autoencoder", "PointNet2", "Cube", device="cpu").scene
+        data = os.path.join(work, "input", "Cube")
+        write_frames(os.path.join(data, "train"), sc, 2 * B_LOOP * world,
+                     sc.sample_points, seed)
+        write_frames(os.path.join(data, "val"), sc, B_LOOP * world, sc.sample_points,
+                     seed + 1)
+        ctx = mp.get_context("spawn")
+        out = ctx.Queue()
+        port = free_port()
+        procs = [ctx.Process(target=multi_card_rank,
+                             args=(r, world, port, seed, work, device_type, smi, out))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        results = {}
+        try:
+            deadline = time.perf_counter() + 420  # the whole check takes ~2 min
+            for _ in range(world):
+                r, got = out.get(timeout=max(1.0, deadline - time.perf_counter()))
+                results[r] = got
+        except queue.Empty:
+            raise AssertionError(f"ranks {sorted(set(range(world)) - set(results))} gave no "
+                                 f"result in 420 s") from None
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+        failed = {r: v for r, v in results.items() if v is not None}
+        if failed:
+            raise AssertionError("\n".join(f"rank {r}:\n{v}" for r, v in failed.items()))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -6367,6 +7028,18 @@ def main(argv=None) -> int:
     ap.add_argument("--rl", action="store_true",
                     help="only build, then run phase 18 (the RL agents on the "
                          "card); prints no result lines")
+    ap.add_argument("--parallel", action="store_true",
+                    help="only build, then run phase 19 (the one-rank NCCL group: "
+                         "train() with and without it, train_torch.py --multihost, "
+                         "the ring Chamfer and Sinkhorn); prints no result lines")
+    ap.add_argument("--viewers", action="store_true",
+                    help="only build, then run phase 20 (the viewers and the "
+                         "rollout CLIs); prints no result lines")
+    ap.add_argument("--multi-card", action="store_true",
+                    help="only build, then run the ranks over every card of the "
+                         "machine (multi_card_phase; needs two or more cards): the "
+                         "rings, the data-parallel step and train(multihost=True) "
+                         "across cards; prints no result lines")
     ap.add_argument("--step-times", action="store_true",
                     help="only build, then time the steps the redesigned "
                          "kernels serve (step_times); with --kernel-times, "
@@ -6421,6 +7094,27 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True, timeout=60,
         ).stdout.strip().splitlines()[0]
         rl_phase(args.seed, smi)
+        return 0
+    if args.multi_card:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        smi = "; ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines())
+        multi_card_phase(args.seed, smi)
+        return 0
+    if args.parallel or args.viewers:
+        from pointcloud_tpu_torch.ops import _build
+        log(f"[build] {_build.build():.1f} s")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+        if args.parallel:
+            parallel_phase(args.seed, smi)
+        if args.viewers:
+            viewers_phase(args.seed, smi)
         return 0
     if args.kernel_times or args.step_times:
         from pointcloud_tpu_torch.ops import _build
@@ -6922,6 +7616,12 @@ def main(argv=None) -> int:
 
     # ---- 18. the RL agents ----
     rl_phase(args.seed, smi)
+
+    # ---- 19. parallelism: a one-rank NCCL group, the rings ----
+    parallel_phase(args.seed, smi)
+
+    # ---- 20. the viewers and the rollout CLIs ----
+    viewers_phase(args.seed, smi)
 
     def chain_entry(name, line, layer):
         """The kernel's launch at SA1 (the most rows) on the given layer."""

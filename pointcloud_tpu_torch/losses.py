@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from pointcloud_tpu_torch import cfg
 from pointcloud_tpu_torch.ops.chamfer import chamfer_distance
 from pointcloud_tpu_torch.ops.emd import emd_match
+from pointcloud_tpu_torch.parallel.distributed import batch_group, batch_sum
 
 
 def _noop_log(name, value):
@@ -121,10 +122,21 @@ class SegmentingChamferDistance(LossBase):
 def _class_shares(classes, num_classes: int):
     """The share of each class among integer labels in [0, num_classes): a
     one-hot sum of fixed length. (`torch.bincount` sizes its output from the
-    data's maximum, which makes the host wait for the device.)"""
+    data's maximum, which makes the host wait for the device.) Inside
+    `sharded_batch` the counts are the global batch's."""
     ids = torch.arange(num_classes, device=classes.device)
-    counts = (classes.reshape(-1, 1) == ids).sum(dim=0).float()
+    counts = batch_sum((classes.reshape(-1, 1) == ids).sum(dim=0).float())
     return counts / counts.sum()
+
+
+def _batch_ratios(*pairs):
+    """num / den for each (num, den) of batch sums; inside `sharded_batch`
+    every sum is the global batch's, all in one collective, and the
+    numerators keep their gradients."""
+    if batch_group() is None:
+        return [num / den for num, den in pairs]
+    sums = batch_sum(torch.stack([t for pair in pairs for t in pair]))
+    return [sums[2 * i] / sums[2 * i + 1] for i in range(len(pairs))]
 
 
 class EarthMoverDistance(LossBase):
@@ -140,6 +152,11 @@ class EarthMoverDistance(LossBase):
     (the KL divergence between the predicted and the target class
     distributions is logged and not added to the loss). With classes the
     target carries the label in column 3 as a float.
+
+    Inside `sharded_batch` (data parallelism) the class shares and both
+    weighted means are the global batch's, as under the JAX package's
+    sharded step; the feature MSE stays this rank's mean (the train step
+    averages the ranks' losses: equal slices make it the global mean).
     """
 
     def __init__(
@@ -206,14 +223,17 @@ class EarthMoverDistance(LossBase):
             # weighted cross-entropy: sum(w_y * nll) / sum(w_y)
             logp = torch.log_softmax(pred_logits, dim=-1)
             nll = -torch.gather(logp, 2, target_classes[..., None])[..., 0]
-            ce_l = (weights * nll).sum() / weights.sum()
+            point_l, ce_l = _batch_ratios(
+                ((torch.sqrt(dists + 1e-12) * weights).sum(), weights.sum()),
+                ((weights * nll).sum(), weights.sum()))
             feature_l = self.feature_weight * ce_l
             self.log("train_loss/cross_entropy", ce_l)
             self.log("train_loss/kl_divergence", kl_div)
         else:
             feature_l = ((pred[:, :, 3:] - target[:, :, 3:]) ** 2).mean()
+            point_l, = _batch_ratios(
+                ((torch.sqrt(dists + 1e-12) * weights).sum(), weights.sum()))
 
-        point_l = (torch.sqrt(dists + 1e-12) * weights).sum() / weights.sum()
         self.log("train_loss/EMD", point_l)
         self.log("train_loss/feature", feature_l)
         return point_l + feature_l

@@ -16,6 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pointcloud_tpu_torch.parallel.distributed import batch_group, batch_sum, batch_world
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator,
                   fan_in: int | None = None):
     """flax's lecun_normal: truncated normal at two standard deviations,
@@ -64,11 +67,16 @@ class Dense(nn.Module):
 def batch_stats(x):
     """flax's train-mode BatchNorm statistics (use_fast_variance): fp32
     mean and biased variance over all axes but the last, the variance
-    E[x^2] - E[x]^2 clamped at 0."""
+    E[x^2] - E[x]^2 clamped at 0. Inside `sharded_batch` E[x] and E[x^2]
+    are the global batch's: the mean of the ranks' means, each rank holding
+    an equal slice (differentiable; on one rank the same bits)."""
     xf = x.float()
     red = tuple(range(x.dim() - 1))
     mean = xf.mean(dim=red)
-    var = torch.clamp(torch.mean(xf * xf, dim=red) - mean * mean, min=0.0)
+    sq = torch.mean(xf * xf, dim=red)
+    if batch_group() is not None:
+        mean, sq = (batch_sum(torch.stack([mean, sq])) / batch_world()).unbind(0)
+    var = torch.clamp(sq - mean * mean, min=0.0)
     return mean, var
 
 
@@ -87,8 +95,10 @@ def update_running_stats(module: nn.Module, mean, var):
 def update_chain_stats(module: nn.Module, stats, n: int):
     """The running-average update of a fused chain's layers (mean{i},
     var{i} of `module`) from the batch's per-layer column sums (ssum, ssq)
-    over n rows: 0.9 old + 0.1 new, biased variance clamped at 0, in place
-    and outside autograd."""
+    over this rank's n rows: 0.9 old + 0.1 new, biased variance clamped at
+    0, in place and outside autograd. Inside `sharded_batch` the chain's
+    sums are the global batch's, over n rows on each rank."""
+    n = n * batch_world()
     with torch.no_grad():
         for i, (ss, sq) in enumerate(stats):
             mean = ss / n

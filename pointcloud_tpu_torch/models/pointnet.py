@@ -34,6 +34,7 @@ from pointcloud_tpu_torch.models.layers import (
     update_running_stats,
 )
 from pointcloud_tpu_torch.ops.dense_bn_pool import dense_pool_stats
+from pointcloud_tpu_torch.parallel.distributed import batch_group, batch_sum, batch_world
 
 # Large negative value for the masked max-pool (valid activations are far
 # smaller in magnitude).
@@ -197,6 +198,12 @@ class DenseBNMaxPool(nn.Module):
             xr.to(dt).contiguous(), self.weight.t().to(dt).contiguous(),
             self._bias(dt), sgn, pen, pool)
         sel = (sgn.to(dt) * psel).reshape(*lead, C)
+        if batch_group() is not None:
+            # data parallelism: the global batch's sums and rows, between the
+            # kernel and the affine step; the sign-pooled sel commutes with
+            # the global affine, as with the local one
+            ssum, ssq = batch_sum(torch.stack([ssum, ssq])).unbind(0)
+            n_rows *= batch_world()
         mean = ssum / float(n_rows)
         var = torch.clamp(ssq / float(n_rows) - mean * mean, min=0.0)
         update_running_stats(self, mean, var)

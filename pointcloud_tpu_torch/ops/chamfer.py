@@ -13,10 +13,12 @@ plain version on the CPU), so the (B, N, M) cost matrix is never stored on
 the card; its backward goes through `chamfer_bwd` at every size (the JAX
 package's switch to gathers and segment-sums above 6 << 20 cost elements,
 chamfer.py:105-110, came from the TPU kernel's VMEM; on the card the fused
-kernel is the faster route on both sides of it). The JAX package's ring
-routing of giant clouds
-across chips (chamfer.py:249-257) is not ported: this function always runs
-on one device.
+kernel is the faster route on both sides of it).
+
+Under a process group of more than one rank, `chamfer_distance` routes
+clouds of RING_MIN_ELEMENTS cost elements or more to the point-sharded ring
+(parallel/ring.py), as the JAX package does across chips
+(chamfer.py:52-64, :249-257).
 """
 
 from __future__ import annotations
@@ -26,6 +28,37 @@ import torch
 from pointcloud_tpu_torch.ops.chamfer_bwd import chamfer_bwd
 from pointcloud_tpu_torch.ops.geometry import _BIG, pairwise_sqdist
 from pointcloud_tpu_torch.ops.nn_sweep import MAX_DIMS, nn_sweep
+from pointcloud_tpu_torch.parallel.distributed import (
+    all_gather_cat,
+    batch_group,
+    batch_world,
+    gather_batch,
+    rank,
+    sum_cotangents,
+    world_size,
+)
+
+# Size of the (B, N, M) cost tensor from which chamfer_distance and
+# emd_match take the point-sharded ring when the group has more than one
+# rank. The JAX package's 1 << 28 is a memory bound (~1 GB of fp32 cost
+# matrix on one chip). On the card the one-device Chamfer streams through
+# nn_sweep and stores no cost matrix at any size, so the ring is only a
+# speed route, and its threshold comes from time. Measured on four H100s of
+# one host (NVLink, `chip_smoke.py --multi-card`): one card's forward and
+# backward take ~0.72 ps a pair (6.2 ms at B=2, N=M=65,536), while the
+# ring over the four pays a near-fixed ~12-16 ms of exchanges (13.6 ms at
+# 2.7e8 pairs, 18.2 ms at 8.6e9), so its saving (1 - 1/4) x 0.72 ps a pair
+# overtakes that cost only from ~3e10 pairs: 1 << 35 (3.4e10). The JAX
+# package's 1 << 28 would send 2.7e8-pair clouds to a ring 9x slower.
+# Monkeypatched down by tests.
+RING_MIN_ELEMENTS = 1 << 35
+
+
+def ring_eligible(B: int, N: int, M: int, group=None) -> bool:
+    """The ring route's test: `group` (the default group when None) has
+    more than one rank and the cost tensor has RING_MIN_ELEMENTS elements
+    or more. Divisibility does not matter: the ring pads N and M."""
+    return world_size(group) > 1 and B * N * M >= RING_MIN_ELEMENTS
 
 
 def _masked_mean(values, mask, dim: int):
@@ -101,9 +134,47 @@ def chamfer_distance(
     """pytorch3d-compatible chamfer loss (scalar by default).
 
     batch_reduction: 'mean' | 'sum' | None (None returns (B,) per element).
+    Clouds whose (B, N, M) cost tensor reaches RING_MIN_ELEMENTS take the
+    point-sharded ring when a group of more than one rank is active (C <=
+    8, method 'matmul'): over the default group, every rank holding the
+    same clouds; inside a data-parallel step (`sharded_batch`), over the
+    batch's group, each rank holding its own slice of the global batch (B
+    counts the global batch). Either way each cloud's value is the one this
+    function gives on one device. The route is a collective: every rank of
+    the group must make the same call, as every process of a multi-host JAX
+    program runs the same computation.
     """
+    group = batch_group()
+    if method != "direct" and x.shape[-1] <= MAX_DIMS and ring_eligible(
+            x.shape[0] * batch_world(), x.shape[1], y.shape[1], group):
+        per_batch = _ring_route(x, y, x_mask, y_mask, group)
+        return _reduce(per_batch, batch_reduction)
     cham_x, cham_y = masked_chamfer(x, y, x_mask, y_mask, method=method)
-    per_batch = cham_x + cham_y
+    return _reduce(cham_x + cham_y, batch_reduction)
+
+
+def _ring_route(x, y, x_mask, y_mask, group):
+    """(B,) per-cloud values through the ring. Without a batch group every
+    rank holds the same clouds; with one, each rank holds its own slice of
+    the batch: the ring runs over the global batch (gathered), every rank
+    keeps its own clouds' values, and the cotangents of the ranks' values
+    are summed before the ring's backward, which takes the same cotangent
+    on every rank, so each rank's clouds get their own gradients."""
+    from pointcloud_tpu_torch.parallel.ring import ring_chamfer
+
+    if group is None:
+        return ring_chamfer(x, y, x_mask=x_mask, y_mask=y_mask, batch_reduction=None)
+    gx, gy = gather_batch(x, group), gather_batch(y, group)
+    gxm = None if x_mask is None else all_gather_cat(x_mask, group, 0)
+    gym = None if y_mask is None else all_gather_cat(y_mask, group, 0)
+    per = sum_cotangents(ring_chamfer(gx, gy, group, gxm, gym, batch_reduction=None),
+                         group)
+    B = x.shape[0]
+    r = rank(group)
+    return per[r * B:(r + 1) * B]
+
+
+def _reduce(per_batch, batch_reduction):
     if batch_reduction == "mean":
         return torch.mean(per_batch)
     if batch_reduction == "sum":

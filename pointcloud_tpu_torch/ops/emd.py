@@ -24,9 +24,16 @@ import math
 
 import torch
 
+from pointcloud_tpu_torch.ops.chamfer import ring_eligible
 from pointcloud_tpu_torch.ops.chamfer_bwd import gather_rows
 from pointcloud_tpu_torch.ops.geometry import pairwise_sqdist
 from pointcloud_tpu_torch.ops.sinkhorn import eps_schedule, sinkhorn
+from pointcloud_tpu_torch.parallel.distributed import (
+    all_gather_cat,
+    batch_group,
+    batch_world,
+    rank,
+)
 
 
 def sinkhorn_match(x, y, eps: float = 0.005, iters: int = 50,
@@ -100,11 +107,27 @@ def auction_match(x, y, eps: float = 0.005, iters: int = 50):
 
 
 def _emd_forward(x, y, eps, iters, method, anneal_from):
-    """Route one matching: 'auction' to `auction_match`, anything else to
-    the `sinkhorn` wrapper, which launches its kernels on a CUDA device for
-    every N and M. The JAX package's multi-chip ring route is not ported."""
+    """Route one matching: 'auction' to `auction_match`; clouds that
+    `ring_eligible` passes under a group of more than one rank to the
+    point-sharded `ring_sinkhorn_match` (pointcloud_tpu/ops/emd.py:208-215;
+    inside a data-parallel step over the global batch, gathered, each rank
+    keeping its own rows); anything else to the `sinkhorn` wrapper, which
+    launches its kernels on a CUDA device for every N and M."""
     if method == "auction":
         return auction_match(x, y, eps=eps, iters=iters)
+    group = batch_group()
+    if ring_eligible(x.shape[0] * batch_world(), x.shape[1], y.shape[1], group):
+        from pointcloud_tpu_torch.parallel.ring import ring_sinkhorn_match
+
+        if group is None:  # every rank holds the same clouds
+            return ring_sinkhorn_match(x, y, eps=eps, iters=iters,
+                                       anneal_from=anneal_from)
+        dists, assignment = ring_sinkhorn_match(
+            all_gather_cat(x, group, 0), all_gather_cat(y, group, 0), eps=eps,
+            iters=iters, anneal_from=anneal_from, group=group)
+        B = x.shape[0]
+        r = rank(group)
+        return dists[r * B:(r + 1) * B], assignment[r * B:(r + 1) * B]
     return sinkhorn(x, y, eps=eps, iters=iters, anneal_from=anneal_from)
 
 

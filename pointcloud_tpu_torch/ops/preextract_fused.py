@@ -49,6 +49,12 @@ import torch
 
 from pointcloud_tpu_torch.ops import _build
 from pointcloud_tpu_torch.ops._launch import SMEM_LIMIT, SMS, sm_count, split
+from pointcloud_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    all_reduce_sum,
+    batch_group,
+    world_size,
+)
 
 EPS = 1e-5
 _SENT = -1e9  # the pooled value of a group without a valid row
@@ -801,15 +807,25 @@ def _layer_residual(u, L, residual, hs, scs, rs):
     return None
 
 
+def _global_rows(x, group) -> int:
+    """The BatchNorm's row count: x's rows on every rank of `group` (each
+    rank holds an equal slice of the batch)."""
+    n = x.shape[0] * x.shape[1]
+    return n if group is None else n * world_size(group)
+
+
 def _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, passes,
-                   residual=False):
+                   residual=False, group=None):
     """The forward passes, each through `passes` = (mm_stats,
     bnact_mm_stats, bn_pool) or their plain versions. Returns the pooled
     output, the per-layer (ssum, ssq) and what the backward reads: the
     weights in x.dtype, every h and its scalars, the stored residuals r_j
-    and the pool's maxv, amax and hsel."""
+    and the pool's maxv, amax and hsel. With a `group` (data parallelism),
+    each layer's sums are summed over its ranks between the kernel that
+    forms them and the BatchNorm that reads them (differentiably, for the
+    plain chain's autograd), so the statistics are the global batch's."""
     mm, bnact, pool_pass = passes
-    n = x.shape[0] * x.shape[1]
+    n = _global_rows(x, group)
     L = len(ws)
     blocks = (L - 1) // 2
     ws_c = [w.to(x.dtype).contiguous() for w in ws]
@@ -823,6 +839,8 @@ def _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, passes,
             rs += r
         else:
             h, ss, sq = mm(x, ws_c[0])
+        if group is not None:
+            ss, sq = all_reduce_sum(torch.stack([ss, sq]), group).unbind(0)
         hs.append(h)
         stats.append((ss, sq))
         scs.append(affine_scalars(ss, sq, gammas[u], betas[u], n))
@@ -839,11 +857,16 @@ _PLAIN = (mm_stats_reference, bnact_mm_stats_reference, bn_pool_reference)
 
 
 def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass,
-                    residual=False):
+                    residual=False, group=None):
     """The backward passes, top layer first, each through `bwd_pass`
     (`chain_bwd_pass` or its plain version). `saved` as `_chain_forward`
     returns it (the residual chain's backward reads only rs[:-1]). Returns
     (dx or None, dws, dgammas, dbetas), fp32 but dx.
+
+    With a `group`, each layer's Sd and Se are summed over its ranks before
+    the BatchNorm backward reads them (the global batch's statistics have
+    the global batch's backward); dgamma and dbeta stay this rank's own
+    sums, as every other parameter's gradient.
 
     Residual chain: the input of block j (layer 2j - 1's input) feeds the
     block's output too, so its cotangent takes a skip share: the pooled
@@ -852,7 +875,7 @@ def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass,
     ws_c, hs, scs, rs, maxv, amax, hsel = saved
     L = len(ws_c)
     blocks = (L - 1) // 2
-    n = x.shape[0] * x.shape[1]
+    n = _global_rows(x, group)
     gate = 0.0 if final_relu else 0.5 * _SENT
     dosel = (dout.float() * (maxv > gate)).contiguous()
     sd = dosel.sum(dim=(0, 1))
@@ -862,6 +885,8 @@ def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass,
     dx = None
     for u in range(L - 1, -1, -1):
         dgs[u], dbs[u] = se, sd
+        if group is not None:
+            sd, se = all_reduce_(torch.stack([sd, se]), group).unbind(0)
         uc = up_scalars(scs[u], gammas[u], sd, se, n)
         if u == L - 1:
             kw = dict(dosel=dosel, amax=amax, pool=pool)
@@ -886,19 +911,20 @@ def _chain_backward(x, gammas, saved, dout, pool, final_relu, need_dx, bwd_pass,
 
 
 class _ChainFused(torch.autograd.Function):
-    """Inputs (pool, final_relu, residual, L, x, pen, *ws, *gammas, *betas);
-    outputs (pooled, ssum_0, ssq_0, ..): the statistics are marked
+    """Inputs (pool, final_relu, residual, group, L, x, pen, *ws, *gammas,
+    *betas); outputs (pooled, ssum_0, ssq_0, ..): the statistics are marked
     non-differentiable."""
 
     @staticmethod
-    def forward(ctx, pool, final_relu, residual, L, x, pen, *params):
+    def forward(ctx, pool, final_relu, residual, group, L, x, pen, *params):
         ws, gammas, betas = params[:L], params[L:2 * L], params[2 * L:]
         out, stats, (ws_c, hs, scs, rs, maxv, amax, hsel) = _chain_forward(
-            x, ws, gammas, betas, pen, pool, final_relu, _KERNELS, residual)
+            x, ws, gammas, betas, pen, pool, final_relu, _KERNELS, residual, group)
         # the last stored residual feeds the pool pass alone
         ctx.save_for_backward(x, maxv, amax, hsel, *gammas, *ws_c, *hs, *scs,
                               *rs[:-1])
         ctx.pool, ctx.final_relu, ctx.residual, ctx.L = pool, final_relu, residual, L
+        ctx.group = group
         flat = [t for pair in stats for t in pair]
         ctx.mark_non_differentiable(*flat)
         return (out, *flat)
@@ -912,10 +938,10 @@ class _ChainFused(torch.autograd.Function):
         rs = rest[4 * L:]
         dx, dws, dgs, dbs = _chain_backward(
             x, gammas, (ws_c, hs, scs, rs, maxv, amax, hsel), dout.contiguous(),
-            ctx.pool, ctx.final_relu, ctx.needs_input_grad[4], chain_bwd_pass,
-            ctx.residual)
+            ctx.pool, ctx.final_relu, ctx.needs_input_grad[5], chain_bwd_pass,
+            ctx.residual, ctx.group)
         # autograd casts each gradient to its input's dtype
-        return (None, None, None, None, dx, None, *dws, *dgs, *dbs)
+        return (None, None, None, None, None, dx, None, *dws, *dgs, *dbs)
 
 
 def _check_chain(x, ws, gammas, betas, pen, pool, residual=False):
@@ -946,16 +972,17 @@ def _check_chain(x, ws, gammas, betas, pen, pool, residual=False):
 def _reference(x, ws, gammas, betas, pen, pool, final_relu, residual):
     _check_chain(x, ws, gammas, betas, pen, pool, residual)
     return _chain_forward(x, ws, gammas, betas, pen, pool, final_relu, _PLAIN,
-                          residual)[:2]
+                          residual, batch_group())[:2]
 
 
 def _bwd_reference(x, ws, gammas, betas, pen, pool, dout, final_relu, residual):
     _check_chain(x, ws, gammas, betas, pen, pool, residual)
     with torch.no_grad():
+        group = batch_group()
         saved = _chain_forward(x, ws, gammas, betas, pen, pool, final_relu,
-                               _PLAIN, residual)[2]
+                               _PLAIN, residual, group)[2]
         return _chain_backward(x, gammas, saved, dout, pool, final_relu, True,
-                               chain_bwd_pass_reference, residual)
+                               chain_bwd_pass_reference, residual, group)
 
 
 def _fused(x, ws, gammas, betas, pen, pool, final_relu, residual):
@@ -965,7 +992,7 @@ def _fused(x, ws, gammas, betas, pen, pool, final_relu, residual):
     if device.type == "cpu":
         return _reference(x, ws, gammas, betas, pen, pool, final_relu, residual)
     out, *flat = _ChainFused.apply(
-        pool, final_relu, residual, len(ws), x.contiguous(),
+        pool, final_relu, residual, batch_group(), len(ws), x.contiguous(),
         None if pen is None else pen.contiguous(), *ws, *gammas, *betas)
     return out, tuple(zip(flat[0::2], flat[1::2]))
 
@@ -1002,7 +1029,9 @@ def mlp_pool_fused(x, ws, gammas, betas, pen, pool: int, final_relu: bool = True
     a valid row gives -1e9 and gets no gradient; final_relu=False returns
     the pooled post-BatchNorm value without its ReLU.
     Returns (pooled (B, R / pool, C_last) in x.dtype, ((ssum, ssq), ...) per
-    layer, fp32 sums of the rounded Dense outputs over all B * R rows).
+    layer, fp32 sums of the rounded Dense outputs over all B * R rows; inside
+    `parallel.distributed.sharded_batch`, over every rank's rows, and the
+    BatchNorm and its backward read those global sums).
 
     Gradients flow from `pooled` to x, ws, gammas and betas. The statistics
     are outputs for the running averages only: on CUDA tensors they are

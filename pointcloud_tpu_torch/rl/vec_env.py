@@ -41,11 +41,14 @@ def make_env(env_id: str, max_episode_steps: int = 50, device="cuda", **kwargs):
     table's task class, with its sensor and encoder, on `device`, wrapped in
     envs.spaces' TimeLimit (gymnasium's where it is installed, else the
     stand-in; the GPU machine has no gymnasium), which truncates at
-    max_episode_steps as gym.make of the registered id does."""
+    max_episode_steps as gym.make of the registered id does. `kwargs` go to
+    the task class over the table's (a sensor or encoder class replaces the
+    registered one), as gym.make's do."""
     from pointcloud_tpu_torch.envs import registration, spaces
 
     task, task_kwargs = registration.env_table()[env_id.removeprefix(registration.NAMESPACE + "/")]
-    return spaces.TimeLimit(task(device=device, **task_kwargs, **kwargs), max_episode_steps)
+    return spaces.TimeLimit(task(device=device, **{**task_kwargs, **kwargs}),
+                            max_episode_steps)
 
 
 def _stack_obs(obs_list):

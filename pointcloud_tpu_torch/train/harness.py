@@ -8,14 +8,15 @@ the training step (forward in train mode, loss, backward, Adam);
 `make_eval_step` returns the eval forward + loss. `train()` runs the loop
 over npz datasets with TensorBoard logging and checkpoints under the
 reference's `output/{dataset}/{Model}_{Backbone}/version_N` layout, and
-resumes from a checkpoint. Every model type of cfg.models is ported on
+resumes from a checkpoint; under a process group it trains data-parallel
+over the group's ranks (one process a device), the counterpart of the JAX
+function's data_parallel and multihost meshes (`data_mesh`, `shard_batch`,
+`shard_batch_global`, `replicate`). Every model type of cfg.models is ported on
 every backbone of backbone_factory (PointNet, PointNet2, PointMLP,
 PointMLPE): the Autoencoder (Earth Mover's Distance, its default loss, or
 Chamfer with loss_override="chamfer"), the Segmenter (EMD with class
 weights), the MultiSegmenter (per-class experts under the segmenting
 Chamfer) and the StatePredictor (state heads under the per-state MSE).
-`train()` runs on one device: data parallelism and multi-host training are
-not ported.
 
 Checkpoints are the port's own format (the JAX package writes orbax
 directories): `step_E/checkpoint.pt`, one `torch.save` file of the model's
@@ -36,6 +37,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pointcloud_tpu_torch import cfg
@@ -62,6 +64,12 @@ from pointcloud_tpu_torch.models.architectures import (
 )
 from pointcloud_tpu_torch.models.layers import BatchNorm, Dense, init_flax_
 from pointcloud_tpu_torch.models.pointnet import DenseBNMaxPool
+from pointcloud_tpu_torch.parallel.distributed import (
+    average_gradients,
+    process_local_batch_slice,
+    rank_mean,
+    sharded_batch,
+)
 from pointcloud_tpu_torch.transforms import Normalize
 from pointcloud_tpu_torch.utils import resolve_device
 
@@ -219,25 +227,41 @@ def make_optimizer(spec: TrainSpec) -> torch.optim.Optimizer:
                             betas=(0.9, 0.999), eps=1e-8)
 
 
-def make_train_step(spec: TrainSpec, optimizer: torch.optim.Optimizer):
+def make_train_step(spec: TrainSpec, optimizer: torch.optim.Optimizer, group=None):
     """step(x_raw, y_raw) -> (loss, logs): the transforms, the forward in
     train mode (BatchNorm batch statistics; the running statistics are
     updated), the loss with its `.log` hook, the backward and the optimizer
     step. Parameters, running statistics and optimizer state are updated in
-    place, PyTorch's counterpart of the JAX step's donated buffers."""
+    place, PyTorch's counterpart of the JAX step's donated buffers.
+
+    group: data parallelism over its ranks, each passing its own equal
+    slice of the global batch (`shard_batch`). Forward and backward run in
+    `sharded_batch(group)`, so the BatchNorm statistics and the losses'
+    batch ratios are the global batch's, as under the JAX package's sharded
+    step; the gradients are averaged over the ranks before Adam, and the
+    loss and logs returned are the global batch's (the ranks' mean), the
+    same on every rank. On one rank the all-reduces change no bit."""
+    params = list(spec.model.parameters())
 
     def step(x_raw, y_raw):
-        x, _ = spec.in_transform(x_raw)
-        y = y_raw if spec.dict_target else spec.out_transform(y_raw)[0]
-        logs = {}
-        spec.loss.log = lambda k, v: logs.__setitem__(k, v)
-        out = spec.model(x, train=True)
-        loss = spec.loss(out, y)
-        spec.loss.log = _noop_log
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with sharded_batch(group):
+            x, _ = spec.in_transform(x_raw)
+            y = y_raw if spec.dict_target else spec.out_transform(y_raw)[0]
+            logs = {}
+            spec.loss.log = lambda k, v: logs.__setitem__(k, v)
+            out = spec.model(x, train=True)
+            loss = spec.loss(out, y)
+            spec.loss.log = _noop_log
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        logs = {k: torch.as_tensor(v).detach() for k, v in logs.items()}
+        loss = loss.detach()
+        if group is not None:
+            average_gradients(params, group)
+            loss, *vals = rank_mean([loss, *logs.values()], group)
+            logs = dict(zip(logs, vals))
         optimizer.step()
-        return loss.detach(), {k: torch.as_tensor(v).detach() for k, v in logs.items()}
+        return loss, logs
 
     return step
 
@@ -423,6 +447,69 @@ def load_state(model: nn.Module, state: dict, keep_fresh: bool = False) -> nn.Mo
     return load_state_exactly(model, state)
 
 
+############################ sharding ############################
+
+
+def data_mesh(batch_size: int | None = None):
+    """The process group a data-parallel train step runs over: the default
+    group when one is active, else None (one device). The JAX function
+    takes the most devices that divide batch_size; the port runs one
+    process a device and leaves none idle, so batch_size must divide the
+    group's size (ValueError otherwise)."""
+    if not dist.is_initialized():
+        return None
+    group = dist.group.WORLD
+    d = dist.get_world_size(group)
+    if batch_size is not None and batch_size % d:
+        raise ValueError(f"global batch {batch_size} must divide the {d} ranks")
+    return group
+
+
+def _map_batch(fn, batch):
+    """fn applied to every array or tensor of a batch (an array, or a
+    tuple, list or dict of them)."""
+    if isinstance(batch, dict):
+        return {k: _map_batch(fn, v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_map_batch(fn, v) for v in batch)
+    return fn(batch)
+
+
+def shard_batch_global(mesh, batch, global_batch_size: int):
+    """This rank's rows of a global batch that every rank of `mesh` (a
+    process group) holds, from identically seeded loaders: its
+    `process_local_batch_slice`, of every array or tensor of the batch."""
+    sl = process_local_batch_slice(global_batch_size, mesh)
+    return _map_batch(lambda a: a[sl], batch)
+
+
+def shard_batch(mesh, batch):
+    """This rank's rows of `batch` (held whole by every rank of `mesh`):
+    the rank's equal slice of the leading axis. The JAX function places a
+    host batch's shards on the mesh's devices; in the port each rank is a
+    process that keeps its own."""
+    first = batch
+    while isinstance(first, (dict, tuple, list)):
+        first = next(iter(first.values())) if isinstance(first, dict) else first[0]
+    return shard_batch_global(mesh, batch, len(first))
+
+
+def replicate(mesh, tree):
+    """Every tensor of `tree` (a module's state, or a dict, list or tuple of
+    tensors) made rank 0's on every rank of `mesh`, in place; returns
+    `tree`. Without a group, `tree` as it is."""
+    if mesh is None:
+        return tree
+    tensors = (list(tree.state_dict().values()) if isinstance(tree, nn.Module)
+               else [])
+    if not tensors:
+        _map_tensors(tensors.append, tree)
+    src = dist.get_global_rank(mesh, 0)
+    for t in tensors:
+        dist.broadcast(t, src=src, group=mesh)
+    return tree
+
+
 ############################ training loop ############################
 
 
@@ -456,8 +543,10 @@ def train(
     profile: bool = False,
     device="cuda",
     on_epoch: Callable[[dict], None] | None = None,
+    data_parallel: bool = True,
+    multihost: bool = False,
 ):
-    """Train a vision model (reference train.py:166-206) on one device.
+    """Train a vision model (reference train.py:166-206).
 
     Expects input/{dataset_dir}/{train,val}/*.npz; writes TensorBoard logs
     and checkpoints under output/{dataset_dir}/{Model}_{Backbone}/version_N
@@ -473,13 +562,31 @@ def train(
 
     Batches come from the native loader when cfg.use_native_loader is set
     and the dataset has no host transforms (a library that does not build
-    raises), else from the threaded BatchLoader. Data parallelism and
-    multi-host training (the JAX function's data_parallel and multihost)
-    are not ported.
+    raises), else from the threaded BatchLoader.
+
+    Data parallelism (data_parallel, multihost): under an active process
+    group (parallel.initialize(); `train_torch.py --multihost` joins one
+    first) the process is one rank of a data-parallel run over the group,
+    one device a rank, on one host or several. multihost=True asks for
+    that group and raises without one; data_parallel=True takes the group
+    when there is one (False trains this rank alone). batch_size is the
+    global batch and must divide the ranks. Every rank builds the same
+    model from `seed` (rank 0's state broadcast to make sure), loads the
+    same global batches from identically seeded loaders and keeps its
+    `process_local_batch_slice` (`shard_batch_global`); the train step
+    takes the global batch's BatchNorm statistics and loss and averages the
+    gradients (`make_train_step(group=)`). Validation runs each whole val
+    batch on every rank. Only rank 0 writes TensorBoard logs, traces and
+    checkpoints; every rank resumes from `ckpt_path`.
     """
     device = resolve_device(device)
     epochs = epochs or cfg.vision_epochs
     batch_size = batch_size or cfg.vision_batch_size
+    if multihost and not dist.is_initialized():
+        raise RuntimeError("train(multihost=True) needs a process group: call "
+                           "pointcloud_tpu_torch.parallel.initialize() first")
+    group = data_mesh(batch_size) if (data_parallel or multihost) else None
+    is_main = group is None or dist.get_rank(group) == 0
 
     spec = create_model(model_type, backbone, scene, loss_override=loss_override,
                         device=device, seed=seed)
@@ -503,7 +610,11 @@ def train(
         version = max(existing) + 1 if existing else 0
     run_dir = os.path.join(output_dir, f"version_{version}")
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if group is not None:  # every rank has chosen the version before rank 0 makes it
+        dist.barrier(group, device_ids=None if device.type != "cuda" else [
+            torch.cuda.current_device() if device.index is None else device.index])
+    if is_main:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
     train_ds = spec.open_dataset(os.path.join(input_dir, "train"))
     val_ds = spec.open_dataset(os.path.join(input_dir, "val"))
@@ -547,11 +658,17 @@ def train(
         optimizer.load_state_dict(payload["optimizer"])
         start_epoch = int(payload["epoch"]) + 1
         print(f"resumed from {ckpt_path} at epoch {start_epoch}")
+    replicate(group, spec.model)
 
-    train_step = make_train_step(spec, optimizer)
+    train_step = make_train_step(spec, optimizer, group)
     eval_step = make_eval_step(spec)
+    if group is None:
+        put_batch = lambda b: b  # noqa: E731
+    else:
+        put_batch = lambda b: shard_batch_global(group, b, batch_size)  # noqa: E731
+    profile = profile and is_main
 
-    writer = _make_writer(run_dir)
+    writer = _make_writer(run_dir) if is_main else _NullWriter()
     global_step = start_epoch * max(len(train_loader), 1)
     loss = torch.tensor(float("nan"))  # defined even if no step runs
     train_loss = float("nan")
@@ -574,7 +691,7 @@ def train(
             if profile and global_step == 2:  # skip the first steps
                 profile_ctx = trace(os.path.join(run_dir, "profile"))
                 profile_ctx.__enter__()
-            x_raw, y_raw = _to_device(batch, device)
+            x_raw, y_raw = _to_device(put_batch(batch), device)
             with step_timer:
                 loss, logs = train_step(x_raw, y_raw)
                 if profile and device.type == "cuda":
@@ -608,6 +725,7 @@ def train(
         val_s = time.perf_counter() - t1
         n_steps = max(len(train_loader), 1)
         print(
+            f"{'' if group is None else f'rank {dist.get_rank(group)}: '}"
             f"epoch {epoch}: train_loss={train_loss:.6f} "
             f"val_loss={val_loss:.6f} "
             f"({dt:.1f}s, {dt / n_steps * 1e3:.1f} ms/step wall, "
@@ -618,7 +736,7 @@ def train(
         # checkpoint: snapshot on the device, copy + write in the background;
         # every cfg.ckpt_every epochs and the final one
         t1 = time.perf_counter()
-        saved = epoch % cfg.ckpt_every == 0 or epoch == epochs - 1
+        saved = is_main and (epoch % cfg.ckpt_every == 0 or epoch == epochs - 1)
         if saved:
             save_checkpoint_async(ckpt_dir, epoch, checkpoint_payload(
                 spec, optimizer, epoch, loss_override))

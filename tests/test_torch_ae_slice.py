@@ -168,6 +168,9 @@ def test_scene_table_is_the_jax_packages():
 
 GENERATE_CLI = str(Path(__file__).parents[1] / "generate_pc_torch.py")
 TRAIN_RL_CLI = str(Path(__file__).parents[1] / "train_rl_torch.py")
+NEW_CLIS = [str(Path(__file__).parents[1] / f"{name}.py") for name in (
+    "train_torch", "calibrate_latent_torch", "pc_viewer_torch", "ae_viewer_torch",
+    "live_ae_viewer_torch", "sim_torch")]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -222,6 +225,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from pointcloud_tpu_torch.envs.registration import env_table; env_table()\n"
         "from pointcloud_tpu_torch.envs.spaces import TimeLimit\n"
         "from pointcloud_tpu_torch.interop import flax_params\n"
+        "import pointcloud_tpu_torch.parallel, pointcloud_tpu_torch.parallel.distributed, "
+        "pointcloud_tpu_torch.parallel.ring, pointcloud_tpu_torch.parallel.mesh, "
+        "pointcloud_tpu_torch.viewers, pointcloud_tpu_torch.viewers.reconstruct, "
+        "pointcloud_tpu_torch.viewers.plot, pointcloud_tpu_torch.viewers.interactive\n"
+        "from pointcloud_tpu_torch.parallel import data_mesh, replicate, shard_batch, "
+        "ring_chamfer, ring_sinkhorn_match, initialize, global_mesh, "
+        "process_local_batch_slice\n"
+        "from pointcloud_tpu_torch.train.harness import shard_batch_global\n"
+        f"for i, path in enumerate({NEW_CLIS!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'cli{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "spec = importlib.util.spec_from_file_location("
         f"'train_rl_torch', {TRAIN_RL_CLI!r}); "
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

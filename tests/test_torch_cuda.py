@@ -2645,3 +2645,83 @@ def test_load_policy_runs_on_the_card(dev, tmp_path, fmt):
         b, _ = cpu.predict(o, deterministic=True)
         assert a.shape == b.shape == (act,) and a.dtype == np.float32
         assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max(), (fmt, a, b)
+
+
+@pytest.fixture
+def nccl_group(dev):
+    """A one-rank NCCL group on 127.0.0.1 (the card holds one rank), left
+    after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pointcloud_tpu_torch.parallel import initialize
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+def test_ring_chamfer_on_a_one_rank_nccl_group(dev, nccl_group):
+    """ring_chamfer over the group (one nn_sweep, one chamfer_bwd) against
+    chamfer_distance on the same masked clouds: value and gradients within
+    1e-6 relative."""
+    from pointcloud_tpu_torch.parallel import ring_chamfer
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((2, 3000, 3), generator=gen, device=dev)
+    y = torch.rand((2, 5000, 3), generator=gen, device=dev)
+    xm = torch.rand((2, 3000), generator=gen, device=dev) > 0.2
+    ym = torch.rand((2, 5000), generator=gen, device=dev) > 0.2
+    got, want = [], []
+    for fn, out in ((lambda a, b: ring_chamfer(a, b, nccl_group, xm, ym), got),
+                    (lambda a, b: chamfer_distance(a, b, xm, ym), want)):
+        a, b = x.clone().requires_grad_(), y.clone().requires_grad_()
+        nn_sweep.launches = chamfer_bwd.launches = 0
+        v = fn(a, b)
+        v.backward()
+        out += [v.detach(), a.grad, b.grad, nn_sweep.launches, chamfer_bwd.launches]
+    assert got[3:] == want[3:] == [1, 1]
+    for g, w in zip(got[:3], want[:3]):
+        assert float((g - w).abs().max() / w.abs().max()) <= 1e-6
+
+
+def test_ring_sinkhorn_on_a_one_rank_nccl_group(dev, nccl_group):
+    """ring_sinkhorn_match over the group against the sinkhorn kernel, by the
+    EMD rule."""
+    from pointcloud_tpu_torch.parallel import ring_sinkhorn_match
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand((2, 1000, 3), generator=gen, device=dev)
+    y = torch.rand((2, 900, 3), generator=gen, device=dev)
+    got = ring_sinkhorn_match(x, y, 0.005, 50, group=nccl_group)
+    want = sinkhorn(x, y, 0.005, 50)
+    *_, f, g = sinkhorn_reference(x, y, eps_schedule(0.005, 50))
+    same, gap, d_err = matching_difference(x, y, f, g, got, want)
+    assert same >= 0.995 and gap <= 1e-6 and d_err <= 1e-6, (same, gap, d_err)
+
+
+@pytest.mark.parametrize("backbone,loss", [("PointNet", "chamfer"), ("PointNet2", None)])
+def test_train_step_on_a_one_rank_nccl_group_is_bit_equal(dev, nccl_group, backbone, loss):
+    """make_train_step(group=) on one rank against the step without a group
+    from the same init and batch (bf16): losses, logs and every parameter and
+    running statistic bit-equal over two steps."""
+    from pointcloud_tpu_torch.train import create_model, make_optimizer, make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((4, 2048, 6), generator=gen, device=dev)
+    runs = []
+    for group in (nccl_group, None):
+        spec = create_model("Autoencoder", backbone, "Cube", loss_override=loss, device=dev)
+        step = make_train_step(spec, make_optimizer(spec), group)
+        out = [step(x, x) for _ in range(2)]
+        runs.append((out, spec.model.state_dict()))
+    (out_g, state_g), (out_n, state_n) = runs
+    for (lg, logs_g), (ln, logs_n) in zip(out_g, out_n):
+        assert torch.equal(lg, ln) and logs_g.keys() == logs_n.keys()
+        assert all(torch.equal(logs_g[k], logs_n[k]) for k in logs_g)
+    for k, v in state_g.items():
+        assert torch.equal(v, state_n[k]), k
