@@ -42,6 +42,7 @@ from pointcloud_tpu_torch.ops.geometry import (
     sample_and_group,
     sample_and_group_all,
 )
+from pointcloud_tpu_torch.utils.profiling import span
 
 _NEG = -1e9
 
@@ -113,14 +114,16 @@ class PointNet2Encoder(nn.Module):
         self.SetAbstraction_2 = SetAbstraction(
             None, None, None, 3 + 256, (256, 512, 1024), group_all=True,
             dtype=dtype)
+        self._spans = tuple(f"encoder.SetAbstraction_{i}" for i in range(3))
 
     def forward(self, x, train: bool = False, mask=None):
         check_train_mask_contract(train, mask)
         xyz = x[..., : self.space_dims]
         feats = x[..., self.space_dims :] if self.feature_dims > 0 else None
         for i in range(3):
-            xyz, feats, mask = getattr(self, f"SetAbstraction_{i}")(
-                xyz, feats, train=train, mask=mask)
+            with span(self._spans[i], device=True):
+                xyz, feats, mask = getattr(self, f"SetAbstraction_{i}")(
+                    xyz, feats, train=train, mask=mask)
         return feats[:, 0, :]  # (B, 1024)
 
 
@@ -205,6 +208,7 @@ class PointNet2MSGEncoder(nn.Module):
     `backbone_factory`."""
 
     ENCODING_DIM = 1024
+    LEVELS = ("SetAbstractionMsg_0", "SetAbstractionMsg_1", "SetAbstraction_0")
 
     def __init__(self, space_dims: int = 3, feature_dims: int = 3, dtype=None):
         super().__init__()
@@ -221,6 +225,7 @@ class PointNet2MSGEncoder(nn.Module):
         self.SetAbstraction_0 = SetAbstraction(
             None, None, None, 3 + self.SetAbstractionMsg_1.out_features,
             (256, 512, 1024), group_all=True, dtype=dtype)
+        self._spans = tuple(f"encoder.{level}" for level in self.LEVELS)
 
     def forward(self, x, train: bool = False, mask=None):
         if x.shape[-1] != 3 + self.feature_dims:
@@ -228,7 +233,7 @@ class PointNet2MSGEncoder(nn.Module):
                              f"dims a point; got {x.shape[-1]}")
         xyz = x[..., :3]
         feats = x[..., 3:] if x.shape[-1] > 3 else None
-        xyz, feats, mask = self.SetAbstractionMsg_0(xyz, feats, train=train, mask=mask)
-        xyz, feats, mask = self.SetAbstractionMsg_1(xyz, feats, train=train, mask=mask)
-        _, feats, _ = self.SetAbstraction_0(xyz, feats, train=train, mask=mask)
+        for level, name in zip(self.LEVELS, self._spans):
+            with span(name, device=True):
+                xyz, feats, mask = getattr(self, level)(xyz, feats, train=train, mask=mask)
         return feats[:, 0, :]  # (B, 1024)

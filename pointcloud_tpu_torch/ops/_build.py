@@ -27,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from pointcloud_tpu_torch.utils.profiling import count, span
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
@@ -78,24 +80,26 @@ def build(names: list[str] | None = None) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = []
-    for name in todo:
-        out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        procs.append((name, proc, tmp, out))
-    failed = []
-    for name, proc, tmp, out in procs:
-        log, _ = proc.communicate()
-        _logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    with span("setup.kernels"):
+        procs = []
+        for name in todo:
+            out = library_path(name)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            procs.append((name, proc, tmp, out))
+        failed = []
+        for name, proc, tmp, out in procs:
+            log, _ = proc.communicate()
+            _logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent build never sees half
+        count("kernels_built", len(todo) - len(failed))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -107,7 +111,8 @@ def load(name: str) -> ctypes.CDLL:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            with span("setup.kernels"):
+                lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
 

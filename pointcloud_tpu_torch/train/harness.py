@@ -72,6 +72,7 @@ from pointcloud_tpu_torch.parallel.distributed import (
 )
 from pointcloud_tpu_torch.transforms import Normalize
 from pointcloud_tpu_torch.utils import resolve_device
+from pointcloud_tpu_torch.utils.profiling import count, span, trace
 
 
 @dataclasses.dataclass
@@ -130,94 +131,95 @@ def create_model(
     that differs raise. Where the JAX function returns (spec, variables),
     this one returns the spec with the weights already loaded.
     """
-    if model_type not in cfg.models:
-        raise NotImplementedError(f"Unknown model type: {model_type}")
-    if backbone not in backbone_factory:
-        raise NotImplementedError(
-            f"backbone {backbone!r} is not ported yet "
-            f"(have {sorted(backbone_factory)})"
-        )
-    device = torch.device(device)
-    sc = scene_config(scene)
-    dtype = cfg.compute_dtype(device)
-    encoder_backbone = backbone_factory[backbone](feature_dims=3, dtype=dtype)
-    out_transform = Normalize(sc.bbox)
-    dict_target = False
-    if model_type == "Autoencoder":
-        model = AE(
-            encoder_backbone,
-            out_points=sc.sample_points,
-            out_dim=6,
-            bottleneck=sum(sc.class_latent_dim),
-            dtype=dtype,
-        )
-        if loss_override == "chamfer":
-            loss = ChamferDistance()
-        else:
-            loss = EarthMoverDistance(
-                eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=None,
-                anneal_from=None,  # the constant-eps training operating point
+    with span("setup.create_model"):
+        if model_type not in cfg.models:
+            raise NotImplementedError(f"Unknown model type: {model_type}")
+        if backbone not in backbone_factory:
+            raise NotImplementedError(
+                f"backbone {backbone!r} is not ported yet "
+                f"(have {sorted(backbone_factory)})"
             )
-    elif model_type == "Segmenter":  # the target is (B, N, 4): xyz + label
-        C = len(sc.classes)
-        model = SegAE(
-            encoder_backbone,
-            num_classes=C,
-            out_points=sc.sample_points,
-            bottleneck=sum(sc.class_latent_dim),
-            dtype=dtype,
-        )
-        loss = EarthMoverDistance(
-            eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=C,
-            anneal_from=None,
-        )
-    elif model_type == "MultiSegmenter":  # the target is (B, N, 4), as above
-        name_points_dims = [
-            (n, math.ceil(p * sc.sample_points), d)
-            for (n, p, d) in zip(sc.classes, sc.class_distribution, sc.class_latent_dim)
-            if d > 0
-        ]
-        class_labels = {n: sc.classes.index(n) for (n, _, _) in name_points_dims}
-        model = MultiSegAE(encoder_backbone, class_labels, tuple(name_points_dims),
-                           dtype=dtype)
-        loss = SegmentingChamferDistance(class_labels)
-    else:  # StatePredictor
-        state_dims = {n: d for (n, d) in zip(sc.states, sc.state_dim) if d > 0}
-        bbox = torch.tensor(sc.bbox, dtype=torch.float32, device=device)
-        lo, span = bbox[:, 0], bbox[:, 1] - bbox[:, 0]
+        device = torch.device(device)
+        sc = scene_config(scene)
+        dtype = cfg.compute_dtype(device)
+        encoder_backbone = backbone_factory[backbone](feature_dims=3, dtype=dtype)
+        out_transform = Normalize(sc.bbox)
+        dict_target = False
+        if model_type == "Autoencoder":
+            model = AE(
+                encoder_backbone,
+                out_points=sc.sample_points,
+                out_dim=6,
+                bottleneck=sum(sc.class_latent_dim),
+                dtype=dtype,
+            )
+            if loss_override == "chamfer":
+                loss = ChamferDistance()
+            else:
+                loss = EarthMoverDistance(
+                    eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=None,
+                    anneal_from=None,  # the constant-eps training operating point
+                )
+        elif model_type == "Segmenter":  # the target is (B, N, 4): xyz + label
+            C = len(sc.classes)
+            model = SegAE(
+                encoder_backbone,
+                num_classes=C,
+                out_points=sc.sample_points,
+                bottleneck=sum(sc.class_latent_dim),
+                dtype=dtype,
+            )
+            loss = EarthMoverDistance(
+                eps=cfg.emd_eps, its=cfg.emd_iterations, num_classes=C,
+                anneal_from=None,
+            )
+        elif model_type == "MultiSegmenter":  # the target is (B, N, 4), as above
+            name_points_dims = [
+                (n, math.ceil(p * sc.sample_points), d)
+                for (n, p, d) in zip(sc.classes, sc.class_distribution, sc.class_latent_dim)
+                if d > 0
+            ]
+            class_labels = {n: sc.classes.index(n) for (n, _, _) in name_points_dims}
+            model = MultiSegAE(encoder_backbone, class_labels, tuple(name_points_dims),
+                               dtype=dtype)
+            loss = SegmentingChamferDistance(class_labels)
+        else:  # StatePredictor
+            state_dims = {n: d for (n, d) in zip(sc.states, sc.state_dim) if d > 0}
+            bbox = torch.tensor(sc.bbox, dtype=torch.float32, device=device)
+            lo, extent = bbox[:, 0], bbox[:, 1] - bbox[:, 0]
 
-        def norm_pos(x):
-            """A 3-d position from the scene's bbox into the unit cube."""
-            return (x - lo) / span
+            def norm_pos(x):
+                """A 3-d position from the scene's bbox into the unit cube."""
+                return (x - lo) / extent
 
-        transforms = {n: norm_pos for n, d in state_dims.items() if d == 3}
-        model = MultiGTEncoder(encoder_backbone, state_dims, dtype=dtype)
-        loss = StatePredictionLoss(list(state_dims), transforms)
-        out_transform = None
-        dict_target = True
-    init_flax_(model, torch.Generator().manual_seed(seed))
-    if load_dir:
-        payload = load_checkpoint_variables(load_dir, encoder_only=encoder_only)
-        load_state(model, payload["model"], keep_fresh=encoder_only)
-    if dict_target:
-        open_dataset = lambda input_dir: PointCloudGTDataset(  # noqa: E731
-            root_dir=input_dir, in_features=["rgb"])
-    else:
-        out_features = ["rgb"] if model_type == "Autoencoder" else ["segmentation"]
-        open_dataset = lambda input_dir: PointCloudDataset(  # noqa: E731
-            root_dir=input_dir, in_features=["rgb"], out_features=out_features)
-    return TrainSpec(
-        model=model.to(device).eval(),
-        loss=loss,
-        open_dataset=open_dataset,
-        in_transform=Normalize(sc.bbox),
-        out_transform=out_transform,
-        model_type=model_type,
-        backbone=backbone,
-        scene_name=scene,
-        scene=sc,
-        dict_target=dict_target,
-    )
+            transforms = {n: norm_pos for n, d in state_dims.items() if d == 3}
+            model = MultiGTEncoder(encoder_backbone, state_dims, dtype=dtype)
+            loss = StatePredictionLoss(list(state_dims), transforms)
+            out_transform = None
+            dict_target = True
+        init_flax_(model, torch.Generator().manual_seed(seed))
+        if load_dir:
+            payload = load_checkpoint_variables(load_dir, encoder_only=encoder_only)
+            load_state(model, payload["model"], keep_fresh=encoder_only)
+        if dict_target:
+            open_dataset = lambda input_dir: PointCloudGTDataset(  # noqa: E731
+                root_dir=input_dir, in_features=["rgb"])
+        else:
+            out_features = ["rgb"] if model_type == "Autoencoder" else ["segmentation"]
+            open_dataset = lambda input_dir: PointCloudDataset(  # noqa: E731
+                root_dir=input_dir, in_features=["rgb"], out_features=out_features)
+        return TrainSpec(
+            model=model.to(device).eval(),
+            loss=loss,
+            open_dataset=open_dataset,
+            in_transform=Normalize(sc.bbox),
+            out_transform=out_transform,
+            model_type=model_type,
+            backbone=backbone,
+            scene_name=scene,
+            scene=sc,
+            dict_target=dict_target,
+        )
 
 
 def make_optimizer(spec: TrainSpec) -> torch.optim.Optimizer:
@@ -244,24 +246,30 @@ def make_train_step(spec: TrainSpec, optimizer: torch.optim.Optimizer, group=Non
     params = list(spec.model.parameters())
 
     def step(x_raw, y_raw):
-        with sharded_batch(group):
-            x, _ = spec.in_transform(x_raw)
-            y = y_raw if spec.dict_target else spec.out_transform(y_raw)[0]
-            logs = {}
-            spec.loss.log = lambda k, v: logs.__setitem__(k, v)
-            out = spec.model(x, train=True)
-            loss = spec.loss(out, y)
-            spec.loss.log = _noop_log
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-        logs = {k: torch.as_tensor(v).detach() for k, v in logs.items()}
-        loss = loss.detach()
-        if group is not None:
-            average_gradients(params, group)
-            loss, *vals = rank_mean([loss, *logs.values()], group)
-            logs = dict(zip(logs, vals))
-        optimizer.step()
-        return loss, logs
+        with span("step.train"):
+            with sharded_batch(group):
+                with span("step.transforms"):
+                    x, _ = spec.in_transform(x_raw)
+                    y = y_raw if spec.dict_target else spec.out_transform(y_raw)[0]
+                logs = {}
+                spec.loss.log = lambda k, v: logs.__setitem__(k, v)
+                with span("step.forward"):
+                    out = spec.model(x, train=True)
+                with span("step.loss", device=True):
+                    loss = spec.loss(out, y)
+                spec.loss.log = _noop_log
+                with span("step.backward"):
+                    optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+            logs = {k: torch.as_tensor(v).detach() for k, v in logs.items()}
+            loss = loss.detach()
+            if group is not None:
+                average_gradients(params, group)
+                loss, *vals = rank_mean([loss, *logs.values()], group)
+                logs = dict(zip(logs, vals))
+            with span("step.optimizer", device=True):
+                optimizer.step()
+            return loss, logs
 
     return step
 
@@ -289,13 +297,16 @@ def make_eval_step(spec: TrainSpec):
     loss, without autograd. `out` doubles as the sample prediction."""
 
     def step(x_raw, y_raw):
-        with torch.inference_mode():
-            x, _ = spec.in_transform(x_raw)
-            y = y_raw if spec.dict_target else spec.out_transform(y_raw)[0]
+        with span("step.eval"), torch.inference_mode():
+            with span("step.transforms"):
+                x, _ = spec.in_transform(x_raw)
+                y = y_raw if spec.dict_target else spec.out_transform(y_raw)[0]
             logs = {}
             spec.loss.log = lambda k, v: logs.__setitem__(k, v)
-            out = spec.model(x, train=False)
-            loss = spec.loss(out, y)
+            with span("step.forward"):
+                out = spec.model(x, train=False)
+            with span("step.loss", device=True):
+                loss = spec.loss(out, y)
             spec.loss.log = _noop_log
         return loss, logs, out
 
@@ -555,7 +566,9 @@ def train(
     loss's sub-logs to TensorBoard every cfg.val_every steps. `ckpt_path`
     (a step_N directory) resumes: weights, running statistics, Adam's state
     and epoch + 1; the loaders start afresh from `seed`, as the JAX
-    package's do. `profile` writes a trace of steps 2-5 to run_dir/profile.
+    package's do. `profile` writes a trace of steps 2-5 to
+    run_dir/profile/trace.json, which holds the program's spans
+    (utils/profiling.py) beside the host's and the device's activity.
     `on_epoch`, if given, gets each epoch's numbers (losses, seconds,
     steps, clouds/s, host seconds waiting for the loader and in the
     checkpoint snapshot). Returns (final train loss, checkpoint dir).
@@ -673,9 +686,6 @@ def train(
     loss = torch.tensor(float("nan"))  # defined even if no step runs
     train_loss = float("nan")
 
-    from pointcloud_tpu_torch.utils.profiling import StepTimer, trace
-
-    step_timer = StepTimer(warmup=2)
     profile_ctx = None
 
     for epoch in range(start_epoch, epochs):
@@ -692,10 +702,7 @@ def train(
                 profile_ctx = trace(os.path.join(run_dir, "profile"))
                 profile_ctx.__enter__()
             x_raw, y_raw = _to_device(put_batch(batch), device)
-            with step_timer:
-                loss, logs = train_step(x_raw, y_raw)
-                if profile and device.type == "cuda":
-                    torch.cuda.synchronize(device)
+            loss, logs = train_step(x_raw, y_raw)
             if profile_ctx is not None and global_step == 5:
                 profile_ctx.__exit__(None, None, None)
                 profile_ctx = None
@@ -704,10 +711,10 @@ def train(
             # scalar logging every val_every steps (the reference's
             # log_every_n_steps cadence, train.py:198)
             if global_step % cfg.val_every == 0:
-                writer.add_scalar("train_loss", float(loss), global_step)
+                writer.add_scalar("train_loss", _host_float(loss), global_step)
                 for k, v in logs.items():
-                    writer.add_scalar(k, float(v), global_step)
-        train_loss = float(loss)  # waits for the epoch's last step
+                    writer.add_scalar(k, _host_float(v), global_step)
+        train_loss = _host_float(loss)  # waits for the epoch's last step
         dt = time.perf_counter() - t0
 
         # validation every epoch (Lightning default in the reference)
@@ -716,7 +723,7 @@ def train(
         for bi, (x_raw, y_raw) in enumerate(val_loader):
             x, y = _to_device((x_raw, y_raw), device)
             vloss, vlogs, out = eval_step(x, y)
-            val_losses.append(float(vloss))
+            val_losses.append(_host_float(vloss))
             if bi == 0 and log_meshes and spec.model_type == "Autoencoder":
                 _log_mesh(writer, out, y, global_step)
         val_loss = float(np.mean(val_losses)) if val_losses else float("nan")
@@ -729,8 +736,7 @@ def train(
             f"epoch {epoch}: train_loss={train_loss:.6f} "
             f"val_loss={val_loss:.6f} "
             f"({dt:.1f}s, {dt / n_steps * 1e3:.1f} ms/step wall, "
-            f"{n_steps * batch_size / dt:,.0f} clouds/s; "
-            f"dispatch {step_timer.summary(batch_size, 'clouds')})"
+            f"{n_steps * batch_size / dt:,.0f} clouds/s)"
         )
 
         # checkpoint: snapshot on the device, copy + write in the background;
@@ -755,6 +761,12 @@ def train(
     wait_for_checkpoints()
     writer.close()
     return train_loss, ckpt_dir
+
+
+def _host_float(t) -> float:
+    """float(t): the host waits for the device (counted as `host_sync`)."""
+    count("host_sync")
+    return float(t)
 
 
 class _NullWriter:

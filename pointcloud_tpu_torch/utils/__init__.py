@@ -1,5 +1,5 @@
-"""Utilities: host step timing and device traces, and the device check of
-the entry points."""
+"""Utilities: the program's spans and counters and the device trace
+(`profiling`), and the device check of the entry points."""
 
 import torch
 

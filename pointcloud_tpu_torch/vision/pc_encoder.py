@@ -23,6 +23,7 @@ import torch
 from pointcloud_tpu_torch.envs.encoders import ObservationEncoder
 from pointcloud_tpu_torch.envs.spaces import Box
 from pointcloud_tpu_torch.utils import resolve_device
+from pointcloud_tpu_torch.utils.profiling import count, span
 
 OUTPUT_ROOT = os.environ.get("PCTPU_OUTPUT_ROOT", "output")
 
@@ -158,24 +159,29 @@ def _normalize_pc(obs, features):
     """Normalize(obs bbox) o obs_to_pc, as numpy (pc_encoder.py:106-112)."""
     from pointcloud_tpu_torch.data.dataset import obs_to_pc
 
-    pc = obs_to_pc(obs, features)
-    bbox = np.asarray(obs["boundingbox"], dtype=np.float32)
-    lo, span = bbox[:, 0], bbox[:, 1] - bbox[:, 0]
-    pc = pc.copy()
-    pc[:, :3] = (pc[:, :3] - lo) / span
-    return pc
+    with span("encode.normalize"):
+        pc = obs_to_pc(obs, features)
+        bbox = np.asarray(obs["boundingbox"], dtype=np.float32)
+        lo, extent = bbox[:, 0], bbox[:, 1] - bbox[:, 0]
+        pc = pc.copy()
+        pc[:, :3] = (pc[:, :3] - lo) / extent
+        return pc
 
 
 def _run(fn, pc, device):
     """fn on one normalized cloud (N, C) as a (1, N, C) batch on `device`,
     in eval mode without autograd; the outputs' row 0 as float32 numpy (a
     tensor, or a dict of them)."""
-    x = torch.from_numpy(pc[None]).to(device)
-    with torch.no_grad():
+    with span("encode.h2d"):
+        x = torch.from_numpy(pc[None]).to(device)
+    with span("encode.forward"), torch.no_grad():
         out = fn(x)
-    if isinstance(out, dict):
-        return {k: v[0].float().cpu().numpy() for k, v in out.items()}
-    return out[0].float().cpu().numpy()
+    with span("encode.d2h"):
+        if isinstance(out, dict):
+            count("host_sync", len(out))
+            return {k: v[0].float().cpu().numpy() for k, v in out.items()}
+        count("host_sync")
+        return out[0].float().cpu().numpy()
 
 
 class LatentEncoder(ObservationEncoder):
@@ -226,8 +232,9 @@ class GlobalSceneEncoder(LatentEncoder):
         self.model, _ = load_model(env.scene, model, backbone, version, device=self.device)
 
     def encode_observation(self, obs):
-        pc = _normalize_pc(obs, self.features)
-        return _run(self.model.encode, pc, self.device)
+        with span("encode.observe"):
+            pc = _normalize_pc(obs, self.features)
+            return _run(self.model.encode, pc, self.device)
 
     def encode_goal(self, obs):
         return self.encode_observation(obs)

@@ -15,6 +15,7 @@ import torch
 from pointcloud_tpu_torch.envs.sensors import Sensor
 from pointcloud_tpu_torch.transforms import sensor_chain
 from pointcloud_tpu_torch.utils import resolve_device
+from pointcloud_tpu_torch.utils.profiling import count, span
 
 
 class PointCloudSensor(Sensor):
@@ -49,17 +50,24 @@ class PointCloudSensor(Sensor):
         }
 
     def observe(self, state):
-        points, feats = self.env.backend.capture_pointcloud(
-            features=tuple(self.features)
-        )
-        dims = {f: feats[f].shape[-1] for f in self.features}
-        pc = np.concatenate([points] + [feats[f] for f in self.features], axis=1)
-
-        chain = sensor_chain(self.bbox, self.sample_points, self.sampler,
-                             int(self._rng.integers(0, 2**31)), self.device)
-        pc = torch.from_numpy(np.ascontiguousarray(pc, dtype=np.float32))
-        out, _ = chain(pc.to(self.device))
-        out = out.cpu().numpy()
+        with span("sensor.observe"):
+            with span("sensor.capture"):
+                points, feats = self.env.backend.capture_pointcloud(
+                    features=tuple(self.features)
+                )
+            with span("sensor.pack"):
+                dims = {f: feats[f].shape[-1] for f in self.features}
+                pc = np.concatenate([points] + [feats[f] for f in self.features], axis=1)
+                pc = torch.from_numpy(np.ascontiguousarray(pc, dtype=np.float32))
+            with span("sensor.h2d"):
+                pc = pc.to(self.device)
+            with span("sensor.chain"):
+                chain = sensor_chain(self.bbox, self.sample_points, self.sampler,
+                                     int(self._rng.integers(0, 2**31)), self.device)
+                out, _ = chain(pc)
+            with span("sensor.d2h"):
+                count("host_sync")
+                out = out.cpu().numpy()
 
         result = dict(state)
         result["points"] = out[:, :3]

@@ -2725,3 +2725,71 @@ def test_train_step_on_a_one_rank_nccl_group_is_bit_equal(dev, nccl_group, backb
         assert all(torch.equal(logs_g[k], logs_n[k]) for k in logs_g)
     for k, v in state_g.items():
         assert torch.equal(v, state_n[k]), k
+
+
+def _traced():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _events(prof, device: bool):
+    """The trace's device kernels (device=True) or its host events."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.profiler.kineto_results.events()
+            if (e.device_type() == DeviceType.CUDA) == device
+            and not (device and e.is_user_annotation())]
+
+
+def test_device_span_reads_its_kernel(dev):
+    """A device span around one product reads the product's own interval in
+    the trace within 50 us. A sleep kernel keeps the stream busy as the span
+    opens, so its first event fires as that earlier work ends."""
+    from pointcloud_tpu_torch.utils import profiling
+
+    a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    a @ a
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with _traced() as prof:
+            torch.cuda._sleep(2_000_000)
+            with profiling.span("step.loss", device=True) as s:
+                a @ a
+            torch.cuda.synchronize()
+        got = s.device_ms()
+        work = [e for e in _events(prof, True) if "spin" not in e.name()]
+        start = min(e.start_ns() for e in work)
+        end = max(e.start_ns() + e.duration_ns() for e in work)
+        assert abs(got - (end - start) / 1e6) <= 0.05, (got, (end - start) / 1e6)
+        assert got > 0.5  # the product, not an empty interval
+    finally:
+        profiling.reset()
+
+
+def test_span_encloses_its_kernels_on_the_profilers_clock(dev):
+    """A span that waits for its own kernel encloses that kernel's interval
+    in the trace, and its record_function event starts within 1 ms of it:
+    the span's in-memory stamps are on the clock of the profiler's events."""
+    from pointcloud_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with _traced() as prof:
+            with profiling.span("step.eval"):  # the first record_function's one-off cost
+                pass
+            with profiling.span("step.eval") as s:
+                torch.cuda._sleep(1_000_000)
+                torch.cuda.synchronize()
+        spin = [e for e in _events(prof, True) if "spin" in e.name()]
+        assert len(spin) == 1
+        k = spin[0]
+        assert s.start_ns <= k.start_ns() and k.start_ns() + k.duration_ns() <= s.end_ns, (
+            s.start_ns, s.end_ns, k.start_ns(), k.duration_ns())
+        near = min(abs(e.start_ns() - s.start_ns) for e in _events(prof, False)
+                   if e.name() == "step.eval")
+        assert near < 1e6, near
+    finally:
+        profiling.reset()

@@ -250,15 +250,28 @@ def test_training_settings_are_the_jax_packages():
 
 
 def test_step_timer_and_trace(tmp_path):
-    from pointcloud_tpu_torch.utils.profiling import StepTimer, trace
+    """trace() writes trace.json, and it holds the program's spans: an eval
+    step's root, its phases and its SA levels, as user annotations."""
+    import json
 
-    timer = StepTimer(warmup=1)
-    assert timer.summary() == "no steady-state steps recorded"
-    for _ in range(3):
-        with timer:
-            torch.ones(4).sum()
-    assert len(timer.times) == 2 and timer.p50 > 0 and timer.mean > 0
-    assert "clouds/s" in timer.summary(4, "clouds")
-    with trace(str(tmp_path / "profile")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert (tmp_path / "profile" / "trace.json").stat().st_size > 0
+    from pointcloud_tpu_torch.train.harness import create_model, make_eval_step
+    from pointcloud_tpu_torch.utils import profiling
+    from pointcloud_tpu_torch.utils.profiling import trace
+
+    spec = create_model("Autoencoder", "PointNet2", "Cube", loss_override="chamfer",
+                        device="cpu")
+    step = make_eval_step(spec)
+    x = torch.rand(1, 1024, 6)
+    profiling.reset()
+    try:
+        with trace(str(tmp_path / "profile")):
+            step(x, x)
+        names = [s.name for s in profiling.spans()]
+    finally:
+        profiling.reset()
+    with open(tmp_path / "profile" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    traced = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert names[0] == "step.eval" and set(names) == traced == {
+        "step.eval", "step.transforms", "step.forward", "step.loss",
+        "encoder.SetAbstraction_0", "encoder.SetAbstraction_1", "encoder.SetAbstraction_2"}
